@@ -1,0 +1,1 @@
+"""See the package docstring; module names follow ``theanompi_tpu``."""
