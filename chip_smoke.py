@@ -30,7 +30,7 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    through 53 layers).
    Then one batch-32 ``InferenceSession.infer`` is timed on the host
    clock and traced with ``torch.profiler`` (device time by kernel
-   family, device idle share).
+   family; device idle share against the unprofiled host time).
 5. Result lines: a ``{"kernels": [...]}`` JSON line, the card line, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -71,10 +71,11 @@ def log(msg: str) -> None:
 
 
 def card_line() -> str:
+    """nvidia-smi's name and power limit of the one card the run uses."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
+        ["nvidia-smi", "-i", os.environ["CUDA_VISIBLE_DEVICES"],
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -409,7 +410,9 @@ def trace_forward(torch, export_dir: str) -> dict:
     """Where one batch-32 ``InferenceSession.infer`` spends its time:
     host-clock ms per call (H2D of the uint8 rows, eval transform,
     forward, D2H of the logits), and from ``torch.profiler`` the device
-    time by kernel family and the device's idle share of the calls."""
+    time by kernel family.  The idle share is 1 - device ms / host ms of
+    the unprofiled calls: the profiler's own host work lengthens the
+    profiled calls, so their wall is reported beside it, not used."""
     from torch.profiler import ProfilerActivity, profile
 
     from theanompi_tpu_torch.serving import InferenceSession
@@ -442,9 +445,11 @@ def trace_forward(torch, export_dir: str) -> dict:
                "other")
         families[fam] += us
     device_us = sum(families.values())
+    device_ms = device_us / 5e3
     out = {"infer_ms": infer_ms, "images_per_s": BATCH * 1e3 / infer_ms,
-           "device_ms_per_infer": device_us / 5e3,
-           "idle_share": (1 - device_us / wall_us) if device_us else None,
+           "profiled_infer_ms": wall_us / 5e3,
+           "device_ms_per_infer": device_ms,
+           "idle_share": (1 - device_ms / infer_ms) if device_us else None,
            "families_ms_per_infer": {k: v / 5e3
                                      for k, v in families.items()},
            "top_kernels_ms_per_infer": {
@@ -453,21 +458,33 @@ def trace_forward(torch, export_dir: str) -> dict:
     if not device_us:
         log("  torch.profiler recorded no device time (not measured)")
     else:
-        log(f"  device {out['device_ms_per_infer']:.3f} ms per infer, idle "
-            f"share {out['idle_share']:.3f}; by family "
+        log(f"  device {device_ms:.3f} ms per infer; by family "
             + ", ".join(f"{k} {v:.3f} ms"
                         for k, v in out["families_ms_per_infer"].items()))
     log(f"  batch-{BATCH} infer {infer_ms:.2f} ms host clock "
-        f"({out['images_per_s']:.0f} images/s)")
+        f"({out['images_per_s']:.0f} images/s), "
+        f"{out['profiled_infer_ms']:.2f} ms under the profiler")
+    if device_us:
+        log(f"  idle share {out['idle_share']:.3f} "
+            f"(1 - {device_ms:.3f} / {infer_ms:.2f} ms unprofiled)")
     return out
 
 
 def main() -> int:
+    # one card: the first in nvidia-smi's (PCI bus) order unless the
+    # caller picks one
+    os.environ.setdefault("CUDA_DEVICE_ORDER", "PCI_BUS_ID")
+    os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    if torch.cuda.device_count() != 1:
+        print(f"chip_smoke: runs on one card; CUDA_VISIBLE_DEVICES="
+              f"{os.environ['CUDA_VISIBLE_DEVICES']} shows "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
         return 2
     from theanompi_tpu_torch.models.resnet50 import ResNet50
     from theanompi_tpu_torch.ops import _kernels

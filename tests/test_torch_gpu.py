@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a
 card.  Marked ``gpu``: without a card every test here skips (the check
 is made inside the ``cuda`` fixture, never at import).  On a machine
-with a card:
+with a card (``--noconftest``: ``tests/conftest.py`` imports JAX, which a
+machine set up for the port need not have):
 
-    python -m pytest tests/test_torch_gpu.py -q -m gpu
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
 import pytest

@@ -51,7 +51,7 @@ _PACKAGE = "theanompi_tpu_torch."
 
 class IncompatibleExport(RuntimeError):
     """A published export the live server must not hot-swap in: another
-    model, sample shape, net dims, weight dtype or decode capability."""
+    model, sample shape, net dims or weight dtype."""
 
 
 def meta_path(export_dir: str, version: int) -> str:
@@ -77,10 +77,6 @@ def export_incompatibility(live_meta: dict, new_meta: dict) -> str | None:
     if live_wd != new_wd:
         return (f"weight_dtype changed {live_wd!r} -> {new_wd!r} (restart "
                 "the server to change it)")
-    if bool(live_meta.get("decode")) != bool(new_meta.get("decode")):
-        return ("decode capability changed "
-                f"{bool(live_meta.get('decode'))} -> "
-                f"{bool(new_meta.get('decode'))}")
     return None
 
 

@@ -113,14 +113,13 @@ class InferenceServer:
     """Replica pool + admission + hot reload (module docstring).
 
     ``device`` defaults to ``"cuda"`` and raises without a card; pass
-    ``device="cpu"`` to serve through the kernels' plain versions.
-    ``model=`` skips rebuilding the model from the export's meta (the
-    weights still come from the verified export)."""
+    ``device="cpu"`` to serve through the kernels' plain versions.  The
+    model is rebuilt from the export's meta, and every replica warms up
+    each bucket at :meth:`start`."""
 
     def __init__(self, export_dir: str, replicas: int = 1,
                  policy: BatchPolicy | None = None, max_restarts: int = 2,
-                 reload_poll_s: float = 1.0, warmup: bool = True,
-                 model=None, decode: bool = False,
+                 reload_poll_s: float = 1.0, decode: bool = False,
                  device: str | torch.device = "cuda"):
         if decode:
             raise NotImplementedError(
@@ -132,11 +131,7 @@ class InferenceServer:
         self.policy = policy or BatchPolicy()
         self.reload_poll_s = float(reload_poll_s)
         loaded = load_export(self.export_dir)
-        if model is not None and model.device != self.device:
-            raise ValueError(f"model lives on {model.device}, server "
-                             f"asked for {self.device}")
-        self.model = (model if model is not None
-                      else build_model_from_meta(loaded.meta, self.device))
+        self.model = build_model_from_meta(loaded.meta, self.device)
         self.version = loaded.version        # guarded_by: self._reload_lock
         self._meta = loaded.meta             # guarded_by: self._reload_lock
         self.replicas = [
@@ -144,15 +139,14 @@ class InferenceServer:
                     max_restarts=max_restarts)
             for i in range(int(replicas))
         ]
-        if warmup:
-            shape = tuple(loaded.meta.get("sample_shape")
-                          or self.model.data.sample_shape)
-            dtype = np.dtype(loaded.meta.get("sample_dtype") or np.float32)
-            for r in self.replicas:
-                # runs at start(), on the replica's collector thread; the
-                # raw session, not run_batch: warmup skips the
-                # serve_step fault site and the served-batch counter
-                r.batcher.warmup(shape, dtype, fn=r.session.infer)
+        shape = tuple(loaded.meta.get("sample_shape")
+                      or self.model.data.sample_shape)
+        dtype = np.dtype(loaded.meta.get("sample_dtype") or np.float32)
+        for r in self.replicas:
+            # runs at start(), on the replica's collector thread; the
+            # raw session, not run_batch: warmup skips the serve_step
+            # fault site and the served-batch counter
+            r.batcher.warmup(shape, dtype, fn=r.session.infer)
         self._rr_lock = make_lock("InferenceServer._rr_lock")
         self._rr = 0                          # guarded_by: self._rr_lock
         self._stop = threading.Event()
