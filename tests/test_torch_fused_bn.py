@@ -8,8 +8,20 @@ may contract the multiply-add into an FMA on the CPU, which moves a
 result by up to one f32 ulp of the product: ``atol=1e-6`` on O(1)
 operands.  f32 ``rtol=1e-6`` (a few ulp); bf16 ``rtol=2**-7`` (one bf16
 ulp, where that f32 difference tips the final rounding).
+
+Backward: ``dx = g*s`` and ``dres = g`` are one rounding of the same
+product in both, so the same tolerances hold.  ``ds``/``db`` are f32
+sums over thousands of rows taken in different orders (Pallas per row
+tile, XLA and PyTorch their own): within ``1e-5`` of the sum of
+magnitudes ``sum|g*x|`` (``sum|g|``) of each channel.  The Pallas
+backward's ``ds`` is read only at a row count its tiles divide: at a
+ragged count its ``_bwd_kernel`` multiplies the masked ``g`` by the
+unmasked ``x`` of the padded tail rows (``fused_bn.py:90-92``), and in
+interpret mode those out-of-bounds rows read as NaN, so ``0 * NaN``
+makes its ``ds`` NaN there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -64,6 +76,103 @@ def test_zero_size_input():
     assert tuple(y.shape) == want.shape == (0, C)
 
 
+@pytest.mark.parametrize("rows", [ROWS, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_backward_matches_jax_grad(dtype, residual, act, rows):
+    """dx, dres, ds, db of the port's plain backward, called directly
+    and through autograd, against ``jax.vjp`` of JAX's scale_bias_act
+    (Pallas interpret mode and XLA), at a ragged row count (4133) and
+    one the Pallas tiles divide (4096)."""
+    seed = 10 + 4 * (dtype == "bfloat16") + 2 * residual + (act == "relu")
+    x, res, scale, bias = _inputs(seed, rows=rows)
+    g = np.random.default_rng(seed + 100).standard_normal(x.shape).astype(
+        np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    tx, tg = torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt)
+    tres = torch.from_numpy(res).to(tdt) if residual else None
+    ts, tb = torch.from_numpy(scale), torch.from_numpy(bias)
+    relu = act == "relu"
+    if residual:
+        direct = fused_bn.scale_bias_act_res_bwd_plain(tx, ts, tb, tres, tg,
+                                                       relu)
+    else:
+        dx_, ds_, db_ = fused_bn.scale_bias_act_bwd_plain(tx, ts, tb, tg,
+                                                          relu)
+        direct = (dx_, None, ds_, db_)
+    # through autograd (ScaleBiasAct) on leaf copies of the same inputs
+    leaves = [t.clone().requires_grad_() if t is not None else None
+              for t in (tx, ts, tb, tres)]
+    fused_bn.scale_bias_act(*leaves, act=act).backward(tg)
+    via_autograd = (leaves[0].grad, None if tres is None else leaves[3].grad,
+                    leaves[1].grad, leaves[2].grad)
+
+    gm = g.astype(jdt).astype(np.float32)
+    if relu:
+        z = (x.astype(jdt).astype(np.float32) * scale + bias
+             + (res.astype(jdt).astype(np.float32) if residual else 0))
+        gm = np.where(z > 0, gm, 0)
+    xf = x.astype(jdt).astype(np.float32)
+    ds_tol = 1e-5 * np.abs(gm * xf).sum(0)
+    db_tol = 1e-5 * np.abs(gm).sum(0)
+    rtol = 2**-7 if dtype == "bfloat16" else 1e-6
+    for impl in ("pallas", "xla"):
+        primals = [jnp.asarray(x, jdt), jnp.asarray(scale), jnp.asarray(bias)]
+        if residual:
+            primals.append(jnp.asarray(res, jdt))
+
+        def f(*a):
+            return jax_sba(a[0], a[1], a[2], residual=a[3] if residual
+                           else None, act=act, impl=impl)
+
+        _, vjp = jax.vjp(f, *primals)
+        want = vjp(jnp.asarray(g, jdt))
+        for got in (direct, via_autograd):
+            dx, dres, ds, db = got
+            assert dx.dtype == tdt and ds.dtype == torch.float32
+            np.testing.assert_allclose(dx.float().numpy(),
+                                       np.asarray(want[0], np.float32),
+                                       rtol=rtol, atol=1e-6, err_msg=impl)
+            if residual:
+                assert dres.dtype == tdt
+                np.testing.assert_allclose(dres.float().numpy(),
+                                           np.asarray(want[3], np.float32),
+                                           rtol=rtol, atol=1e-6,
+                                           err_msg=impl)
+            if impl == "pallas" and rows % 1024:
+                continue    # the reference's ragged-tail ds (docstring)
+            assert (np.abs(ds.numpy() - np.asarray(want[1])) <= ds_tol).all()
+            assert (np.abs(db.numpy() - np.asarray(want[2])) <= db_tol).all()
+
+
+def test_backward_zero_size_input():
+    x = torch.zeros((0, C), requires_grad=True)
+    s = torch.ones(C, requires_grad=True)
+    b = torch.zeros(C, requires_grad=True)
+    fused_bn.scale_bias_act(x, s, b).sum().backward()
+    _, vjp = jax.vjp(lambda s_, b_: jax_sba(jnp.zeros((0, C)), s_, b_,
+                                            impl="pallas"),
+                     jnp.ones(C), jnp.zeros(C))
+    ds, db = vjp(jnp.zeros((0, C)))
+    assert x.grad.shape == (0, C)
+    np.testing.assert_array_equal(s.grad.numpy(), np.asarray(ds))
+    np.testing.assert_array_equal(b.grad.numpy(), np.asarray(db))
+
+
+def test_backward_copies_a_non_contiguous_gradient_and_counts_it():
+    x, _, scale, bias = _inputs(seed=9, rows=6 * 8, c=16)
+    tx = torch.from_numpy(x).reshape(6, 8, 16).requires_grad_()
+    y = fused_bn.scale_bias_act(tx, torch.from_numpy(scale),
+                                torch.from_numpy(bias))
+    before = fused_bn.grad_copies.value
+    # the transpose's backward hands over a transposed gradient
+    (y.transpose(1, 2) * torch.randn(6, 16, 8)).sum().backward()
+    assert fused_bn.grad_copies.value == before + 1
+    assert tx.grad.is_contiguous()
+
+
 def test_nhwc_input_and_out_dtype():
     """A 4-D activation is read as its (N*H*W, C) view; out_dtype casts
     (the flax canonicalize_dtype result of BatchNormAct)."""
@@ -115,4 +224,8 @@ def test_device_tensor_without_library_raises(monkeypatch, tmp_path):
     with pytest.raises(_kernels.KernelBuildError):
         fused_bn.scale_bias_act(x, torch.ones(64), torch.zeros(64),
                                 residual=torch.zeros((16, 64)))
+    x = torch.zeros((16, 64), requires_grad=True)
+    with pytest.raises(_kernels.KernelBuildError):
+        fused_bn.scale_bias_act_bwd(x.detach(), torch.ones(64),
+                                    torch.zeros(64), torch.zeros((16, 64)))
     assert _kernels.launch_counts() == before

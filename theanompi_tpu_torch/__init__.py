@@ -9,9 +9,12 @@ Pallas TPU kernel on a ported path is a CUDA C++ kernel written for
 against a plain PyTorch version of the same function.
 
 Ported so far: ResNet-50 image-classification serving
-(``serving.InferenceServer`` over ``models.resnet50.ResNet50``), with
-the fused BN epilogue and the stem max-pool as kernels.  Entry points
-take ``device=`` and default to ``"cuda"``.
+(``serving.InferenceServer`` over ``models.resnet50.ResNet50``) and
+ResNet-50 BSP training (``rules.bsp.BSP`` / ``run_bsp_session`` over
+``TorchModel.train_iter``, one process per card, ``torch.distributed``
+for the exchange), with the fused BN epilogue (forward and backward)
+and the stem max-pool (value and argmax forward, gather backward) as
+kernels.  Entry points take ``device=`` and default to ``"cuda"``.
 """
 
 __version__ = "0.1.0"

@@ -13,7 +13,10 @@ resnet50.ResNet`:
   and the main BNs are ``BatchNorm_1..3``.
 
 Every leaf must be used exactly once: a missing or a leftover leaf
-raises ``KeyError``.
+raises ``KeyError``.  :func:`params_from_flax` maps a ``params``-shaped
+tree alone (weights, or their gradients, or weights after an update)
+onto the port's parameter names, and :func:`batch_stats_from_flax` the
+``batch_stats`` alone onto its buffer names.
 """
 
 from __future__ import annotations
@@ -59,9 +62,40 @@ def state_dict_from_flax(module: ResNet, params,
                          batch_stats) -> dict[str, torch.Tensor]:
     """The port's ``state_dict`` (f32 tensors) for ``module`` from a
     flax ResNet's ``params`` and ``batch_stats``."""
-    pool = {("params", k): v for k, v in _flatten(params).items()}
-    pool.update({("batch_stats", k): v
-                 for k, v in _flatten(batch_stats).items()})
+    out = _from_flax(module, params, batch_stats)
+    expected = set(module.state_dict())
+    if set(out) != expected:
+        raise KeyError("bridge keys differ from the module's state_dict: "
+                       f"{sorted(set(out) ^ expected)[:8]}")
+    return out
+
+
+def params_from_flax(module: ResNet, params) -> dict[str, torch.Tensor]:
+    """``{parameter name: f32 tensor}`` for every parameter of
+    ``module`` from a flax ``params``-shaped tree (weights or their
+    gradients)."""
+    out = _from_flax(module, params, None)
+    expected = {name for name, _ in module.named_parameters()}
+    if set(out) != expected:
+        raise KeyError("bridge keys differ from the module's parameters: "
+                       f"{sorted(set(out) ^ expected)[:8]}")
+    return out
+
+
+def batch_stats_from_flax(module: ResNet,
+                          batch_stats) -> dict[str, torch.Tensor]:
+    """``{buffer name: f32 tensor}`` (every BN's ``mean``/``var``) from
+    a flax ``batch_stats`` tree."""
+    return _from_flax(module, None, batch_stats)
+
+
+def _from_flax(module: ResNet, params, batch_stats) -> dict:
+    pool = {}
+    if params is not None:
+        pool.update({("params", k): v for k, v in _flatten(params).items()})
+    if batch_stats is not None:
+        pool.update({("batch_stats", k): v
+                     for k, v in _flatten(batch_stats).items()})
 
     def take(coll: str, path: str) -> np.ndarray:
         try:
@@ -71,15 +105,21 @@ def state_dict_from_flax(module: ResNet, params,
 
     out: dict[str, np.ndarray] = {}
     for prefix, scope, kind in resnet_layers(module):
-        if kind == "conv":
+        if params is None:
+            if kind == "bn":
+                for name in ("mean", "var"):
+                    out[f"{prefix}.{name}"] = take("batch_stats",
+                                                   f"{scope}/{name}")
+        elif kind == "conv":
             out[f"{prefix}.weight"] = take(
                 "params", f"{scope}/Conv_0/kernel").transpose(3, 2, 0, 1)
         elif kind == "bn":
             for name in ("scale", "bias"):
                 out[f"{prefix}.{name}"] = take("params", f"{scope}/{name}")
-            for name in ("mean", "var"):
-                out[f"{prefix}.{name}"] = take("batch_stats",
-                                               f"{scope}/{name}")
+            if batch_stats is not None:
+                for name in ("mean", "var"):
+                    out[f"{prefix}.{name}"] = take("batch_stats",
+                                                   f"{scope}/{name}")
         else:
             out[f"{prefix}.weight"] = take(
                 "params", f"{scope}/Dense_0/kernel").T
@@ -87,9 +127,5 @@ def state_dict_from_flax(module: ResNet, params,
     if pool:
         left = sorted(f"{c}/{p}" for c, p in pool)
         raise KeyError(f"{len(left)} flax leaves left unmapped: {left[:8]}")
-    expected = set(module.state_dict())
-    if set(out) != expected:
-        raise KeyError("bridge keys differ from the module's state_dict: "
-                       f"{sorted(set(out) ^ expected)[:8]}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
             for k, v in out.items()}

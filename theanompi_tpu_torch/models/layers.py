@@ -1,4 +1,4 @@
-"""Layer library for the port's model zoo (eval path).
+"""Layer library for the port's model zoo.
 
 Counterpart of ``theanompi_tpu/models/layers.py``.  Activations are NHWC
 at every public boundary, as in the JAX package.  A convolution runs
@@ -71,21 +71,30 @@ class Conv(nn.Module):
 
 
 class BatchNormAct(nn.Module):
-    """Eval-mode BatchNorm with its fused epilogue.
+    """BatchNorm with its fused epilogue.
 
     Variables as in the JAX package: params ``scale``/``bias``, running
     stats ``mean``/``var``.  The affine is folded as the JAX Pallas
     branch folds it, in f32: ``scale_eff = scale * rsqrt(var + eps)``,
     ``bias_eff = bias - mean * scale_eff``; then ONE kernel computes
     ``act(x * scale_eff + bias_eff [+ residual])`` and writes ``dtype``
-    (the model's compute dtype, as the JAX models pass it).  Batch
-    statistics (train mode) come with training; a module in train mode
-    refuses to run."""
+    (the model's compute dtype, as the JAX models pass it).
+
+    In eval mode mean/var are the running statistics.  In train mode
+    they are the batch statistics of ``x.float()`` over every axis but
+    the last, with flax's fast variance ``max(0, E[x^2] - E[x]^2)``; the
+    running statistics move ``ra = momentum * ra + (1 - momentum) *
+    stat`` (biased variance, outside autograd), and the gradient reaches
+    ``x`` through the statistics by autograd, as JAX differentiates them.
+    Entering train mode drops an affine folded by
+    :func:`prepare_inference`."""
 
     def __init__(self, features: int, dtype: torch.dtype,
-                 act: str | None = None, epsilon: float = 1e-5):
+                 act: str | None = None, epsilon: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.dtype = dtype
         self.act = act
         self.scale = nn.Parameter(torch.ones(features))
@@ -94,24 +103,50 @@ class BatchNormAct(nn.Module):
         self.register_buffer("var", torch.ones(features))
         self._folded: tuple[torch.Tensor, torch.Tensor] | None = None
 
-    def fold(self) -> tuple[torch.Tensor, torch.Tensor]:
+    def fold(self, mean: torch.Tensor | None = None,
+             var: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The folded affine for ``mean``/``var`` (default: the running
+        statistics)."""
+        mean = self.mean if mean is None else mean
+        var = self.var if var is None else var
         scale = self.scale.float()
-        scale_eff = scale * torch.rsqrt(self.var.float() + self.epsilon)
-        bias_eff = self.bias.float() - self.mean.float() * scale_eff
+        scale_eff = scale * torch.rsqrt(var.float() + self.epsilon)
+        bias_eff = self.bias.float() - mean.float() * scale_eff
         return scale_eff, bias_eff
 
     def _load_from_state_dict(self, *args, **kwargs):
         self._folded = None  # new variables invalidate the folded affine
         super()._load_from_state_dict(*args, **kwargs)
 
+    def train(self, mode: bool = True):
+        if mode:
+            self._folded = None  # batch statistics replace the fold
+        return super().train(mode)
+
+    def batch_stats(self, x: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """f32 batch mean and (biased, fast) variance over all but the
+        last axis of ``x``; moves the running statistics."""
+        xf = x.float()
+        axes = tuple(range(x.ndim - 1))
+        mean = xf.mean(axes)
+        mean2 = (xf * xf).mean(axes)
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
+        return mean, var
+
     def forward(self, x: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNormAct runs on running statistics only; batch "
-                "statistics are not ported yet (call .eval())")
-        scale_eff, bias_eff = (self._folded if self._folded is not None
-                               else self.fold())
+            scale_eff, bias_eff = self.fold(*self.batch_stats(x))
+        elif self._folded is not None:
+            scale_eff, bias_eff = self._folded
+        else:
+            scale_eff, bias_eff = self.fold()
         return scale_bias_act(x, scale_eff, bias_eff, residual=residual,
                               act=self.act, out_dtype=self.dtype)
 
@@ -134,12 +169,41 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(1, 2))
 
 
+# -- loss / metric heads ------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean CE over the batch, labels integer class ids; with
+    ``label_smoothing=eps`` the target is ``(1-eps)*onehot + eps/K``."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(1, labels.long()[:, None]).mean()
+    if label_smoothing:
+        eps = label_smoothing
+        return (1.0 - eps) * nll - eps * logp.mean()
+    return nll
+
+
+def error_rate(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Top-1 error."""
+    return (logits.argmax(-1) != labels).float().mean()
+
+
+def topk_error(logits: torch.Tensor, labels: torch.Tensor,
+               k: int = 5) -> torch.Tensor:
+    """Top-k error; ``k`` is clamped to the class count."""
+    k = min(k, logits.shape[-1])
+    topk = logits.topk(k, dim=-1).indices
+    return 1.0 - (topk == labels[:, None]).any(-1).float().mean()
+
+
 @torch.no_grad()
 def prepare_inference(module: nn.Module) -> nn.Module:
     """Convert a loaded eval module once for serving: conv weights to
     their compute dtype in channels-last (so ``Conv.forward``'s cast is
     a no-op) and every BN affine folded ahead of time.  Call again after
-    loading new weights."""
+    loading new weights.  Never on a module that trains: it replaces the
+    f32 master weights with compute-dtype copies."""
     for m in module.modules():
         if isinstance(m, Conv):
             m.weight.data = m.weight.data.to(

@@ -1,11 +1,13 @@
-"""ResNet-50, eval path.
+"""ResNet-50.
 
 Counterpart of ``theanompi_tpu/models/resnet50.py``: bottleneck ResNet
 over NHWC input, compute in ``dtype`` (bf16 under the ResNet-50 recipe)
-with an f32 head and f32 logits.  Every BN runs through the fused
-epilogue kernel (53 launches per ResNet-50 forward) and the stem pool
-through the max-pool kernel (one launch); the convolutions are
-``F.conv2d``, as the JAX package leaves them to XLA.
+with f32 master weights, an f32 head and f32 logits.  Every BN runs
+through the fused epilogue kernels (53 launches per ResNet-50 forward,
+and as many backward launches in training) and the stem pool through
+the max-pool kernels (one forward launch, and one backward in
+training); the convolutions are ``F.conv2d``, as the JAX package leaves
+them to XLA.
 
 Module attribute names follow the flax scopes so the weight bridge
 (models/bridge.py) is mechanical: ``stem_conv``, ``stem_bn``,
@@ -97,7 +99,14 @@ class ResNet(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.head = L.Dense(in_f, n_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """Logits of NHWC ``x``.  ``train`` is the JAX ``train`` flag and
+        must agree with the module's mode (``.train()``/``.eval()``),
+        which the BNs read."""
+        if train != self.training:
+            raise ValueError(f"forward(train={train}) on a module in "
+                             f"{'train' if self.training else 'eval'} "
+                             "mode; call .train() or .eval() first")
         x = x.to(self.dtype)
         if self.stem == "s2d":
             if x.shape[1] % 2 or x.shape[2] % 2:
@@ -114,20 +123,26 @@ class ResNet(nn.Module):
 
 
 class ResNet50(TorchModel):
-    """The served ResNet-50: full width by default; ``stage_sizes``,
-    ``width``, ``n_classes`` and ``crop`` (the center crop of the uint8
-    requests) are recorded as the export's net dims."""
+    """ResNet-50, served or trained (BSP): full width by default;
+    ``stage_sizes``, ``width``, ``n_classes`` and ``crop`` (the crop of
+    the uint8 store images) are recorded as an export's net dims.
+    ``data`` passes a ready ``ImageNet_data`` (e.g. a smaller synthetic
+    pool) instead of the one built from the config."""
 
     name = "resnet50"
+    uses_batchnorm = True
+    #: 2 x MACs of the forward at 224 (8.2 GFLOP), x3 for fwd + bwd
+    train_flops_per_sample = 24.6e9
 
     def __init__(self, config: ModelConfig | None = None,
                  device: str | torch.device = "cuda",
                  stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
-                 n_classes: int = 1000, crop: int = 224):
+                 n_classes: int = 1000, crop: int = 224,
+                 data: ImageNet_data | None = None):
         self._net_cfg = {"stage_sizes": [int(s) for s in stage_sizes],
                          "width": int(width), "n_classes": int(n_classes),
                          "crop": int(crop)}
-        super().__init__(config, device)
+        super().__init__(config, device, data=data)
 
     @classmethod
     def default_config(cls) -> ModelConfig:
@@ -146,7 +161,10 @@ class ResNet50(TorchModel):
                       stem=self.config.resnet_stem)
 
     def build_data(self) -> ImageNet_data:
-        return ImageNet_data(crop=self._net_cfg["crop"],
+        cfg = self.config
+        return ImageNet_data(data_dir=cfg.data_dir, crop=self._net_cfg["crop"],
+                             seed=cfg.seed,
+                             augment_on_device=cfg.augment_on_device,
                              n_classes=self._net_cfg["n_classes"])
 
     @torch.no_grad()

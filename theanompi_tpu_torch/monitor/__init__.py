@@ -2,9 +2,9 @@
 
 Monitoring is OFF unless a run dir is configured, through
 ``session(run_dir=...)`` or the ``THEANOMPI_TPU_MONITOR`` environment
-variable.  When off, ``inc``/``set_gauge``/``add_gauge``/``observe``
-return after one boolean check and the registry receives
-zero writes.  When on, the session's registry is written as
+variable.  When off, ``inc``/``set_gauge``/``add_gauge``/``observe``/``span``/
+``progress``/``observe_step`` return after one boolean check and the
+registry receives zero writes.  When on, the session's registry is written as
 ``metrics_{name}.jsonl`` in the run dir at session exit.
 """
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
+import time
 from typing import Iterator
 
 from theanompi_tpu_torch.monitor.registry import MetricsRegistry
@@ -91,3 +92,46 @@ def observe(name: str, value: float, /, **labels) -> None:
     if not _state.enabled:
         return
     _state.registry.observe(name, value, **labels)
+
+
+class _Span:
+    """Times its block into the ``span_ms{name=...}`` histogram."""
+
+    def __init__(self, name: str, labels: dict):
+        self.name, self.labels = name, labels
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        observe("span_ms", (time.monotonic() - self._t0) * 1e3,
+                span=self.name, **self.labels)
+        return False
+
+
+def span(name: str, /, **labels):
+    """A context manager timing the block into ``span_ms``; a shared
+    no-op when monitoring is off."""
+    if not _state.enabled:
+        return contextlib.nullcontext()
+    return _Span(name, labels)
+
+
+def progress(phase: str | None = None, step: int | None = None) -> None:
+    """Work advanced: counts ``progress_total{phase=...}`` and records
+    the step in the ``progress_step`` gauge."""
+    if not _state.enabled:
+        return
+    _state.registry.inc("progress_total", phase=str(phase))
+    if step is not None:
+        _state.registry.set_gauge("progress_step", step, phase=str(phase))
+
+
+def observe_step(seconds: float, phase: str | None = None,
+                 step: int | None = None) -> None:
+    """One training step's host time into the ``step_ms`` histogram."""
+    if not _state.enabled:
+        return
+    _state.registry.observe("step_ms", seconds * 1e3, phase=str(phase))
+    progress(phase, step)

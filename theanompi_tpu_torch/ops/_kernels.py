@@ -153,6 +153,22 @@ class Kernel:
             self.launches += 1
 
 
+class Counter:
+    """A thread-safe event count (e.g. gradient copies a wrapper made)."""
+
+    def __init__(self):
+        self.value = 0
+        self._lock = threading.Lock()
+
+    def add(self, n: int = 1) -> None:
+        with self._lock:
+            self.value += n
+
+    def reset(self) -> None:
+        with self._lock:
+            self.value = 0
+
+
 #: every kernel the port defines, by name
 KERNELS: dict[str, Kernel] = {}
 
