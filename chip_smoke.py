@@ -61,8 +61,31 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    (c) One training step on a staged batch, timed (the device-step
    leg) and traced with ``torch.profiler``: device time by family and
    the idle share against the unprofiled step.
-7. Result lines: a ``{"kernels": [...]}`` JSON line, the card line, and
+7. The LRN kernels K3a/K3b against their plain versions on the card, at
+   AlexNet's batch-128 shapes (128x55x55x96 and 128x27x27x256) in bf16
+   and f32, n=3 at C=32, n=4 (the adjoint window), a ragged row count, a
+   C that is not a multiple of the vector width and a misaligned tensor:
+   0 ulp (the kernels do the plain versions' f32 operations in their
+   order and round once).  Times at the bf16 AlexNet shapes beside the
+   byte bound, the plain versions and ``F.local_response_norm``.
+8. One AlexNet BSP step (batch 8, 227 crops, dropout off) as bf16 on
+   the card and as f32 and bf16 on the CPU (plain versions): loss within
+   relative 1e-2, the flattened gradient within relative L2 0.1 of f32
+   and of the CPU's bf16 step.
+9. The AlexNet slice through the launcher a user runs: ``python -m
+   theanompi_tpu_torch.launcher BSP -D 1 -m
+   theanompi_tpu_torch.models.alex_net -c AlexNet`` (one worker, a
+   one-rank NCCL group, batch 128, bf16, the default synthetic pool, two
+   epochs of 64 steps).  Checks: per training step exactly K3a 2 and
+   K3b 2 launches and none of K1/K2, K3a 2 per validation batch, every
+   loss finite.  Prints ms per step and images/s of the second epoch.
+10. One AlexNet training step on a staged batch, timed and traced as in
+   6c: device time by family and the idle share.
+11. Result lines: a ``{"kernels": [...]}`` JSON line, the card line, and
    last ``{"ok": true, "device": {...}}``.
+
+Phases 7 and 8 run after 6a; 6b, 6c, 9 and 10 share one one-rank NCCL
+process group in this process (the launcher's worker makes its own).
 
 Full results (per-shape kernel times, the traces) go to
 ``build/chip_smoke.json``.
@@ -98,6 +121,9 @@ GRAD_CHECK_EXIT_SCALES = (0.05, 0.1)
 #: flattened gradient against f32 and against bf16 on the CPU
 GRAD_CHECK_LIMITS = {"loss_rel": 1e-2, "stats": 0.05, "grad_vs_f32": 0.1,
                      "grad_vs_cpu_bf16": 0.1}
+#: phase 8 limits (AlexNet has no running statistics)
+ALEX_GRAD_LIMITS = {"loss_rel": 1e-2, "grad_vs_f32": 0.1,
+                    "grad_vs_cpu_bf16": 0.1}
 KERNEL_SOURCES = {
     "scale_bias_act": ("theanompi_tpu_torch/csrc/fused_bn.cu",
                        "theanompi_tpu/ops/fused_bn.py:138"),
@@ -113,12 +139,27 @@ KERNEL_SOURCES = {
                             "theanompi_tpu/ops/maxpool_pallas.py:169"),
     "maxpool3x3s2_bwd": ("theanompi_tpu_torch/csrc/maxpool.cu",
                          "theanompi_tpu/ops/maxpool_pallas.py:195"),
+    "lrn": ("theanompi_tpu_torch/csrc/lrn.cu",
+            "theanompi_tpu/ops/lrn_pallas.py:55"),
+    "lrn_bwd": ("theanompi_tpu_torch/csrc/lrn.cu",
+                "theanompi_tpu/ops/lrn_pallas.py:55"),
 }
-#: launches of each training kernel per batch-128 step
+#: launches of each kernel per batch-128 ResNet-50 training step
 TRAIN_LAUNCHES = {"scale_bias_act": 37, "scale_bias_act_res": 16,
                   "scale_bias_act_bwd": 37, "scale_bias_act_res_bwd": 16,
                   "maxpool3x3s2_argmax": 1, "maxpool3x3s2_bwd": 1,
-                  "maxpool3x3s2": 0}
+                  "maxpool3x3s2": 0, "lrn": 0, "lrn_bwd": 0}
+#: launches of each kernel per AlexNet training step and per validation
+#: batch (LRN after conv1 and conv2)
+ALEX_TRAIN_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "lrn": 2,
+                       "lrn_bwd": 2}
+ALEX_VAL_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "lrn": 2}
+#: the AlexNet session through the launcher: epochs of the default
+#: synthetic pool (8192 images: 64 steps of 128, 4 validation batches);
+#: the second epoch's steps are the timed ones
+ALEX_EPOCHS = 2
+#: LRN activations ~ N(0, 20^2) in the kernel check, so a*W(x^2) is live
+LRN_SCALE = 20.0
 
 
 def log(msg: str) -> None:
@@ -485,6 +526,156 @@ def check_k2_train(torch) -> dict:
     return {"maxpool3x3s2_argmax": fwd, "maxpool3x3s2_bwd": bwd}
 
 
+# -- phase 7: the LRN kernels against their plain versions -----------------
+
+def check_k3(torch) -> dict:
+    """K3a/K3b against their plain versions on the card: AlexNet's two
+    batch-128 shapes (after conv1 and conv2) in bf16 and f32, n=3 at
+    C=32, n=4 (the adjoint window), a ragged row count, a C that is not
+    a multiple of the vector width and a misaligned tensor (the scalar
+    path); each 0 ulp (the kernels do the plain version's f32
+    operations in its order and round once).  At the two bf16 AlexNet
+    shapes: kernel, plain version and ``F.local_response_norm`` (on the
+    NCHW view; forward, and forward + backward through autograd) timed
+    with CUDA graphs, beside each kernel's byte bound."""
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.ops import lrn
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    alex = [(TRAIN_BATCH, 55, 55, 96), (TRAIN_BATCH, 27, 27, 256)]
+    cases = ([(shp, 5, dt, 0) for dt in (bf16, f32) for shp in alex]
+             + [(shp, n, dt, off) for dt in (bf16, f32)
+                for shp, n, off in (((2, 9, 7, 32), 3, 0),
+                                    ((3, 11, 13, 96), 4, 0),
+                                    ((1, 33, 33, 96), 5, 0),
+                                    ((2, 5, 7, 33), 5, 0),
+                                    ((2, 5, 7, 32), 5, 1))])
+    rows_out = []
+    worst = {"lrn": 0.0, "lrn_bwd": 0.0}
+    # per batch-128 step (both shapes, bf16): kernel, plain, library
+    # ms, bytes and operations of each kernel
+    step = {"lrn": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
+                        ops=0),
+            "lrn_bwd": dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
+                            ops=0)}
+    lib_fwd_bwd_ms = 0.0
+
+    def rand(shape, dtype, scale, offset):
+        t = torch.randn(math.prod(shape) + offset, generator=gen,
+                        device="cuda") * scale
+        return t.to(dtype)[offset:].view(shape)
+
+    for shape, n, dtype, off in cases:
+        x, g = rand(shape, dtype, LRN_SCALE, off), rand(shape, dtype, 1, off)
+        y, dx = lrn.lrn_fwd(x, n), lrn.lrn_bwd(x, g, n)
+        want_y, want_dx = lrn.lrn_plain(x, n), lrn.lrn_bwd_plain(x, g, n)
+        torch.cuda.synchronize()
+        ulp = (ulp_distance(torch, y, want_y),
+               ulp_distance(torch, dx, want_dx))
+        err = (float((y.float() - want_y.float()).abs().max()),
+               float((dx.float() - want_dx.float()).abs().max()))
+        worst["lrn"] = max(worst["lrn"], err[0])
+        worst["lrn_bwd"] = max(worst["lrn_bwd"], err[1])
+        row = {"shape": list(shape), "n": n, "offset": off,
+               "dtype": str(dtype).replace("torch.", ""), "ulp_y": ulp[0],
+               "ulp_dx": ulp[1], "max_abs_err_y": err[0],
+               "max_abs_err_dx": err[1]}
+        if any(ulp):
+            raise AssertionError(f"K3 {row}: kernel differs from its plain "
+                                 "version (limit 0 ulp)")
+        del y, dx, want_y, want_dx
+        if dtype == bf16 and shape in alex:
+            row.update(time_k3(torch, F, lrn, x, g, n))
+            for name in ("lrn", "lrn_bwd"):
+                for key in step[name]:
+                    step[name][key] += row[name][key]
+            lib_fwd_bwd_ms += row["library_fwd_bwd_ms"]
+        rows_out.append(row)
+        log(f"  K3 {str(list(shape)):20s} n={n} {row['dtype']:8s} "
+            f"offset={off}: y {ulp[0]} ulp, dx {ulp[1]} ulp"
+            + ("" if "lrn" not in row else
+               f"; K3a {row['lrn']['ms'] * 1e3:.1f} us (plain "
+               f"{row['lrn']['plain_ms'] * 1e3:.1f}, F.local_response_norm "
+               f"{row['lrn']['library_ms'] * 1e3:.1f}, bound "
+               f"{row['lrn']['bound_ms'] * 1e3:.1f}); K3b "
+               f"{row['lrn_bwd']['ms'] * 1e3:.1f} us (plain "
+               f"{row['lrn_bwd']['plain_ms'] * 1e3:.1f}, bound "
+               f"{row['lrn_bwd']['bound_ms'] * 1e3:.1f}); library fwd+bwd "
+               f"{row['library_fwd_bwd_ms'] * 1e3:.1f} us"))
+        del x, g
+    per_step = {name: {"ms": d["ms"], "plain_ms": d["plain_ms"],
+                       "library_ms": d["library_ms"],
+                       "bound_ms": bound_ms(d["nbytes"], d["ops"]),
+                       "bound_by": bound_by(d["nbytes"], d["ops"])}
+                for name, d in step.items()}
+    log(f"  per step (both LRNs, bf16): K3a "
+        f"{per_step['lrn']['ms']:.4f} ms (bound "
+        f"{per_step['lrn']['bound_ms']:.4f}), K3b "
+        f"{per_step['lrn_bwd']['ms']:.4f} ms (bound "
+        f"{per_step['lrn_bwd']['bound_ms']:.4f}); kernels fwd+bwd "
+        f"{per_step['lrn']['ms'] + per_step['lrn_bwd']['ms']:.4f} ms "
+        f"against F.local_response_norm fwd+bwd {lib_fwd_bwd_ms:.4f} ms")
+    return {"cases": rows_out, "max_abs_err": worst, "per_step": per_step,
+            "library_fwd_bwd_ms_per_step": lib_fwd_bwd_ms}
+
+
+def time_k3(torch, F, lrn, x, g, n) -> dict:
+    """Device times of K3a and K3b at one shape, of their plain
+    versions, and of ``F.local_response_norm`` on the NCHW view: its
+    forward (K3a's library time), and its forward + backward through
+    autograd less that forward (K3b's: no single PyTorch call computes
+    the backward alone)."""
+    elt = x.element_size()
+    numel = x.numel()
+    nb = {"lrn": 2 * numel * elt, "lrn_bwd": 3 * numel * elt}
+    # per element: n squares, n-1 adds, a*W, k+, pow, x*p (K3a); the same
+    # plus t (2 mul), the first term (2 mul), n-1 adjoint adds, 2 mul
+    # and the subtraction (K3b)
+    ops = {"lrn": numel * (2 * n + 3), "lrn_bwd": numel * (3 * n + 9)}
+    k = copies_for(nb["lrn_bwd"])
+    xs = [x] + [x.clone() for _ in range(k - 1)]
+    gs = [g] + [g.clone() for _ in range(k - 1)]
+    reps = max(2, 20 // k)
+
+    def lib_fwd(i):
+        return F.local_response_norm(xs[i].permute(0, 3, 1, 2), n,
+                                     alpha=1e-4, beta=0.75, k=2.0)
+
+    xr = [t.detach().clone().requires_grad_() for t in xs]
+
+    def lib_fwd_bwd(i):
+        y = F.local_response_norm(xr[i].permute(0, 3, 1, 2), n, alpha=1e-4,
+                                  beta=0.75, k=2.0)
+        return torch.autograd.grad(y, xr[i], gs[i].permute(0, 3, 1, 2))
+
+    out = {}
+    times = {
+        "lrn": (graph_ms(torch, [(lambda i=i: lrn.lrn_fwd(xs[i], n))
+                                 for i in range(k)], reps),
+                graph_ms(torch, [(lambda i=i: lrn.lrn_plain(xs[i], n))
+                                 for i in range(k)], max(2, reps // 2)),
+                graph_ms(torch, [(lambda i=i: lib_fwd(i))
+                                 for i in range(k)], reps)),
+        "lrn_bwd": (graph_ms(torch, [(lambda i=i: lrn.lrn_bwd(xs[i], gs[i],
+                                                              n))
+                                     for i in range(k)], reps),
+                    graph_ms(torch, [(lambda i=i: lrn.lrn_bwd_plain(
+                        xs[i], gs[i], n)) for i in range(k)],
+                        max(2, reps // 2)),
+                    None)}
+    fwd_bwd = graph_ms(torch, [(lambda i=i: lib_fwd_bwd(i))
+                               for i in range(k)], reps)
+    times["lrn_bwd"] = times["lrn_bwd"][:2] + (fwd_bwd - times["lrn"][2],)
+    for name, (k_ms, p_ms, l_ms) in times.items():
+        out[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                     "nbytes": nb[name], "ops": ops[name],
+                     "bound_ms": bound_ms(nb[name], ops[name])}
+    out["library_fwd_bwd_ms"] = fwd_bwd
+    return out
+
+
 # -- phase 4: the served slice ----------------------------------------------
 
 def seeded_weights(torch, ref_model, seed: int,
@@ -660,7 +851,7 @@ def trace_forward(torch, export_dir: str) -> dict:
     families = {"fused_bn (K1)": 0.0, "maxpool (K2)": 0.0, "other": 0.0}
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not device_kernel(torch, e):
             continue
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -701,10 +892,11 @@ def rel_l2(torch, got, want) -> float:
                  / torch.linalg.vector_norm(want))
 
 
-def one_bsp_step(torch, model, batch, crops) -> dict:
+def one_bsp_step(torch, model, batch, crops, crop: int = 224,
+                 lr: float = 0.05, weight_decay: float = 1e-4) -> dict:
     """One BSP step of ``model`` on uint8 ``batch`` with explicit crop
     offsets and flips; its loss, flattened gradient and updated running
-    statistics (f32, on the CPU)."""
+    statistics (f32, on the CPU; empty without BatchNorm)."""
     from theanompi_tpu_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
     from theanompi_tpu_torch.models import layers as L
     from theanompi_tpu_torch.ops.augment import crop_flip_normalize
@@ -722,23 +914,24 @@ def one_bsp_step(torch, model, batch, crops) -> dict:
 
     def loss_fn(module, batch_, rng_):
         xb, yb = batch_
-        logits = module(crop_flip_normalize(xb, ys, xs, flips, 224, mean,
+        logits = module(crop_flip_normalize(xb, ys, xs, flips, crop, mean,
                                             std), train=True)
         loss = L.softmax_cross_entropy(logits, yb)
         return loss, {"error": L.error_rate(logits.detach(), yb)}
 
     model.module.train()
     state = TrainState(model.module, build_optimizer(
-        model.module.parameters(), 0.05, "sgd", momentum=0.9,
-        weight_decay=1e-4))
+        model.module.parameters(), lr, "sgd", momentum=0.9,
+        weight_decay=weight_decay))
     t0 = time.monotonic()
     metrics = make_bsp_train_step(loss_fn)(
         state, tuple(t.to(dev) for t in batch), None)
     out = {"loss": float(metrics["loss"]),
            "grads": torch.cat([p.grad.float().reshape(-1).cpu()
                                for p in model.module.parameters()]),
-           "stats": torch.cat([b.float().reshape(-1).cpu()
-                               for b in running_stats(model.module)]),
+           "stats": torch.cat([torch.zeros(0)] + [
+               b.float().reshape(-1).cpu()
+               for b in running_stats(model.module)]),
            "s": time.monotonic() - t0}
     model.module.eval()
     return out
@@ -807,6 +1000,140 @@ def grad_check(torch) -> dict:
             f"{GRAD_CHECK_EXIT_SCALES}: {over} over {GRAD_CHECK_LIMITS}, "
             f"finite {r['finite']}")
     return {"images": n, "limits": GRAD_CHECK_LIMITS, **results}
+
+
+def alexnet_grad_check(torch) -> dict:
+    """One BSP step of the same seeded AlexNet as a bf16 model on the
+    card, an f32 model on the CPU and a bf16 model on the CPU (plain
+    versions), on the same 8 uint8 256x256 images with the same explicit
+    227 crops and flips, under the recipe's SGD (LR 0.01, momentum 0.9,
+    wd 5e-4).  Dropout is the identity on all three (rate 0), so the
+    steps compare like with like.  The weights are He-normal
+    (N(0, 2/fan_in)) with the recipe's bias constants, so activations
+    stay O(1) through the depth.  Limits: loss within relative 1e-2,
+    the flattened gradient within relative L2 0.1 of f32 and of the
+    CPU's bf16 step."""
+    from theanompi_tpu_torch.models import layers as L
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+
+    rng = np.random.default_rng(8)
+    n = GRAD_CHECK_IMAGES
+    batch = (torch.from_numpy(rng.integers(0, 256, (n, 256, 256, 3),
+                                           dtype=np.uint8)),
+             torch.from_numpy(rng.integers(0, 1000, n).astype(np.int64)))
+    crops = (torch.from_numpy(rng.integers(0, 30, n)),
+             torch.from_numpy(rng.integers(0, 30, n)),
+             torch.from_numpy(rng.random(n) < 0.5))
+    f32 = AlexNet(device="cpu", config=dataclasses.replace(
+        AlexNet.default_config(), compute_dtype="float32"))
+    with torch.no_grad():
+        for m in f32.module.modules():
+            if isinstance(m, (L.Conv, L.Dense)):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.from_numpy(
+                    (rng.standard_normal(tuple(m.weight.shape))
+                     * math.sqrt(2.0 / fan_in)).astype(np.float32)))
+    steps = {}
+    for name, model in (("card", AlexNet(device="cuda")),
+                        ("cpu_bf16", AlexNet(device="cpu")),
+                        ("cpu_f32", f32)):
+        if model is not f32:
+            model.module.load_state_dict(f32.module.state_dict())
+        model.module.drop.rate = 0.0
+        steps[name] = one_bsp_step(torch, model, batch, crops, crop=227,
+                                   lr=0.01, weight_decay=5e-4)
+    card, ref, bf = steps["card"], steps["cpu_f32"], steps["cpu_bf16"]
+    r = {"images": n, "limits": ALEX_GRAD_LIMITS,
+         "loss_card": card["loss"], "loss_cpu_f32": ref["loss"],
+         "loss_rel": abs(card["loss"] - ref["loss"]) / abs(ref["loss"]),
+         "grad_vs_f32": rel_l2(torch, card["grads"], ref["grads"]),
+         "grad_vs_cpu_bf16": rel_l2(torch, card["grads"], bf["grads"]),
+         "cpu_bf16_vs_f32": rel_l2(torch, bf["grads"], ref["grads"]),
+         "finite": bool(torch.isfinite(card["grads"]).all()),
+         "cpu_f32_s": ref["s"], "cpu_bf16_s": bf["s"]}
+    log(f"  loss card {r['loss_card']:.6f} cpu f32 {r['loss_cpu_f32']:.6f} "
+        f"(rel {r['loss_rel']:.3g}); gradient rel L2 card vs f32 "
+        f"{r['grad_vs_f32']:.4g}, card vs cpu bf16 "
+        f"{r['grad_vs_cpu_bf16']:.4g}, cpu bf16 vs f32 "
+        f"{r['cpu_bf16_vs_f32']:.4g} (cpu steps f32 {r['cpu_f32_s']:.1f} "
+        f"s, bf16 {r['cpu_bf16_s']:.1f} s)")
+    over = {k: r[k] for k, lim in ALEX_GRAD_LIMITS.items() if not r[k] <= lim}
+    if over or not r["finite"]:
+        raise AssertionError(f"AlexNet card step off the CPU references: "
+                             f"{over} over {ALEX_GRAD_LIMITS}, finite "
+                             f"{r['finite']}")
+    return r
+
+
+def launcher_session(torch, workdir: str) -> dict:
+    """The AlexNet slice's main path as a user starts it: ``python -m
+    theanompi_tpu_torch.launcher BSP -D 1 -m
+    theanompi_tpu_torch.models.alex_net -c AlexNet`` in a subprocess (one
+    worker on this card, a one-rank NCCL group), the default recipe at
+    batch 128 on the default synthetic pool, ``ALEX_EPOCHS`` epochs.
+    The worker is a fresh process, so its launch counts start at 0; its
+    epoch records carry the launches of each epoch's training steps and
+    of its validation pass.  Every loss finite: the records hold each
+    epoch's mean training loss, which is finite only if every step's
+    loss (a cross-entropy, never negative) is."""
+    out_json = os.path.join(workdir, "result.json")
+    cmd = [sys.executable, "-m", "theanompi_tpu_torch.launcher", "BSP",
+           "-D", "1", "-m", "theanompi_tpu_torch.models.alex_net", "-c",
+           "AlexNet", "--epochs", str(ALEX_EPOCHS), "--snapshot-dir",
+           workdir, "--set", "print_freq=16", "--result-json", out_json]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.monotonic() - t0
+    tail = (proc.stdout[-3000:] + proc.stderr[-3000:]).strip()
+    for line in proc.stdout.strip().splitlines()[-6:]:
+        log(f"    | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher exited {proc.returncode}:\n{tail}")
+    with open(out_json) as f:
+        res = json.load(f)
+    recs = res["records"]
+    if len(recs) != ALEX_EPOCHS or res["world_size"] != 1:
+        raise AssertionError(f"launcher result: {len(recs)} epochs, world "
+                             f"{res['world_size']}")
+    totals: dict[str, int] = {}
+    for rec in recs:
+        steps, n_val = rec["train_steps"], rec["val_batches"]
+        want_t = {k: v * steps for k, v in ALEX_TRAIN_LAUNCHES.items()}
+        want_v = {k: v * n_val for k, v in ALEX_VAL_LAUNCHES.items()}
+        # the worker registers only the kernels of the modules it
+        # imported (no K2 module on AlexNet's path): absent means 0
+        got_t, got_v = ({k: rec["launches"][part].get(k, 0) for k in want}
+                        for part, want in (("train", want_t),
+                                           ("val", want_v)))
+        unknown = (set(rec["launches"]["train"])
+                   | set(rec["launches"]["val"])) - set(want_t)
+        if got_t != want_t or got_v != want_v or unknown:
+            raise AssertionError(
+                f"epoch {rec['epoch']}: launches {rec['launches']} != train "
+                f"{want_t}, val {want_v} ({steps} steps, {n_val} "
+                "validation batches)")
+        if not all(math.isfinite(rec[k]) for k in ("train_loss",
+                                                   "val_loss")):
+            raise AssertionError(f"non-finite loss in {rec}")
+        for k in want_t:
+            totals[k] = totals.get(k, 0) + got_t[k] + got_v[k]
+    last = recs[-1]
+    ms = last["train_s"] * 1e3 / last["train_steps"]
+    out = {"cmd": " ".join(cmd[1:]), "wall_s": wall, "records": recs,
+           "val": res["val"], "launches": totals,
+           "ms_per_step": ms, "images_per_s": TRAIN_BATCH * 1e3 / ms,
+           "first_epoch_ms_per_step": recs[0]["train_s"] * 1e3
+           / recs[0]["train_steps"]}
+    log(f"  {len(recs)} epochs of {last['train_steps']} steps + "
+        f"{last['val_batches']} validation batches in {wall:.1f} s; "
+        f"launches per step {ALEX_TRAIN_LAUNCHES['lrn']} K3a + "
+        f"{ALEX_TRAIN_LAUNCHES['lrn_bwd']} K3b, per validation batch "
+        f"{ALEX_VAL_LAUNCHES['lrn']} K3a, none of K1/K2 (totals {totals})")
+    log(f"  epoch {last['epoch']}: {ms:.2f} ms/step, "
+        f"{out['images_per_s']:.0f} images/s per card (epoch 0, first "
+        f"steps included: {out['first_epoch_ms_per_step']:.2f} ms/step); "
+        f"train loss {[r['train_loss'] for r in recs]}, val {res['val']}")
+    return out
 
 
 def free_port() -> int:
@@ -900,9 +1227,23 @@ def train_session(torch, workdir: str) -> tuple[dict, object]:
     return out, model
 
 
+def device_kernel(torch, event) -> bool:
+    """A profiler event that is work on the card: a CUDA event that is
+    not a user annotation (``Optimizer.step#SGD.step`` is a range on the
+    device timeline around the optimizer's kernels, not a kernel)."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
+
+
 def family(name: str) -> str:
     """Kernel family of a device event name in a training step."""
     n = name.lower()
+    if "lrn_fwd_kernel" in n or "lrn_bwd_kernel" in n:
+        return "LRN (K3a/K3b)"
+    if "max_pool" in n or "avg_pool" in n:
+        return "pools (F.max_pool2d)"
+    if "distribution" in n or "philox" in n:
+        return "dropout masks (random)"
     if "scale_bias_act_bwd_kernel" in n or "sum_tiles_kernel" in n:
         return "K1 backward (K1c/K1d)"
     if "scale_bias_act_kernel" in n:
@@ -957,7 +1298,7 @@ def trace_train_step(torch, model) -> dict:
     families: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not device_kernel(torch, e):
             continue
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -984,6 +1325,20 @@ def trace_train_step(torch, model) -> dict:
                 f"{k} {v:.3f} ms"
                 for k, v in out["families_ms_per_step"].items()))
     return out
+
+
+def trace_alexnet_step(torch) -> dict:
+    """The AlexNet device-step leg: the default recipe (batch 128, bf16,
+    dropout on) on a staged synthetic batch, timed and traced as the
+    ResNet step (``trace_train_step``)."""
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+
+    data = ImageNet_data(crop=227, seed=0, synthetic_n=2 * TRAIN_BATCH,
+                         synthetic_pool=16, synthetic_store=256)
+    model = AlexNet(device="cuda", data=data)
+    model.compile_iter_fns()
+    return trace_train_step(torch, model)
 
 
 def main() -> int:
@@ -1062,6 +1417,14 @@ def main() -> int:
 
     log("phase 6a: one step on the card against the CPU references")
     checked = grad_check(torch)
+    torch.cuda.empty_cache()
+
+    log("phase 7: the LRN kernels against their plain versions")
+    k3 = check_k3(torch)
+    torch.cuda.empty_cache()
+    log("phase 8: one AlexNet step on the card against the CPU references")
+    alex_checked = alexnet_grad_check(torch)
+    torch.cuda.empty_cache()
 
     import torch.distributed as dist
 
@@ -1074,6 +1437,12 @@ def main() -> int:
         log("phase 6c: where one training step spends its time")
         step_trace = trace_train_step(torch, trained)
         del trained
+        torch.cuda.empty_cache()
+        log("phase 9: the launcher: AlexNet BSP, one worker on this card")
+        with tempfile.TemporaryDirectory() as tmp:
+            alex_session = launcher_session(torch, tmp)
+        log("phase 10: where one AlexNet training step spends its time")
+        alex_trace = trace_alexnet_step(torch)
     finally:
         dist.destroy_process_group()
 
@@ -1095,12 +1464,19 @@ def main() -> int:
     for name in ("maxpool3x3s2_argmax", "maxpool3x3s2_bwd"):
         kernels.append({**k2_train[name], "name": name,
                         "launches_path": "training"})
+    for name in ("lrn", "lrn_bwd"):
+        kernels.append({**k3["per_step"][name],
+                        "max_abs_err": k3["max_abs_err"][name],
+                        "name": name, "launches_path": "alexnet"})
+    paths = {"serving": (served, TRAIN_LAUNCHES),
+             "training": (session, TRAIN_LAUNCHES),
+             "alexnet": (alex_session, ALEX_TRAIN_LAUNCHES)}
     for k in kernels:
         src, replaces = KERNEL_SOURCES[k["name"]]
-        runs = served if k["launches_path"] == "serving" else session
+        runs, per_step = paths[k["launches_path"]]
         k.update(route="cuda", source=src, replaces=replaces,
                  launches=runs["launches"][k["name"]],
-                 train_launches_per_step=TRAIN_LAUNCHES[k["name"]],
+                 train_launches_per_step=per_step[k["name"]],
                  train_session_launches=session["launches"][k["name"]])
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
@@ -1109,14 +1485,22 @@ def main() -> int:
                    "k1_cases_batch128": k1_128["cases"],
                    "k1_bwd_cases": k1_bwd["cases"], "k2_train": k2_train,
                    "grad_check": checked, "session": session,
-                   "train_step_trace": step_trace, "kernels": kernels,
+                   "train_step_trace": step_trace, "k3": k3,
+                   "alexnet_grad_check": alex_checked,
+                   "alexnet_session": alex_session,
+                   "alexnet_step_trace": alex_trace, "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "
                            "per_train_step: per batch-128 step) or per "
                            "batch-128 step (K1c/K1d), summed over the "
-                           "launches; max-pool per launch.  launches: "
-                           "the served run (launches_path serving) or "
-                           "the training session"}, f, indent=1)
+                           "launches; max-pool per launch; LRN per "
+                           "batch-128 AlexNet step (both shapes, bf16; "
+                           "K3b's library_ms is F.local_response_norm's "
+                           "forward+backward less its forward).  "
+                           "launches: the served run (launches_path "
+                           "serving), the ResNet training session or "
+                           "the AlexNet launcher session (alexnet)"},
+                  f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

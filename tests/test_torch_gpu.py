@@ -10,7 +10,7 @@ machine set up for the port need not have):
 import pytest
 import torch
 
-from theanompi_tpu_torch.ops import _kernels, fused_bn, maxpool
+from theanompi_tpu_torch.ops import _kernels, fused_bn, lrn, maxpool
 
 pytestmark = pytest.mark.gpu
 
@@ -175,3 +175,63 @@ def test_prefetcher_stages_batches_on_the_unindexed_card(cuda):
     for (x, y), (gx, gy) in zip(host, got):
         np.testing.assert_array_equal(gx, x)
         np.testing.assert_array_equal(gy, y)
+
+
+def _lrn_inputs(cuda, shape, dtype, offset=0):
+    """x ~ N(0, 20^2) (so a*W(x^2) is live) and g ~ N(0, 1); ``offset``
+    elements into a fresh buffer (an offset that breaks 16-byte
+    alignment sends the kernels down their scalar path)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    n = 1
+    for d in shape:
+        n *= d
+    x = torch.randn(n + offset, generator=gen, device=cuda) * 20
+    g = torch.randn(n + offset, generator=gen, device=cuda)
+    return (x.to(dtype)[offset:].view(shape),
+            g.to(dtype)[offset:].view(shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,n,offset", [
+    ((128, 55, 55, 96), 5, 0), ((128, 27, 27, 256), 5, 0),
+    ((2, 9, 7, 32), 3, 0), ((3, 11, 13, 96), 4, 0),
+    ((1, 33, 33, 96), 5, 0),        # 1089 rows: a ragged last tile
+    ((2, 5, 7, 33), 5, 0),          # C not a multiple of the vector
+    ((2, 5, 7, 32), 5, 1)])         # misaligned: the scalar path
+def test_lrn_kernels_match_plain(cuda, dtype, shape, n, offset):
+    """K3a/K3b against their plain versions: the same f32 operations in
+    the same order, rounded once, so bit-exact."""
+    x, g = _lrn_inputs(cuda, shape, dtype, offset)
+    before = (lrn.K_FWD.launches, lrn.K_BWD.launches)
+    y = lrn.lrn_fwd(x, n)
+    dx = lrn.lrn_bwd(x, g, n)
+    want_y, want_dx = lrn.lrn_plain(x, n), lrn.lrn_bwd_plain(x, g, n)
+    torch.cuda.synchronize()
+    assert (lrn.K_FWD.launches, lrn.K_BWD.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert y.dtype == dx.dtype == dtype
+    assert torch.equal(y, want_y)
+    assert torch.equal(dx, want_dx)
+
+
+def test_lrn_autograd_runs_both_kernels(cuda):
+    x, g = _lrn_inputs(cuda, (2, 6, 6, 96), torch.bfloat16)
+    x.requires_grad_()
+    before = (lrn.K_FWD.launches, lrn.K_BWD.launches)
+    lrn.lrn(x).backward(g)
+    torch.cuda.synchronize()
+    assert (lrn.K_FWD.launches, lrn.K_BWD.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    assert torch.equal(x.grad, lrn.lrn_bwd_plain(x.detach(), g))
+
+
+def test_lrn_kernels_refuse_what_they_do_not_take(cuda):
+    with pytest.raises(TypeError, match="float32|bfloat16"):
+        lrn.lrn(torch.zeros(1, 2, 2, 8, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError, match="C <= 4096"):
+        lrn.lrn(torch.zeros(1, 1, 2, 4097, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        lrn.lrn(torch.zeros(1, 2, 8, 4, device=cuda).transpose(2, 3))
+    x = torch.zeros(1, 2, 2, 8, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        lrn.lrn_bwd(x, x.bfloat16())

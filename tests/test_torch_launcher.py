@@ -1,0 +1,154 @@
+"""``python -m theanompi_tpu_torch.launcher BSP`` on the CPU (gloo).
+
+A 2-process run of a tiny AlexNet (full layer widths, 67-pixel crops,
+10 classes, a synthetic pool of 4 images) writes its result JSON, every
+loss is finite, and the two ranks end with equal parameters; a worker
+that fails stops its sibling and the launcher exits non-zero; unported
+rules and options exit non-zero naming their ROADMAP item.
+
+This file imports no JAX: it is also the model module the launched
+workers import (``-m test_torch_launcher -c TinyAlexNet``).  Every
+launch runs under a hard ``timeout``.
+"""
+
+import dataclasses
+import json
+import math
+import os
+import threading
+
+import pytest
+import torch
+
+from theanompi_tpu_torch import launcher
+from theanompi_tpu_torch.data.imagenet import ImageNet_data
+from theanompi_tpu_torch.models.alex_net import AlexNet
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+
+
+class TinyAlexNet(AlexNet):
+    """AlexNet at full widths on 67-pixel crops (67 -> 15 -> 7 -> 3 -> 1
+    through conv1 and the pools), f32, 10 classes, 16 training images."""
+
+    def __init__(self, config=None, device="cuda"):
+        torch.set_num_threads(1)
+        data = ImageNet_data(crop=67, seed=0, synthetic_n=16,
+                             synthetic_pool=4, synthetic_store=72,
+                             n_classes=10)
+        data.n_val = 8          # 2 validation batches per rank
+        super().__init__(config, device, n_classes=10, crop=67, data=data)
+
+    @classmethod
+    def default_config(cls):
+        return dataclasses.replace(
+            AlexNet.default_config(), batch_size=2, n_epochs=1,
+            compute_dtype="float32", print_freq=2)
+
+
+class FailingAlexNet(TinyAlexNet):
+    """Rank 1 fails while building its model; rank 0 then waits in its
+    first collective until the launcher stops it."""
+
+    def __init__(self, config=None, device="cuda"):
+        if os.environ.get("RANK") == "1":
+            raise RuntimeError("rank 1 fails on purpose")
+        super().__init__(config, device)
+
+
+@pytest.fixture
+def workers_import_this_file(monkeypatch):
+    """The launched workers find this module (and the port, which the
+    launcher puts on their path itself)."""
+    monkeypatch.setenv("PYTHONPATH", TESTS)
+
+
+def _launch(argv, timeout):
+    """``launcher.main(argv)`` in a thread, its workers' output captured
+    by pytest (``capfd``); fails the test if it outlives ``timeout``."""
+    out = {}
+    t = threading.Thread(target=lambda: out.update(rc=launcher.main(argv)),
+                         daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"launcher still running after {timeout} s"
+    return out["rc"]
+
+
+def test_two_process_gloo_bsp_run(tmp_path, workers_import_this_file, capfd):
+    out = tmp_path / "result.json"
+    rc = _launch(["BSP", "-D", "2", "--platform", "cpu", "-m",
+                  "test_torch_launcher", "-c", "TinyAlexNet",
+                  "--snapshot-dir", str(tmp_path), "--lr", "0.001",
+                  "--result-json", str(out)], timeout=150)
+    stdout, stderr = capfd.readouterr()
+    assert rc == 0, stdout[-3000:] + stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert res["world_size"] == 2 and res["device"] == "cpu"
+    assert res["epochs_run"] == 1
+    rec = res["records"][0]
+    # 16 images, global batch 2 x 2 ranks: 4 steps; 8 validation
+    # images, 2 per rank per batch: 2 batches
+    assert rec["train_steps"] == 4 and rec["val_batches"] == 2
+    for key in ("train_loss", "val_loss"):
+        assert math.isfinite(rec[key]), rec
+    assert all(math.isfinite(v) for v in res["val"].values())
+    # the replicas ended identical
+    assert len(set(res["param_digests"])) == 1
+    # CPU tensors take the plain versions: no kernel launched
+    assert not any(rec["launches"]["train"].values())
+    assert "final val" in stdout
+
+
+def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
+                                        capfd):
+    rc = _launch(["BSP", "-D", "2", "--platform", "cpu", "-m",
+                  "test_torch_launcher", "-c", "FailingAlexNet",
+                  "--snapshot-dir", str(tmp_path)], timeout=120)
+    stderr = capfd.readouterr().err
+    assert rc != 0
+    assert "rank 1 fails on purpose" in stderr
+    assert "stopping the others" in stderr
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["EASGD"], 14), (["GOSGD"], 14), (["ASGD"], 14), (["SERVE"], 19),
+    (["BSP", "--resume"], 10), (["BSP", "--tau", "4"], 10),
+    (["BSP", "--model-parallel=2"], 10), (["BSP", "--decode-max-seqs", "4"],
+                                          10)])
+def test_unported_rules_and_options_name_their_roadmap_item(argv, item):
+    with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP.md "
+                                         rf"section A, item {item}\)"):
+        launcher.main(argv + ["-m", "x", "-c", "y"])
+
+
+def test_refusals(tmp_path):
+    with pytest.raises(SystemExit, match="unrecognized"):
+        launcher.main(["BSP", "-m", "x", "-c", "y", "--bogus"])
+    with pytest.raises(SystemExit, match="unknown rule"):
+        launcher.main(["FOO", "-m", "x", "-c", "y"])
+    with pytest.raises(SystemExit, match="unknown ModelConfig field"):
+        launcher.model_config(launcher.parse_args(
+            ["BSP", "-m", "test_torch_launcher", "-c", "TinyAlexNet",
+             "--set", "bogus=1"]))
+    if not torch.cuda.is_available():
+        # the launcher never picks the CPU by itself
+        with pytest.raises(SystemExit, match="--platform cpu"):
+            launcher.main(["BSP", "-m", "test_torch_launcher", "-c",
+                           "TinyAlexNet"])
+
+
+def test_config_overrides():
+    args = launcher.parse_args(
+        ["BSP", "-m", "test_torch_launcher", "-c", "TinyAlexNet",
+         "--batch-size", "4", "--lr", "0.5", "--set", "weight_decay=0.001",
+         "--set", "lr_decay_epochs=3,5", "--set", "track_top5=false"])
+    cls, cfg = launcher.model_config(args)
+    assert cls is TinyAlexNet
+    assert (cfg.batch_size, cfg.learning_rate, cfg.weight_decay,
+            cfg.lr_decay_epochs, cfg.track_top5) == (4, 0.5, 0.001, (3, 5),
+                                                     False)
+    # the recipe's other fields stay
+    assert cfg.momentum == 0.9 and cfg.compute_dtype == "float32"
+    assert launcher.model_config(launcher.parse_args(
+        ["BSP", "-m", "test_torch_launcher", "-c", "TinyAlexNet"]))[1] is None

@@ -1,0 +1,292 @@
+"""``tmlocal BSP`` for the port: one process per card.
+
+Counterpart of ``theanompi_tpu/launcher.py`` (its single-host
+``tmlocal``), for the BSP rule::
+
+    python -m theanompi_tpu_torch.launcher BSP -D 1 \\
+        -m theanompi_tpu_torch.models.alex_net -c AlexNet --epochs 1
+
+The JAX launcher runs one SPMD program over every local chip; the port
+runs one process per card, as the reference's ``mpirun`` did.  The
+launcher spawns ``-D N`` workers (default: every visible card; one on
+``--platform cpu``), each with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+``MASTER_ADDR`` and ``MASTER_PORT`` (a free localhost port).  A worker
+joins the default process group (NCCL on ``cuda``, gloo on ``cpu``),
+also when it is the only rank, so one card runs the same collectives as
+eight, and drives ``BSP().init(...).wait()`` on card ``LOCAL_RANK``.
+Rank 0 writes ``--result-json``: the session result (validation metrics,
+epoch records with their kernel launches), the world size and every
+rank's parameter digest (equal digests: the replicas ended identical).
+
+The launcher never picks the CPU by itself: ``--platform`` defaults to
+``cuda`` and fails without a card.  A worker that fails terminates its
+siblings and the launcher exits non-zero.  The other rules (EASGD, ASGD,
+GOSGD, SERVE) and the JAX launcher's other options exit non-zero with
+the ROADMAP item that will port them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+#: rules of the JAX launcher -> the ROADMAP.md section A item porting
+#: each (BSP is ported)
+RULES = {"BSP": None, "EASGD": 14, "ASGD": 14, "GOSGD": 14, "SERVE": 19}
+#: options of the JAX launcher this one does not take yet (item 10, the
+#: rest of the launcher); ``--decode-*`` are matched by prefix
+UNPORTED_OPTIONS = frozenset((
+    "--resume", "--sync-type", "--model-parallel", "--seq-parallel",
+    "--pipe-parallel", "--expert-parallel", "--tau", "--alpha", "--p-push",
+    "--merge-momentum", "--server-addr", "--shards", "--ingest",
+    "--overlap-exchange",
+    "--local-aggregation", "--wire-protocol", "--wire-compression",
+    "--wire-dtype", "--n-total-workers", "--rank-offset", "--session-id",
+    "--max-restarts", "--fault-plan", "--export-dir", "--port",
+    "--serve-host", "--serve-replicas", "--max-batch", "--max-delay-ms",
+    "--serve-buckets", "--max-queue", "--reload-poll-s", "--decode",
+    "--disaggregate", "--prefill-replicas", "--autoscale", "--scale-max",
+    "--slo-p99-ms", "--compilation-cache-dir", "--monitor-dir",
+    "--collector", "--multihost", "--coordinator", "--nhosts", "--host-id"))
+
+
+def _not_ported(what: str, item: int) -> SystemExit:
+    return SystemExit(f"{what} is not ported yet (ROADMAP.md section A, "
+                      f"item {item})")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m theanompi_tpu_torch.launcher",
+        description="tmlocal for the PyTorch port: one process per card",
+        allow_abbrev=False)
+    p.add_argument("rule", help="training rule (BSP)")
+    p.add_argument("-m", "--modelfile", required=True,
+                   help="model module path")
+    p.add_argument("-c", "--modelclass", required=True,
+                   help="model class name")
+    p.add_argument("-D", "--devices", type=int, default=None,
+                   help="processes, one per card (default: every visible "
+                        "card; 1 on --platform cpu)")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="cap the number of epochs")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--snapshot-dir", default=None)
+    p.add_argument("--set", action="append", default=[], metavar="K=V",
+                   dest="config_sets",
+                   help="override any ModelConfig field, repeatable")
+    p.add_argument("--platform", default="cuda", choices=("cuda", "cpu"),
+                   help="cuda (default; NCCL) or cpu (gloo)")
+    p.add_argument("--result-json", default=None, metavar="PATH",
+                   help="rank 0 writes the session result here as JSON")
+    p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    return p
+
+
+def parse_args(argv: list[str]) -> argparse.Namespace:
+    """Parse ``argv``; an unported rule or option exits non-zero naming
+    its ROADMAP item."""
+    args, extra = build_parser().parse_known_args(argv)
+    if args.rule not in RULES:
+        raise SystemExit(f"unknown rule {args.rule!r} (want one of "
+                         f"{', '.join(RULES)})")
+    if RULES[args.rule] is not None:
+        raise _not_ported(f"rule {args.rule}", RULES[args.rule])
+    for tok in extra:
+        name = tok.split("=", 1)[0]
+        if name in UNPORTED_OPTIONS or name.startswith("--decode-"):
+            raise _not_ported(f"option {name}", 10)
+    if extra:
+        raise SystemExit(f"unrecognized arguments: {' '.join(extra)}")
+    if args.devices is not None and args.devices < 1:
+        raise SystemExit("-D must be >= 1")
+    return args
+
+
+def _parse_config_sets(pairs: list[str]) -> dict:
+    """``--set k=v`` strings -> typed ModelConfig overrides (a copy of
+    the JAX launcher's)."""
+    from theanompi_tpu_torch.models.base import ModelConfig
+
+    fields = {f.name: f for f in dataclasses.fields(ModelConfig)}
+    out: dict = {}
+    for pair in pairs:
+        key, sep, raw = pair.partition("=")
+        if not sep:
+            raise SystemExit(f"--set expects K=V, got {pair!r}")
+        if key not in fields:
+            raise SystemExit(f"--set: unknown ModelConfig field {key!r}; "
+                             f"valid: {', '.join(sorted(fields))}")
+        default = fields[key].default
+        low = raw.lower()
+        if low in ("none", "null") and default is None:
+            out[key] = None
+        elif isinstance(default, bool):
+            if low not in ("true", "false", "1", "0"):
+                raise SystemExit(f"--set {key}: expected a bool, got {raw!r}")
+            out[key] = low in ("true", "1")
+        else:
+            try:
+                if isinstance(default, int):
+                    out[key] = int(raw)
+                elif isinstance(default, float):
+                    out[key] = float(raw)
+                elif isinstance(default, tuple):
+                    out[key] = tuple(
+                        float(x) if "." in x else int(x)
+                        for x in raw.split(",") if x != "")
+                else:
+                    out[key] = raw
+            except ValueError:
+                raise SystemExit(
+                    f"--set {key}: expected a "
+                    f"{type(default).__name__}, got {raw!r}") from None
+    return out
+
+
+def model_config(args: argparse.Namespace):
+    """The model class and its ``ModelConfig`` with the command line's
+    overrides (None when there are none: the model's default)."""
+    from theanompi_tpu_torch.rules.base import resolve_model_class
+
+    cls = resolve_model_class(args.modelfile, args.modelclass)
+    overrides = {k: v for k, v in (("batch_size", args.batch_size),
+                                   ("learning_rate", args.lr),
+                                   ("snapshot_dir", args.snapshot_dir))
+                 if v is not None}
+    overrides.update(_parse_config_sets(args.config_sets))
+    if not overrides:
+        return cls, None
+    return cls, dataclasses.replace(cls.default_config(), **overrides)
+
+
+def param_digest(module) -> str:
+    """sha256 of the module's parameters (f32 bytes, in name order)."""
+    h = hashlib.sha256()
+    for name, p in sorted(module.named_parameters()):
+        h.update(name.encode())
+        h.update(p.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_worker(args: argparse.Namespace) -> int:
+    """One rank: join the process group from the environment, run the
+    BSP session on this rank's device, and (rank 0) write the result."""
+    import torch
+    import torch.distributed as dist
+
+    from theanompi_tpu_torch.rules.base import rank_device
+    from theanompi_tpu_torch.rules.bsp import BSP
+
+    device = rank_device(args.platform)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method="env://")
+    try:
+        _, config = model_config(args)
+        rule = BSP().init(device=device, modelfile=args.modelfile,
+                          modelclass=args.modelclass, config=config,
+                          max_epochs=args.epochs)
+        result = rule.wait()
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, param_digest(rule.model.module))
+        rank = dist.get_rank()
+        if rank == 0:
+            print("final val:", {k: round(float(v), 4)
+                                 for k, v in result.get("val", {}).items()},
+                  flush=True)
+            if args.result_json:
+                with open(args.result_json, "w") as f:
+                    json.dump({**result, "world_size": len(digests),
+                               "device": str(device),
+                               "param_digests": digests}, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _stop(procs: list[subprocess.Popen], grace_s: float = 10.0) -> None:
+    """Terminate every worker still running; kill what outlives the
+    grace period."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    deadline = time.monotonic() + grace_s
+    for p in procs:
+        try:
+            p.wait(timeout=max(0.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def spawn(args: argparse.Namespace, argv: list[str]) -> int:
+    """Start one worker per card (or ``-D`` CPU workers) and wait; the
+    first worker to fail stops the others and its exit code (1 for a
+    signal) is returned."""
+    import torch
+
+    if args.platform == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--platform cuda (the default) needs an NVIDIA "
+                             "card and torch.cuda.is_available() is False; "
+                             "pass --platform cpu to train on the CPU")
+        n = args.devices or torch.cuda.device_count()
+        if n > torch.cuda.device_count():
+            raise SystemExit(f"-D {n} but {torch.cuda.device_count()} cards "
+                             "are visible")
+    else:
+        n = args.devices or 1
+    model_config(args)  # fail here, before any worker starts
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()),
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in os.environ.get(
+                       "PYTHONPATH", "").split(os.pathsep) if p]))
+    procs: list[subprocess.Popen] = []
+    try:
+        for r in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "theanompi_tpu_torch.launcher",
+                 "--worker", *argv],
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))))
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [c for c in codes if c not in (None, 0)]
+            if bad:
+                print(f"launcher: a worker exited with code {bad[0]}; "
+                      "stopping the others", file=sys.stderr, flush=True)
+                return bad[0] if bad[0] > 0 else 1
+            if all(c == 0 for c in codes):
+                return 0
+            time.sleep(0.1)
+    finally:
+        _stop(procs)
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.worker:
+        return run_worker(args)
+    return spawn(args, [a for a in argv if a != "--worker"])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -103,7 +103,7 @@ class TorchModel:
     training contract (module docstring).
 
     Subclasses define ``build_module()`` (an ``nn.Module`` taking NHWC
-    input and a ``train`` flag), ``build_data()`` and
+    input, a ``train`` flag and the step's ``rng``), ``build_data()`` and
     ``init_weights(module, generator)``, and may set ``_net_cfg``
     (constructor dims beyond ``ModelConfig``, recorded in an export's
     ``net`` sidecar field) before calling this constructor.  ``data``
@@ -148,6 +148,8 @@ class TorchModel:
         self._train_prefetcher: DevicePrefetcher | None = None
         self._train_iter: Iterator | None = None
         self._pending: list[tuple[int, dict]] = []
+        #: batches the last :meth:`val_epoch` ran
+        self.val_batches_run = 0
 
     @classmethod
     def default_config(cls) -> ModelConfig:
@@ -188,12 +190,14 @@ class TorchModel:
     def loss_fn(self, module: nn.Module, batch, rng):
         """Softmax CE (with the config's label smoothing) + top-1 error;
         the dataset's ``device_transform`` crops, mirrors and normalizes
-        raw uint8 batches on the device first."""
+        raw uint8 batches on the device first.  ``rng`` (the epoch's
+        generator, :meth:`_epoch_rng`) feeds the augment draws and then
+        the module's own (dropout masks), so a run replays both."""
         x, y = batch
         transform = getattr(self.data, "device_transform", None)
         if transform is not None:
             x = transform(x, rng, train=True)
-        logits = module(x, train=True)
+        logits = module(x, train=True, rng=rng)
         loss = softmax_cross_entropy(logits, y, self.config.label_smoothing)
         logits = logits.detach()
         metrics = {"loss": loss.detach(), "error": error_rate(logits, y)}
@@ -249,9 +253,10 @@ class TorchModel:
         self.module.train()
 
     def _epoch_rng(self, epoch: int) -> torch.Generator:
-        """The augment stream of ``epoch`` on this rank: a generator on
-        the device seeded from (seed, epoch, rank), so a run replays
-        the same draws epoch by epoch."""
+        """The random stream of ``epoch`` on this rank (augment draws,
+        then dropout masks): a generator on the device seeded from
+        (seed, epoch, rank), so a run replays the same draws epoch by
+        epoch."""
         seed = ((self.config.seed + 1) * 1_000_003 + 7919 * epoch
                 + 104729 * self.rank)
         return torch.Generator(device=self.device).manual_seed(seed)
@@ -332,6 +337,7 @@ class TorchModel:
                 if (n + 1) % self.VAL_SYNC_WINDOW == 0:
                     recorder.start()
                     recorder.end("calc", block_on=pending[-1])
+        self.val_batches_run = len(pending)
         if not pending:
             return {}
         recorder.start()

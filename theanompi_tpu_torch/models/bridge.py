@@ -1,5 +1,12 @@
 """Weights across the two packages: flax trees -> the port's state_dict.
 
+A JAX AlexNet's ``params`` map onto :class:`~theanompi_tpu_torch.models.
+alex_net.AlexNetCNN` (:func:`alexnet_state_dict_from_flax`): the conv
+kernels ``Conv_{i}/Conv_0/kernel`` go HWIO ``(kh, kw, in/groups, out)``
+-> OIHW ``(out, in/groups, kh, kw)``, the dense kernels
+``Dense_{i}/Dense_0/kernel`` go (in, out) -> (out, in), and the biases
+map as they are.
+
 A JAX ResNet's ``params`` and ``batch_stats`` (nested dicts of numpy
 arrays) map leaf by leaf onto :class:`~theanompi_tpu_torch.models.
 resnet50.ResNet`:
@@ -89,6 +96,40 @@ def batch_stats_from_flax(module: ResNet,
     return _from_flax(module, None, batch_stats)
 
 
+def _pop_leaf(pool: dict, coll: str, path: str) -> np.ndarray:
+    try:
+        return pool.pop((coll, path))
+    except KeyError:
+        raise KeyError(f"flax leaf {coll}/{path} is missing") from None
+
+
+def _to_torch(pool: dict, out: dict) -> dict[str, torch.Tensor]:
+    """``out`` as f32 tensors, once every leaf of ``pool`` was used."""
+    if pool:
+        left = sorted(f"{c}/{p}" for c, p in pool)
+        raise KeyError(f"{len(left)} flax leaves left unmapped: {left[:8]}")
+    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
+            for k, v in out.items()}
+
+
+def alexnet_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
+    """The port's AlexNet ``state_dict`` (f32 tensors) from a flax
+    AlexNet's ``params``-shaped tree (weights, their gradients, or
+    weights after an update)."""
+    from theanompi_tpu_torch.models.alex_net import CONVS
+
+    pool = {("params", k): v for k, v in _flatten(params).items()}
+    out: dict[str, np.ndarray] = {}
+    scopes = ([(c[0], "Conv_0", (3, 2, 0, 1)) for c in CONVS]
+              + [(f"Dense_{i}", "Dense_0", (1, 0)) for i in range(3)])
+    for scope, inner, perm in scopes:
+        out[f"{scope}.weight"] = _pop_leaf(
+            pool, "params", f"{scope}/{inner}/kernel").transpose(perm)
+        out[f"{scope}.bias"] = _pop_leaf(pool, "params",
+                                         f"{scope}/{inner}/bias")
+    return _to_torch(pool, out)
+
+
 def _from_flax(module: ResNet, params, batch_stats) -> dict:
     pool = {}
     if params is not None:
@@ -98,10 +139,7 @@ def _from_flax(module: ResNet, params, batch_stats) -> dict:
                      for k, v in _flatten(batch_stats).items()})
 
     def take(coll: str, path: str) -> np.ndarray:
-        try:
-            return pool.pop((coll, path))
-        except KeyError:
-            raise KeyError(f"flax leaf {coll}/{path} is missing") from None
+        return _pop_leaf(pool, coll, path)
 
     out: dict[str, np.ndarray] = {}
     for prefix, scope, kind in resnet_layers(module):
@@ -124,8 +162,4 @@ def _from_flax(module: ResNet, params, batch_stats) -> dict:
             out[f"{prefix}.weight"] = take(
                 "params", f"{scope}/Dense_0/kernel").T
             out[f"{prefix}.bias"] = take("params", f"{scope}/Dense_0/bias")
-    if pool:
-        left = sorted(f"{c}/{p}" for c, p in pool)
-        raise KeyError(f"{len(left)} flax leaves left unmapped: {left[:8]}")
-    return {k: torch.from_numpy(np.array(v, np.float32, order="C"))
-            for k, v in out.items()}
+    return _to_torch(pool, out)

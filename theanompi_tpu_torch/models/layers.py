@@ -4,17 +4,53 @@ Counterpart of ``theanompi_tpu/models/layers.py``.  Activations are NHWC
 at every public boundary, as in the JAX package.  A convolution runs
 ``F.conv2d`` on the channels-last view of its NHWC input with a
 channels-last weight, so its output permutes back to a contiguous NHWC
-tensor without a copy, and the fused BN epilogue (ops/fused_bn.py) reads
-that ``(N*H*W, C)`` view in place.
+tensor without a copy, and the fused BN epilogue (ops/fused_bn.py) and
+the LRN kernels (ops/lrn.py) read that ``(N*H*W, C)`` view in place.
+Pooling is ``F.max_pool2d``/``F.avg_pool2d`` on the same view, as the
+JAX package leaves it to XLA's ``reduce_window``.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from theanompi_tpu_torch.ops.fused_bn import scale_bias_act
+from theanompi_tpu_torch.ops.lrn import lrn
+
+#: ``init(tensor, generator)`` fills a parameter in place
+Init = Callable[[torch.Tensor, torch.Generator], None]
+
+
+# -- reference-era initializers (gaussian std + constant bias) --
+
+
+def gaussian_init(std: float = 0.01) -> Init:
+    """N(0, std^2), drawn from the given generator."""
+    def init(t: torch.Tensor, gen: torch.Generator) -> None:
+        t.normal_(0.0, std, generator=gen)
+    return init
+
+
+def constant_init(v: float = 0.0) -> Init:
+    def init(t: torch.Tensor, gen: torch.Generator) -> None:
+        t.fill_(v)
+    return init
+
+
+def init_params(module: nn.Module, gen: torch.Generator) -> None:
+    """Apply every :class:`Conv`/:class:`Dense` layer's own inits, in
+    module order (layers built without inits are left as they are)."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv, Dense)):
+                for init, t in ((m.kernel_init, m.weight),
+                                (m.bias_init, m.bias)):
+                    if init is not None and t is not None:
+                        init(t, gen)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -34,26 +70,41 @@ def to_nhwc(y: torch.Tensor) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """Bias-free convolution over NHWC input; ``padding`` is ``"SAME"``
+    """Convolution over NHWC input; ``padding`` is ``"SAME"``, ``"VALID"``
     or explicit ``((top, bottom), (left, right))`` pads.  The weight is
-    OIHW, cast to ``dtype`` at use (flax's ``nn.Conv(dtype=...)``
-    promotion)."""
+    OIHW ``(out, in/groups, kh, kw)`` (flax's HWIO grouped kernel
+    transposed; ``groups`` splits the input and output channels in
+    contiguous blocks, as XLA's ``feature_group_count``), cast to
+    ``dtype`` at use (flax's ``nn.Conv(dtype=...)`` promotion), as is
+    the optional bias."""
 
     def __init__(self, in_features: int, features: int,
                  kernel: tuple[int, int], strides: tuple[int, int] = (1, 1),
-                 padding="SAME", dtype: torch.dtype = torch.float32):
+                 padding="SAME", dtype: torch.dtype = torch.float32,
+                 groups: int = 1, bias: bool = False,
+                 kernel_init: Init | None = None,
+                 bias_init: Init | None = None):
         super().__init__()
+        if in_features % groups or features % groups:
+            raise ValueError(f"groups={groups} must divide in_features "
+                             f"{in_features} and features {features}")
         self.kernel = tuple(kernel)
         self.strides = tuple(strides)
         self.padding = padding
         self.dtype = dtype
+        self.groups = groups
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
         self.weight = nn.Parameter(
-            torch.empty(features, in_features, *self.kernel))
+            torch.empty(features, in_features // groups, *self.kernel))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def pads(self, h: int, w: int):
         if self.padding == "SAME":
             return (same_pads(h, self.kernel[0], self.strides[0]),
                     same_pads(w, self.kernel[1], self.strides[1]))
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
         return tuple(tuple(p) for p in self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -65,8 +116,9 @@ class Conv(nn.Module):
             x = F.pad(x, (0, 0, pl, pr, pt, pb))
             padding = (0, 0)
         w = self.weight.to(self.dtype, memory_format=torch.channels_last)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.strides,
-                     padding=padding)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.strides,
+                     padding=padding, groups=self.groups)
         return to_nhwc(y)
 
 
@@ -152,16 +204,72 @@ class BatchNormAct(nn.Module):
 
 
 class Dense(nn.Module):
-    """Fully connected layer, computed in f32 (the JAX ``L.Dense``
-    default, which the ResNet head keeps under bf16 compute)."""
+    """Fully connected layer computed in ``dtype``: f32 by default (the
+    JAX ``L.Dense`` default, which the ResNet head keeps under bf16
+    compute); AlexNet's layers pass the compute dtype, as its JAX
+    model does."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 dtype: torch.dtype = torch.float32,
+                 kernel_init: Init | None = None,
+                 bias_init: Init | None = None):
         super().__init__()
+        self.dtype = dtype
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.float(), self.weight, self.bias)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        self.bias.to(self.dtype))
+
+
+def max_pool(x: torch.Tensor, window: int = 3,
+             stride: int = 2) -> torch.Tensor:
+    """flax ``nn.max_pool`` over NHWC ``x`` with VALID windows (output
+    ``(H - window) // stride + 1``)."""
+    return to_nhwc(F.max_pool2d(x.permute(0, 3, 1, 2), window, stride))
+
+
+def avg_pool(x: torch.Tensor, window: int = 3,
+             stride: int = 2) -> torch.Tensor:
+    """flax ``nn.avg_pool`` over NHWC ``x`` with VALID windows."""
+    return to_nhwc(F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride))
+
+
+class LRN(nn.Module):
+    """Cross-channel local response normalization (ops/lrn.py)."""
+
+    def __init__(self, n: int = 5, k: float = 2.0, alpha: float = 1e-4,
+                 beta: float = 0.75):
+        super().__init__()
+        self.n, self.k, self.alpha, self.beta = n, k, alpha, beta
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return lrn(x, self.n, self.k, self.alpha, self.beta)
+
+
+class Dropout(nn.Module):
+    """flax's dropout: in train mode ``where(mask, x / keep, 0)`` with
+    ``mask`` true at rate ``keep = 1 - rate``, drawn from the step's
+    ``torch.Generator`` (so a run replays its masks); the identity in
+    eval mode."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, train: bool,
+                rng: torch.Generator | None = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError("Dropout in train mode needs a torch.Generator")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+        return torch.where(mask, x / keep,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

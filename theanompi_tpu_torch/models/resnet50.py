@@ -99,10 +99,11 @@ class ResNet(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.head = L.Dense(in_f, n_classes)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                rng: torch.Generator | None = None) -> torch.Tensor:
         """Logits of NHWC ``x``.  ``train`` is the JAX ``train`` flag and
         must agree with the module's mode (``.train()``/``.eval()``),
-        which the BNs read."""
+        which the BNs read.  ``rng`` is ignored: ResNet draws nothing."""
         if train != self.training:
             raise ValueError(f"forward(train={train}) on a module in "
                              f"{'train' if self.training else 'eval'} "

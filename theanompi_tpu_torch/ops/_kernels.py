@@ -34,7 +34,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: library name -> its source under csrc/
-SOURCES = {"fused_bn": "fused_bn.cu", "maxpool": "maxpool.cu"}
+SOURCES = {"fused_bn": "fused_bn.cu", "maxpool": "maxpool.cu",
+           "lrn": "lrn.cu"}
 
 
 class KernelBuildError(RuntimeError):

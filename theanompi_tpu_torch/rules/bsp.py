@@ -6,6 +6,14 @@ BSP steps (parallel/bsp.py).  Checkpoints are not ported yet
 (``utils/checkpoint.py``, ROADMAP.md section A, item 10): ``checkpoint``
 defaults to False here, and ``checkpoint=True``, ``resume=True`` or a
 ``profile_dir`` raise ``NotImplementedError``.
+
+Each epoch record (the recorder's, returned under ``records``) also
+holds the epoch's training steps, validation batches and training wall
+seconds (``train_steps``, ``val_batches``, ``train_s``; the wall ends
+after the last metrics flush, which waits for the card), and the kernel
+launches (ops/_kernels.py) of its training steps and of its validation
+pass (``launches``: ``{"train": {...}, "val": {...}}``), so a run shows
+which kernels it went through.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ import time
 
 from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch.models.base import TorchModel
+from theanompi_tpu_torch.ops import _kernels
 from theanompi_tpu_torch.rules.base import Rule, resolve_model_class
 from theanompi_tpu_torch.utils.recorder import Recorder
 
@@ -49,6 +58,8 @@ def run_bsp_session(model: TorchModel, sync_type: str = "avg",
             for epoch in range(n_epochs):
                 monitor.set_gauge("bsp/epoch", epoch)
                 with monitor.span("bsp/epoch"):
+                    counts = [_kernels.launch_counts()]
+                    t_epoch = time.monotonic()
                     n_iters = model.begin_epoch(epoch)
                     it = 0
                     while it < n_iters:
@@ -57,17 +68,30 @@ def run_bsp_session(model: TorchModel, sync_type: str = "avg",
                         monitor.observe_step(time.monotonic() - t0,
                                              phase="train", step=it)
                     model._flush_metrics(recorder)
+                    train_s = time.monotonic() - t_epoch
+                    counts.append(_kernels.launch_counts())
                     monitor.progress(phase="validate")
                     with monitor.span("bsp/validate"):
                         last_val = model.val_epoch(recorder)
+                    counts.append(_kernels.launch_counts())
                     model.adjust_hyperp(epoch + 1)
-                    recorder.epoch_summary(epoch, last_val.get("loss"),
-                                           last_val.get("error"))
+                    recorder.epoch_summary(
+                        epoch, last_val.get("loss"), last_val.get("error"),
+                        extra={"train_steps": it,
+                               "val_batches": model.val_batches_run,
+                               "train_s": round(train_s, 6),
+                               "launches": {
+                                   "train": _delta(counts[0], counts[1]),
+                                   "val": _delta(counts[1], counts[2])}})
                     monitor.progress(phase="epoch_end", step=epoch)
         finally:
             model.cleanup()  # also on failure: stops the prefetcher
     return {"val": last_val, "epochs_run": n_epochs,
             "records": recorder.epoch_records}
+
+
+def _delta(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
+    return {k: after[k] - before.get(k, 0) for k in after}
 
 
 class BSP(Rule):

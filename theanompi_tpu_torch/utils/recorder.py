@@ -113,7 +113,11 @@ class Recorder:
         )
 
     def epoch_summary(self, epoch: int, val_loss: float | None = None,
-                      val_error: float | None = None) -> dict:
+                      val_error: float | None = None,
+                      extra: dict | None = None) -> dict:
+        """Close the epoch: its record (``extra`` merged in) is appended
+        to ``epoch_records``, printed on rank 0 and saved to
+        ``save_dir``."""
         wall = time.monotonic() - self._epoch_start
         rec = {
             "epoch": epoch,
@@ -128,6 +132,7 @@ class Recorder:
             "val_loss": None if val_loss is None else float(val_loss),
             "val_error": None if val_error is None else float(val_error),
             "time": {k: round(self.epoch_time[k], 3) for k in self.SECTIONS},
+            **(extra or {}),
         }
         self.epoch_records.append(rec)
         monitor.inc("recorder/epochs_total", rank=str(self.rank))
