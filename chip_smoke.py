@@ -81,11 +81,37 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    loss finite.  Prints ms per step and images/s of the second epoch.
 10. One AlexNet training step on a staged batch, timed and traced as in
    6c: device time by family and the idle share.
-11. Result lines: a ``{"kernels": [...]}`` JSON line, the card line, and
-   last ``{"ok": true, "device": {...}}``.
+11. Result lines: a ``{"kernels": [...]}`` JSON line (every kernel with
+   its id K1a .. K4b; K4b is two kernels, its row and column pass), the
+   card line, and last ``{"ok": true, "device": {...}}``.
+12. The attention kernels K4a (forward) and K4b (backward: row pass for
+   dq, column pass for dk and dv) against their plain versions on the
+   card: the slice's (8, 1024, 12, 64) causal in bf16 and f32, a
+   non-causal case, Tq != Tk with global positions, rows that see no
+   key, ragged T (1000, 77) and d_head 32, within the limits of
+   ``attention.tolerance_excess``.  Times at the slice's bf16 shape
+   beside each kernel's bound (bf16 tensor-core rate), the plain
+   versions and ``F.scaled_dot_product_attention``.
+13. One BSP step of a seeded full-width TransformerLM (12 layers,
+   d_model 768, 12 heads, vocab 256) as bf16 on the card and as f32
+   and bf16 on the CPU (plain attention), on the same 2 x 1024 tokens:
+   loss within relative 1e-2, the flattened gradient within relative L2
+   0.1 of f32 and of the CPU's bf16 step.
+14. The transformer slice: ``run_bsp_session`` on the one-rank NCCL
+   group, ``tools/bench_lm.py``'s recipe (batch 8 of 1024 tokens, bf16
+   on f32 master weights, AdamW 1e-3, weight decay 0.01, constant) on
+   ``SeqLM_data(vocab=256, seq_len=1024, n_train=256, n_val=16)``: one
+   epoch of 32 steps and 2 validation batches.  Checks: per training
+   step exactly 12 K4a and 12 of each K4b kernel, 12 K4a per validation
+   batch, none of K1/K2/K3; every loss finite and the last below the
+   first.  Prints tokens/s per card, ms per step and TFLOP/s (from
+   ``train_flops_per_sample``).
+15. One TransformerLM training step on a staged batch, timed and traced
+   as in 6c: device time by family, the idle share and peak memory.
 
-Phases 7 and 8 run after 6a; 6b, 6c, 9 and 10 share one one-rank NCCL
-process group in this process (the launcher's worker makes its own).
+Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
+one-rank NCCL process group in this process (the launcher's worker makes
+its own).
 
 Full results (per-shape kernel times, the traces) go to
 ``build/chip_smoke.json``.
@@ -94,6 +120,7 @@ Full results (per-shape kernel times, the traces) go to
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -107,6 +134,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12              # same sheet: f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # same sheet: dense bf16 tensor cores
 BATCH = 32
 TRAIN_BATCH = 128
 TRAIN_STEPS = 24
@@ -143,12 +171,26 @@ KERNEL_SOURCES = {
             "theanompi_tpu/ops/lrn_pallas.py:55"),
     "lrn_bwd": ("theanompi_tpu_torch/csrc/lrn.cu",
                 "theanompi_tpu/ops/lrn_pallas.py:55"),
+    "attention": ("theanompi_tpu_torch/csrc/attention.cu",
+                  "theanompi_tpu/ops/attention.py:107"),
+    "attention_bwd_dq": ("theanompi_tpu_torch/csrc/attention.cu",
+                         "theanompi_tpu/ops/attention.py:249"),
+    "attention_bwd_dkdv": ("theanompi_tpu_torch/csrc/attention.cu",
+                           "theanompi_tpu/ops/attention.py:249"),
 }
+#: the kernel table's ids (K4b is two kernels: its row and column pass)
+KERNEL_IDS = {"scale_bias_act": "K1a", "scale_bias_act_res": "K1b",
+              "scale_bias_act_bwd": "K1c", "scale_bias_act_res_bwd": "K1d",
+              "maxpool3x3s2": "K2a", "maxpool3x3s2_argmax": "K2b",
+              "maxpool3x3s2_bwd": "K2c", "lrn": "K3a", "lrn_bwd": "K3b",
+              "attention": "K4a", "attention_bwd_dq": "K4b",
+              "attention_bwd_dkdv": "K4b"}
 #: launches of each kernel per batch-128 ResNet-50 training step
 TRAIN_LAUNCHES = {"scale_bias_act": 37, "scale_bias_act_res": 16,
                   "scale_bias_act_bwd": 37, "scale_bias_act_res_bwd": 16,
                   "maxpool3x3s2_argmax": 1, "maxpool3x3s2_bwd": 1,
-                  "maxpool3x3s2": 0, "lrn": 0, "lrn_bwd": 0}
+                  "maxpool3x3s2": 0, "lrn": 0, "lrn_bwd": 0, "attention": 0,
+                  "attention_bwd_dq": 0, "attention_bwd_dkdv": 0}
 #: launches of each kernel per AlexNet training step and per validation
 #: batch (LRN after conv1 and conv2)
 ALEX_TRAIN_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "lrn": 2,
@@ -160,6 +202,22 @@ ALEX_VAL_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "lrn": 2}
 ALEX_EPOCHS = 2
 #: LRN activations ~ N(0, 20^2) in the kernel check, so a*W(x^2) is live
 LRN_SCALE = 20.0
+#: the transformer slice: tools/bench_lm.py's recipe (GPT-2-small widths,
+#: seq 1024, vocab 256, batch 8 per card, bf16 on f32 master weights,
+#: AdamW at 1e-3 with weight decay 0.01, constant schedule)
+LM_DIMS = dict(vocab=256, seq_len=1024, n_layers=12, d_model=768,
+               n_heads=12)
+LM_BATCH = 8
+#: one epoch of 32 steps and 2 validation batches (the data cut)
+LM_TRAIN_STEPS, LM_VAL_BATCHES = 32, 2
+#: launches per LM training step and per validation batch (12 blocks)
+LM_TRAIN_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "attention": 12,
+                     "attention_bwd_dq": 12, "attention_bwd_dkdv": 12}
+LM_VAL_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "attention": 12}
+#: phase 13: tokens of the gradient check and its limits
+LM_GRAD_CHECK = (2, 1024)
+LM_GRAD_LIMITS = {"loss_rel": 1e-2, "grad_vs_f32": 0.1,
+                  "grad_vs_cpu_bf16": 0.1}
 
 
 def log(msg: str) -> None:
@@ -203,14 +261,17 @@ def graph_ms(torch, fns, reps: int) -> float:
     return ms
 
 
-def bound_ms(nbytes: float, ops: float) -> float:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> float:
     """Least time the card could take: the larger of the bytes over the
-    HBM rate and the f32 operations over the f32 peak."""
-    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    HBM rate and the operations over their peak rate (f32 unless
+    given)."""
+    return max(nbytes / HBM_BYTES_PER_S, ops / ops_per_s) * 1e3
 
 
-def bound_by(nbytes: float, ops: float) -> str:
-    return ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+def bound_by(nbytes: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> str:
+    return ("bytes" if nbytes / HBM_BYTES_PER_S >= ops / ops_per_s
             else "operations")
 
 
@@ -673,6 +734,197 @@ def time_k3(torch, F, lrn, x, g, n) -> dict:
                      "nbytes": nb[name], "ops": ops[name],
                      "bound_ms": bound_ms(nb[name], ops[name])}
     out["library_fwd_bwd_ms"] = fwd_bwd
+    return out
+
+
+# -- phase 12: the attention kernels against their plain versions ----------
+
+def causal_pairs(q_pos, k_pos, causal: bool) -> int:
+    """Query-key pairs the mask lets through (all of them unless
+    causal), for one (b, h)."""
+    if not causal:
+        return len(q_pos) * len(k_pos)
+    return int((q_pos[:, None] >= k_pos[None, :]).sum())
+
+
+def check_k4(torch) -> dict:
+    """K4a and the two K4b passes against their plain versions on the
+    card: the slice's shape (8, 1024, 12, 64) causal in bf16 and f32, a
+    non-causal case, Tq != Tk with global positions (q_pos = 512 +
+    arange(256) against 1024 keys), rows that see no key at all, ragged
+    T (1000 and 77) and the default model's d_head 32; each within the
+    limits of ``attention.tolerance_excess`` (stated there).  At the
+    slice's bf16 shape: each kernel, the plain versions and
+    ``F.scaled_dot_product_attention`` (forward, and forward + backward
+    through autograd, on the (B, H, T, D) view) timed with CUDA graphs,
+    beside each kernel's bound (operations at the bf16 tensor-core
+    rate: 4*D per unmasked pair forward, 6*D for the row pass, 8*D for
+    the column pass, 10*D for the backward as a whole; bytes: each
+    input read once, each output written once)."""
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.ops import attention
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    b, t, h, d = (LM_BATCH, LM_DIMS["seq_len"], LM_DIMS["n_heads"],
+                  LM_DIMS["d_model"] // LM_DIMS["n_heads"])
+    # (label, B, Tq, Tk, H, D, causal, q_pos offset, dtype)
+    cases = [("slice", b, t, t, h, d, True, 0, bf16),
+             ("slice", b, t, t, h, d, True, 0, f32),
+             ("non-causal", 2, t, t, h, d, False, 0, bf16),
+             ("global positions", b, 256, t, h, d, True, 512, bf16),
+             ("global positions", b, 256, t, h, d, True, 512, f32),
+             ("rows see no key", 2, 256, t, h, d, True, -100, bf16),
+             ("ragged T", 2, 1000, 1000, h, d, True, 0, bf16),
+             ("ragged T", 2, 77, 77, h, d, True, 0, f32),
+             ("d_head 32", 16, 128, 128, 4, 32, True, 0, bf16)]
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows_out = []
+    worst = {"attention": 0.0, "attention_bwd_dq": 0.0,
+             "attention_bwd_dkdv": 0.0}
+    timed = None
+    for label, b_, tq, tk, h_, d_, causal, off, dtype in cases:
+        q, k, v = (torch.randn(b_, n, h_, d_, generator=gen,
+                               device="cuda").to(dtype)
+                   for n in (tq, tk, tk))
+        g = torch.randn(b_, tq, h_, d_, generator=gen, device="cuda").to(dtype)
+        q_pos = torch.arange(tq, device="cuda", dtype=torch.int32) + off
+        k_pos = torch.arange(tk, device="cuda", dtype=torch.int32)
+        scale = d_ ** -0.5
+        o, lse = attention.attention_fwd(q, k, v, q_pos, k_pos, scale, causal)
+        grads = attention.attention_bwd(q, k, v, q_pos, k_pos, lse, g, scale,
+                                        causal)
+        want_o, want_lse = attention.attention_fwd_plain(q, k, v, q_pos,
+                                                         k_pos, scale, causal)
+        want = attention.attention_bwd_plain(q, k, v, q_pos, k_pos, lse, g,
+                                             scale, causal)
+        torch.cuda.synchronize()
+        got = {"o": o, "lse": lse, "dq": grads[0], "dk": grads[1],
+               "dv": grads[2]}
+        wanted = {"o": want_o, "lse": want_lse, "dq": want[0],
+                  "dk": want[1], "dv": want[2]}
+        fwd_inputs = (q, k, v, q_pos, k_pos, scale, causal)
+        excess = {n: attention.tolerance_excess(n, got[n], wanted[n],
+                                                fwd_inputs)
+                  for n in got}
+        err = {n: float((got[n].float() - wanted[n].float()).abs().max())
+               for n in got}
+        finite = all(bool(torch.isfinite(x).all()) for x in got.values())
+        worst["attention"] = max(worst["attention"], err["o"])
+        worst["attention_bwd_dq"] = max(worst["attention_bwd_dq"], err["dq"])
+        worst["attention_bwd_dkdv"] = max(worst["attention_bwd_dkdv"],
+                                          err["dk"], err["dv"])
+        row = {"case": label, "shape_q": [b_, tq, h_, d_], "tk": tk,
+               "causal": causal, "q_pos_offset": off,
+               "dtype": str(dtype).replace("torch.", ""),
+               "excess": excess, "max_abs_err": err}
+        log(f"  K4 {label:17s} q {str([b_, tq, h_, d_]):18s} tk {tk:4d} "
+            f"{'causal' if causal else 'full':6s} {row['dtype']:8s}: "
+            "error / limit " + ", ".join(f"{n} {x:.3f}"
+                                         for n, x in excess.items()))
+        if max(excess.values()) > 1.0 or not finite:
+            raise AssertionError(f"K4 {row}: kernel off its plain version "
+                                 f"(finite {finite})")
+        del o, lse, grads, want_o, want_lse, want, got, wanted, fwd_inputs
+        if label == "slice" and dtype == bf16:
+            row["timing"] = timed = time_k4(torch, F, attention, q, k, v, g,
+                                            q_pos, k_pos, scale)
+        rows_out.append(row)
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    return {"cases": rows_out, "max_abs_err": worst, **timed}
+
+
+def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
+    """Device ms per launch of K4a, the K4b row pass and the K4b column
+    pass at the slice's shape (bf16, causal), of the plain versions
+    (forward; backward from the kernel's lse) and of SDPA (forward; and
+    forward + backward less forward, the backward both passes compute
+    together), with each kernel's bound."""
+    b, tq, h, d = q.shape
+    tk = k.shape[1]
+    o, lse = attention.attention_fwd(q, k, v, q_pos, k_pos, scale, True)
+    rd = torch.empty((b * h, tq, 2), dtype=torch.float32, device="cuda")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dims = (b, tq, tk, h, d, scale, 1, 1)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+            k_pos.data_ptr(), g.data_ptr(), lse.data_ptr())
+
+    def row_pass():
+        attention.K_BWD_DQ(q.device, *ptrs, dq.data_ptr(), rd.data_ptr(),
+                           *dims)
+
+    def col_pass():
+        attention.K_BWD_DKDV(q.device, *ptrs, rd.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), *dims)
+
+    qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
+    qr, kr, vr = (x.detach().clone().requires_grad_() for x in (qs, ks, vs))
+    gs = g.transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True)
+        return torch.autograd.grad(out, (qr, kr, vr), gs)
+
+    reps = 4
+    ms = {"attention": graph_ms(torch, [lambda: attention.attention_fwd(
+              q, k, v, q_pos, k_pos, scale, True)], reps),
+          "attention_bwd_dq": graph_ms(torch, [row_pass], reps),
+          "attention_bwd_dkdv": graph_ms(torch, [col_pass], reps)}
+    plain = {"attention": graph_ms(torch, [
+                 lambda: attention.attention_fwd_plain(
+                     q, k, v, q_pos, k_pos, scale, True)], 2),
+             "backward": graph_ms(torch, [
+                 lambda: attention.attention_bwd_plain(
+                     q, k, v, q_pos, k_pos, lse, g, scale, True)], 2)}
+    sdpa_fwd = graph_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True)], reps)
+    sdpa_fwd_bwd_ms = graph_ms(torch, [sdpa_fwd_bwd], reps)
+    pairs = b * h * causal_pairs(q_pos.cpu().numpy(), k_pos.cpu().numpy(),
+                                 True)
+    elt = q.element_size()
+    n_q, n_k = q.numel() * elt, k.numel() * elt
+    lse_b = lse.numel() * 4
+    work = {"attention": (2 * n_q + 2 * n_k + lse_b, 4 * d * pairs),
+            "attention_bwd_dq": (2 * n_q + 2 * n_k + lse_b + n_q
+                                 + 2 * lse_b, 6 * d * pairs),
+            "attention_bwd_dkdv": (2 * n_q + 2 * n_k + 3 * lse_b + 2 * n_k,
+                                   8 * d * pairs),
+            "backward": (2 * n_q + 2 * n_k + lse_b + n_q + 2 * n_k,
+                         10 * d * pairs)}
+    out = {"pairs": pairs, "sdpa_fwd_ms": sdpa_fwd,
+           "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+           "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd,
+           "plain_bwd_ms": plain["backward"],
+           "bwd_ms": ms["attention_bwd_dq"] + ms["attention_bwd_dkdv"],
+           "bwd_bound_ms": bound_ms(*work["backward"], BF16_OPS_PER_S)}
+    for name, k_ms in ms.items():
+        nbytes, ops = work[name]
+        out[name] = {"ms": k_ms, "bound_ms": bound_ms(nbytes, ops,
+                                                      BF16_OPS_PER_S),
+                     "bound_by": bound_by(nbytes, ops, BF16_OPS_PER_S),
+                     "nbytes": nbytes, "ops": ops,
+                     "tflops": ops / k_ms / 1e9}
+    out["attention"].update(plain_ms=plain["attention"],
+                            library_ms=sdpa_fwd)
+    for name in ("attention_bwd_dq", "attention_bwd_dkdv"):
+        # no one call computes one pass: each K4b entry carries the whole
+        # backward's times (both passes: backward_ms), its plain version's
+        # and SDPA's backward
+        out[name].update(plain_ms=plain["backward"],
+                         library_ms=out["sdpa_bwd_ms"],
+                         backward_ms=out["bwd_ms"],
+                         backward_bound_ms=out["bwd_bound_ms"])
+    log(f"  at {[b, tq, h, d]} bf16 causal ({pairs} unmasked pairs): K4a "
+        f"{ms['attention']:.4f} ms ({out['attention']['tflops']:.1f} "
+        f"TFLOP/s; bound {out['attention']['bound_ms']:.4f}, plain "
+        f"{plain['attention']:.4f}, SDPA {sdpa_fwd:.4f}); K4b row pass "
+        f"{ms['attention_bwd_dq']:.4f} ms (bound "
+        f"{out['attention_bwd_dq']['bound_ms']:.4f}), column pass "
+        f"{ms['attention_bwd_dkdv']:.4f} ms (bound "
+        f"{out['attention_bwd_dkdv']['bound_ms']:.4f}); backward "
+        f"{out['bwd_ms']:.4f} ms (bound {out['bwd_bound_ms']:.4f}, plain "
+        f"{plain['backward']:.4f}, SDPA backward {out['sdpa_bwd_ms']:.4f})")
     return out
 
 
@@ -1144,23 +1396,16 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def train_session(torch, workdir: str) -> tuple[dict, object]:
-    """``run_bsp_session`` of a batch-128 ResNet-50 on a one-rank NCCL
-    group; returns the results and the trained model."""
-    from theanompi_tpu_torch.data.imagenet import ImageNet_data
-    from theanompi_tpu_torch.models.resnet50 import ResNet50
-    from theanompi_tpu_torch.ops import _kernels, fused_bn
+def counted_session(torch, model) -> dict:
+    """``run_bsp_session`` of ``model`` with every launch count set to 0
+    just before it and read just after.  Records each step's loss, the
+    validation pass's launches (taken around it), and ms per step between
+    the first and the last in-epoch metrics flush (each flush waits for
+    the card)."""
+    from theanompi_tpu_torch.ops import _kernels
     from theanompi_tpu_torch.rules.bsp import run_bsp_session
     from theanompi_tpu_torch.utils.recorder import Recorder
 
-    t0 = time.monotonic()
-    data = ImageNet_data(seed=0, synthetic_n=TRAIN_STEPS * TRAIN_BATCH,
-                         synthetic_pool=64, synthetic_store=256,
-                         augment_on_device=True)
-    config = dataclasses.replace(
-        ResNet50.default_config(), batch_size=TRAIN_BATCH, n_epochs=1,
-        print_freq=8, snapshot_dir=workdir)
-    model = ResNet50(config=config, device="cuda", data=data)
     losses: list[float] = []
     flushes: list[tuple[int, float]] = []
 
@@ -1187,14 +1432,42 @@ def train_session(torch, workdir: str) -> tuple[dict, object]:
         return out
 
     model.val_epoch = counted_val_epoch
-    recorder = LossRecorder(print_freq=config.print_freq)
-    setup_s = time.monotonic() - t0
+    recorder = LossRecorder(print_freq=model.config.print_freq,
+                            flops_per_sample=model.train_flops_per_sample)
     _kernels.reset_launch_counts()
-    fused_bn.grad_copies.reset()
     t0 = time.monotonic()
     result = run_bsp_session(model, recorder=recorder)
     wall = time.monotonic() - t0
     launches = _kernels.launch_counts()
+    # the session's own flush after the epoch's last step is the final
+    # entry: time from the first in-epoch flush to the last one
+    (n0, t_first), (n1, t_last) = flushes[0], flushes[-2]
+    return {"result": result, "losses": losses, "val_counts": val_counts,
+            "launches": launches, "wall_s": wall,
+            "ms_per_step": (t_last - t_first) * 1e3 / (n1 - n0),
+            "timed_steps": [n0, n1]}
+
+
+def train_session(torch, workdir: str) -> tuple[dict, object]:
+    """``run_bsp_session`` of a batch-128 ResNet-50 on a one-rank NCCL
+    group; returns the results and the trained model."""
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.resnet50 import ResNet50
+    from theanompi_tpu_torch.ops import fused_bn
+
+    t0 = time.monotonic()
+    data = ImageNet_data(seed=0, synthetic_n=TRAIN_STEPS * TRAIN_BATCH,
+                         synthetic_pool=64, synthetic_store=256,
+                         augment_on_device=True)
+    config = dataclasses.replace(
+        ResNet50.default_config(), batch_size=TRAIN_BATCH, n_epochs=1,
+        print_freq=8, snapshot_dir=workdir)
+    model = ResNet50(config=config, device="cuda", data=data)
+    setup_s = time.monotonic() - t0
+    fused_bn.grad_copies.reset()
+    run = counted_session(torch, model)
+    result, losses, wall = run["result"], run["losses"], run["wall_s"]
+    launches, val_counts = run["launches"], run["val_counts"]
     copies = fused_bn.grad_copies.value
     steps = len(losses)
     train_counts = {k: launches[k] - val_counts.get(k, 0) for k in launches}
@@ -1213,8 +1486,7 @@ def train_session(torch, workdir: str) -> tuple[dict, object]:
     if not all(math.isfinite(v) for v in losses) or not math.isfinite(
             result["val"]["loss"]):
         raise AssertionError(f"non-finite loss: {losses} {result['val']}")
-    (n0, t_first), (n1, t_last) = flushes[0], flushes[-2]
-    ms = (t_last - t_first) * 1e3 / (n1 - n0)
+    ms, (n0, n1) = run["ms_per_step"], run["timed_steps"]
     out = {"steps": steps, "val_batches": n_val, "launches": launches,
            "train_launches": train_counts, "val_launches": val_counts,
            "grad_copies": copies, "losses": losses, "val": result["val"],
@@ -1224,6 +1496,133 @@ def train_session(torch, workdir: str) -> tuple[dict, object]:
         f"{out['images_per_s']:.0f} images/s per card (loader overlapped); "
         f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, val {result['val']}; "
         f"K1 backward gradient copies {copies}")
+    return out, model
+
+
+# -- phases 13-15: the transformer slice -------------------------------------
+
+def lm_model(torch, device: str, dtype: str = "bfloat16", data=None,
+             n_epochs: int = 1, workdir: str | None = None):
+    """A TransformerLM at bench_lm's recipe (``LM_DIMS``, batch 8, AdamW
+    at 1e-3 with weight decay 0.01, constant schedule) in ``dtype``."""
+    from theanompi_tpu_torch.models.base import ModelConfig
+    from theanompi_tpu_torch.models.transformer import TransformerLM
+
+    config = ModelConfig(
+        batch_size=LM_BATCH, n_epochs=n_epochs, optimizer="adamw",
+        learning_rate=1e-3, weight_decay=0.01, lr_schedule="constant",
+        compute_dtype=dtype, print_freq=8,
+        snapshot_dir=workdir or "./snapshots")
+    return TransformerLM(config=config, device=device, data=data, **LM_DIMS)
+
+
+def lm_grad_check(torch) -> dict:
+    """One BSP step of the same seeded full-width TransformerLM as a bf16
+    model on the card, an f32 model on the CPU and a bf16 model on the
+    CPU (plain attention), on the same 2 x 1024 tokens: the loss within
+    relative 1e-2 and the flattened gradient within relative L2 0.1 of
+    f32 and of the CPU's bf16 step."""
+    from theanompi_tpu_torch.data.lm import SeqLM_data
+
+    n, t = LM_GRAD_CHECK
+    data = SeqLM_data(vocab=LM_DIMS["vocab"], seq_len=t, n_train=n,
+                      n_val=n, seed=13)
+    tokens, targets = next(iter(data.train_batches(0, n)))
+    ref = lm_model(torch, "cpu", "float32", data=data)
+    steps = {}
+    for name, model in (("card", lm_model(torch, "cuda", data=data)),
+                        ("cpu_bf16", lm_model(torch, "cpu", data=data)),
+                        ("cpu_f32", ref)):
+        if model is not ref:
+            model.module.load_state_dict(ref.module.state_dict())
+        model.compile_iter_fns()
+        dev = model.device
+        t0 = time.monotonic()
+        metrics = model.train_step(model.state, (
+            torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(targets).to(dev)), None)
+        steps[name] = {
+            "loss": float(metrics["loss"]),
+            "grads": torch.cat([p.grad.float().reshape(-1).cpu()
+                                for p in model.module.parameters()]),
+            "s": time.monotonic() - t0}
+        del model
+    # the models hold reference cycles (their steps close over them):
+    # free the card's copy before the next phases measure peak memory
+    gc.collect()
+    card, f32, bf = steps["card"], steps["cpu_f32"], steps["cpu_bf16"]
+    r = {"tokens": [n, t], "layers": LM_DIMS["n_layers"],
+         "limits": LM_GRAD_LIMITS, "loss_card": card["loss"],
+         "loss_cpu_f32": f32["loss"],
+         "loss_rel": abs(card["loss"] - f32["loss"]) / abs(f32["loss"]),
+         "grad_vs_f32": rel_l2(torch, card["grads"], f32["grads"]),
+         "grad_vs_cpu_bf16": rel_l2(torch, card["grads"], bf["grads"]),
+         "cpu_bf16_vs_f32": rel_l2(torch, bf["grads"], f32["grads"]),
+         "finite": bool(torch.isfinite(card["grads"]).all()),
+         "cpu_f32_s": f32["s"], "cpu_bf16_s": bf["s"]}
+    log(f"  {LM_DIMS['n_layers']} layers, {n}x{t} tokens: loss card "
+        f"{r['loss_card']:.6f} cpu f32 {r['loss_cpu_f32']:.6f} (rel "
+        f"{r['loss_rel']:.3g}); gradient rel L2 card vs f32 "
+        f"{r['grad_vs_f32']:.4g}, card vs cpu bf16 "
+        f"{r['grad_vs_cpu_bf16']:.4g}, cpu bf16 vs f32 "
+        f"{r['cpu_bf16_vs_f32']:.4g} (cpu steps f32 {r['cpu_f32_s']:.1f} s, "
+        f"bf16 {r['cpu_bf16_s']:.1f} s)")
+    over = {k: r[k] for k, lim in LM_GRAD_LIMITS.items() if not r[k] <= lim}
+    if over or not r["finite"]:
+        raise AssertionError(f"LM card step off the CPU references: {over} "
+                             f"over {LM_GRAD_LIMITS}, finite {r['finite']}")
+    return r
+
+
+def lm_session(torch, workdir: str) -> tuple[dict, object]:
+    """``run_bsp_session`` of the full-width LM on a one-rank NCCL group,
+    ``SeqLM_data(vocab=256, seq_len=1024, n_train=256, n_val=16)`` passed
+    as ``data``: one epoch of 32 steps and 2 validation batches
+    (``counted_session``)."""
+    from theanompi_tpu_torch.data.lm import SeqLM_data
+
+    t0 = time.monotonic()
+    data = SeqLM_data(vocab=LM_DIMS["vocab"], seq_len=LM_DIMS["seq_len"],
+                      n_train=LM_TRAIN_STEPS * LM_BATCH,
+                      n_val=LM_VAL_BATCHES * LM_BATCH)
+    model = lm_model(torch, "cuda", data=data, workdir=workdir)
+    setup_s = time.monotonic() - t0
+    run = counted_session(torch, model)
+    result, losses, wall = run["result"], run["losses"], run["wall_s"]
+    launches, val_counts = run["launches"], run["val_counts"]
+    steps = len(losses)
+    n_val = model.val_batches_run
+    want_t = {k: v * steps for k, v in LM_TRAIN_LAUNCHES.items()}
+    want_v = {k: v * n_val for k, v in LM_VAL_LAUNCHES.items()}
+    # a kernel whose module this process never imported counts 0
+    val_counts = {k: val_counts.get(k, 0) for k in want_v}
+    train_counts = {k: launches.get(k, 0) - val_counts[k] for k in want_t}
+    launches = {k: launches.get(k, 0) for k in want_t}
+    log(f"  {steps} steps + {n_val} validation batches in {wall:.1f} s "
+        f"(set-up {setup_s:.1f} s); train launches {train_counts}, "
+        f"validation {val_counts}")
+    if (steps != LM_TRAIN_STEPS or n_val != LM_VAL_BATCHES
+            or train_counts != want_t or val_counts != want_v):
+        raise AssertionError(f"LM launches train {train_counts} != {want_t}"
+                             f", validation {val_counts} != {want_v} "
+                             f"({steps} steps, {n_val} batches)")
+    if not all(math.isfinite(v) for v in losses) or not math.isfinite(
+            result["val"]["loss"]) or not losses[-1] < losses[0]:
+        raise AssertionError(f"LM losses not finite or not falling: "
+                             f"{losses} {result['val']}")
+    ms, (n0, n1) = run["ms_per_step"], run["timed_steps"]
+    tokens_per_s = LM_BATCH * LM_DIMS["seq_len"] * 1e3 / ms
+    tflops = model.train_flops_per_sample * LM_BATCH / ms / 1e9
+    out = {"steps": steps, "val_batches": n_val, "launches": launches,
+           "train_launches": train_counts, "val_launches": val_counts,
+           "losses": losses, "val": result["val"], "ms_per_step": ms,
+           "tokens_per_s": tokens_per_s, "tflops": tflops,
+           "train_flops_per_sample": model.train_flops_per_sample,
+           "timed_steps": [n0, n1], "wall_s": wall, "setup_s": setup_s}
+    log(f"  session steps {n0 + 1}-{n1}: {ms:.2f} ms/step, "
+        f"{tokens_per_s:.0f} tokens/s per card, {tflops:.1f} TFLOP/s "
+        f"(train_flops_per_sample {model.train_flops_per_sample:.4g}); "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}, val {result['val']}")
     return out, model
 
 
@@ -1238,6 +1637,10 @@ def device_kernel(torch, event) -> bool:
 def family(name: str) -> str:
     """Kernel family of a device event name in a training step."""
     n = name.lower()
+    if "attn_fwd_kernel" in n:
+        return "attention forward (K4a)"
+    if "attn_bwd_dq_kernel" in n or "attn_bwd_dkdv_kernel" in n:
+        return "attention backward (K4b)"
     if "lrn_fwd_kernel" in n or "lrn_bwd_kernel" in n:
         return "LRN (K3a/K3b)"
     if "max_pool" in n or "avg_pool" in n:
@@ -1252,7 +1655,8 @@ def family(name: str) -> str:
         return "max-pool (K2b/K2c)"
     if "nccl" in n:
         return "all-reduce (NCCL)"
-    if ("sgd" in n or "multi_tensor" in n or "foreach" in n):
+    if ("sgd" in n or "adam" in n or "multi_tensor" in n
+            or "foreach" in n):
         return "optimizer"
     if "wgrad" in n or "dgrad" in n or "bprop" in n:
         return "convolutions, backward"
@@ -1261,18 +1665,18 @@ def family(name: str) -> str:
         return ("convolutions and GEMMs (forward, and backward kernels not "
                 "named so)")
     if "reduce" in n:
-        return "reductions (BN statistics, loss)"
+        return "reductions (BN or LayerNorm statistics, loss)"
     if "copy" in n or "memcpy" in n or "memset" in n:
         return "copies"
     return "other elementwise"
 
 
-def trace_train_step(torch, model) -> dict:
+def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
     """The device-step leg: one training step on a staged batch, timed
     on the host clock (20 steps, synchronised) and traced (3 steps)."""
     from torch.profiler import ProfilerActivity, profile
 
-    x, y = next(iter(model.data.train_batches(0, TRAIN_BATCH)))
+    x, y = next(iter(model.data.train_batches(0, batch_size)))
     batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
     gen = model._epoch_rng(0)
 
@@ -1305,7 +1709,7 @@ def trace_train_step(torch, model) -> dict:
         fam = family(e.name)
         families[fam] = families.get(fam, 0.0) + us
     device_ms = sum(families.values()) / 3e3
-    out = {"step_ms": step_ms, "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+    out = {"step_ms": step_ms, "images_per_s": batch_size * 1e3 / step_ms,
            "device_ms_per_step": device_ms,
            "idle_share": (1 - device_ms / step_ms) if device_ms else None,
            "peak_memory_gb": peak_gb,
@@ -1315,7 +1719,7 @@ def trace_train_step(torch, model) -> dict:
                k: v / 3e3 for k, v in sorted(by_name.items(),
                                              key=lambda kv: -kv[1])[:25]}}
     log(f"  device-step leg: {step_ms:.2f} ms/step on the host clock "
-        f"({out['images_per_s']:.0f} images/s per card), peak memory "
+        f"({out['images_per_s']:.0f} samples/s per card), peak memory "
         f"{peak_gb:.1f} GB")
     if not device_ms:
         log("  torch.profiler recorded no device time (not measured)")
@@ -1425,6 +1829,13 @@ def main() -> int:
     log("phase 8: one AlexNet step on the card against the CPU references")
     alex_checked = alexnet_grad_check(torch)
     torch.cuda.empty_cache()
+    log("phase 12: the attention kernels against their plain versions")
+    k4 = check_k4(torch)
+    torch.cuda.empty_cache()
+    log("phase 13: one TransformerLM step on the card against the CPU "
+        "references")
+    lm_checked = lm_grad_check(torch)
+    torch.cuda.empty_cache()
 
     import torch.distributed as dist
 
@@ -1443,6 +1854,19 @@ def main() -> int:
             alex_session = launcher_session(torch, tmp)
         log("phase 10: where one AlexNet training step spends its time")
         alex_trace = trace_alexnet_step(torch)
+        torch.cuda.empty_cache()
+        log("phase 14: run_bsp_session of the TransformerLM (bench_lm's "
+            "recipe) on a one-rank NCCL group")
+        with tempfile.TemporaryDirectory() as tmp:
+            lm_run, lm_trained = lm_session(torch, tmp)
+        log("phase 15: where one TransformerLM training step spends its "
+            "time")
+        lm_trace = trace_train_step(torch, lm_trained, LM_BATCH)
+        lm_trace["tokens_per_s"] = (LM_BATCH * LM_DIMS["seq_len"] * 1e3
+                                    / lm_trace["step_ms"])
+        log(f"  {lm_trace['tokens_per_s']:.0f} tokens/s per card on the "
+            "device-step leg")
+        del lm_trained
     finally:
         dist.destroy_process_group()
 
@@ -1468,13 +1892,21 @@ def main() -> int:
         kernels.append({**k3["per_step"][name],
                         "max_abs_err": k3["max_abs_err"][name],
                         "name": name, "launches_path": "alexnet"})
+    for name in ("attention", "attention_bwd_dq", "attention_bwd_dkdv"):
+        kernels.append({**{key: k4[name][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "backward_ms", "backward_bound_ms") if key in k4[name]},
+            "max_abs_err": k4["max_abs_err"][name], "name": name,
+            "launches_path": "transformer"})
     paths = {"serving": (served, TRAIN_LAUNCHES),
              "training": (session, TRAIN_LAUNCHES),
-             "alexnet": (alex_session, ALEX_TRAIN_LAUNCHES)}
+             "alexnet": (alex_session, ALEX_TRAIN_LAUNCHES),
+             "transformer": (lm_run, LM_TRAIN_LAUNCHES)}
     for k in kernels:
         src, replaces = KERNEL_SOURCES[k["name"]]
         runs, per_step = paths[k["launches_path"]]
-        k.update(route="cuda", source=src, replaces=replaces,
+        k.update(id=KERNEL_IDS[k["name"]], route="cuda", source=src,
+                 replaces=replaces,
                  launches=runs["launches"][k["name"]],
                  train_launches_per_step=per_step[k["name"]],
                  train_session_launches=session["launches"][k["name"]])
@@ -1488,7 +1920,9 @@ def main() -> int:
                    "train_step_trace": step_trace, "k3": k3,
                    "alexnet_grad_check": alex_checked,
                    "alexnet_session": alex_session,
-                   "alexnet_step_trace": alex_trace, "kernels": kernels,
+                   "alexnet_step_trace": alex_trace, "k4": k4,
+                   "lm_grad_check": lm_checked, "lm_session": lm_run,
+                   "lm_step_trace": lm_trace, "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "
                            "per_train_step: per batch-128 step) or per "
@@ -1499,7 +1933,16 @@ def main() -> int:
                            "forward+backward less its forward).  "
                            "launches: the served run (launches_path "
                            "serving), the ResNet training session or "
-                           "the AlexNet launcher session (alexnet)"},
+                           "the AlexNet launcher session (alexnet); K4 "
+                           "per launch at (8, 1024, 12, 64) bf16 causal "
+                           "(bound: operations at the bf16 tensor-core "
+                           "rate), launches in the TransformerLM session "
+                           "(transformer: 32 steps + 2 validation "
+                           "batches); each K4b entry's plain_ms and "
+                           "library_ms (SDPA's backward: forward+backward "
+                           "less forward) are the whole backward's, to "
+                           "read beside its backward_ms (both passes) and "
+                           "backward_bound_ms"},
                   f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -10,7 +10,7 @@ machine set up for the port need not have):
 import pytest
 import torch
 
-from theanompi_tpu_torch.ops import _kernels, fused_bn, lrn, maxpool
+from theanompi_tpu_torch.ops import _kernels, attention, fused_bn, lrn, maxpool
 
 pytestmark = pytest.mark.gpu
 
@@ -235,3 +235,87 @@ def test_lrn_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros(1, 2, 2, 8, device=cuda)
     with pytest.raises(TypeError, match="dtype"):
         lrn.lrn_bwd(x, x.bfloat16())
+
+
+def _attention_inputs(cuda, b, tq, tk, h, d, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(b, t, h, d, generator=gen, device=cuda).to(dtype)
+               for t in (tq, tk, tk))
+    g = torch.randn(b, tq, h, d, generator=gen, device=cuda).to(dtype)
+    return q, k, v, g
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,tq,tk,h,d,causal,q_off", [
+    (2, 256, 256, 3, 64, True, 0),
+    (2, 256, 256, 3, 64, False, 0),
+    (1, 100, 200, 2, 32, True, 100),     # global positions, Tq != Tk
+    (1, 96, 160, 2, 64, True, -40),      # 40 rows see no key at all
+    (2, 77, 77, 2, 64, True, 0),         # ragged T
+    (1, 130, 70, 2, 48, True, 10),       # D padded to 64, ragged both
+    (1, 64, 64, 2, 128, True, 0),
+    (1, 33, 33, 3, 16, False, 0)])
+def test_attention_kernels_match_plain(cuda, dtype, b, tq, tk, h, d, causal,
+                                       q_off):
+    """K4a and both K4b passes against their plain versions, within the
+    limits of ``attention.tolerance_excess`` (stated there)."""
+    q, k, v, g = _attention_inputs(cuda, b, tq, tk, h, d, dtype)
+    q_pos = torch.arange(tq, device=cuda) + q_off
+    k_pos = torch.arange(tk, device=cuda)
+    ks = (attention.K_FWD, attention.K_BWD_DQ, attention.K_BWD_DKDV)
+    before = [kk.launches for kk in ks]
+    o, lse = attention.attention_fwd(q, k, v, q_pos, k_pos, causal=causal)
+    grads = attention.attention_bwd(q, k, v, q_pos, k_pos, lse, g,
+                                    causal=causal)
+    scale = d ** -0.5
+    want_o, want_lse = attention.attention_fwd_plain(
+        q, k, v, q_pos.int(), k_pos.int(), scale, causal)
+    want = attention.attention_bwd_plain(q, k, v, q_pos.int(), k_pos.int(),
+                                         lse, g, scale, causal)
+    torch.cuda.synchronize()
+    assert [kk.launches for kk in ks] == [n + 1 for n in before]
+    assert o.dtype == dtype and lse.shape == (b * h, tq)
+    assert all(t.dtype == dtype for t in grads)
+    fwd_inputs = (q, k, v, q_pos, k_pos, scale, causal)
+    excess = {"o": attention.tolerance_excess("o", o, want_o, fwd_inputs),
+              "lse": attention.tolerance_excess("lse", lse, want_lse)}
+    for name, got, w in zip(("dq", "dk", "dv"), grads, want):
+        excess[name] = attention.tolerance_excess(name, got, w)
+    assert max(excess.values()) <= 1.0, excess
+    if q_off < 0:
+        # a row that sees no key averages v uniformly
+        torch.testing.assert_close(o[:, 0].float(),
+                                   v.float().mean(1), rtol=0, atol=2e-2)
+
+
+def test_attention_autograd_runs_all_three_kernels(cuda):
+    q, k, v, g = _attention_inputs(cuda, 2, 128, 128, 2, 64, torch.bfloat16)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ks = (attention.K_FWD, attention.K_BWD_DQ, attention.K_BWD_DKDV)
+    before = [kk.launches for kk in ks]
+    attention.fused_attention(q, k, v, causal=True).backward(g)
+    torch.cuda.synchronize()
+    assert [kk.launches for kk in ks] == [n + 1 for n in before]
+    _, lse = attention.attention_fwd_plain(
+        q.detach(), k.detach(), v.detach(),
+        torch.arange(128, device=cuda), torch.arange(128, device=cuda),
+        64 ** -0.5, True)
+    want = attention.attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), torch.arange(128, device=cuda),
+        torch.arange(128, device=cuda), lse, g, 64 ** -0.5, True)
+    for name, t, w in zip(("dq", "dk", "dv"), (q, k, v), want):
+        assert attention.tolerance_excess(name, t.grad, w) <= 1.0, name
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(cuda):
+    x = torch.zeros(1, 4, 1, 8, device=cuda)
+    with pytest.raises(TypeError, match="float32|bfloat16"):
+        attention.fused_attention(x.half(), x.half(), x.half())
+    big = torch.zeros(1, 4, 1, 160, device=cuda)
+    with pytest.raises(ValueError, match="D <= 128"):
+        attention.fused_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        y = torch.zeros(1, 2, 4, 8, device=cuda).transpose(1, 2)
+        attention.fused_attention(y, y, y)
+    with pytest.raises(TypeError, match="dtype"):
+        attention.fused_attention(x, x.bfloat16(), x)

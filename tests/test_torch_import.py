@@ -31,7 +31,10 @@ def test_port_imports_with_poisoned_jax(tmp_path):
         "import chip_smoke\n"
         "assert {'theanompi_tpu_torch.serving.server', "
         "'theanompi_tpu_torch.launcher', 'theanompi_tpu_torch.ops.lrn', "
-        "'theanompi_tpu_torch.models.alex_net'} <= set(names)\n"
+        "'theanompi_tpu_torch.models.alex_net', "
+        "'theanompi_tpu_torch.ops.attention', "
+        "'theanompi_tpu_torch.models.transformer', "
+        "'theanompi_tpu_torch.data.lm'} <= set(names)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'theanompi_tpu.')) or m == 'theanompi_tpu']\n"
         "assert not bad, bad\n"

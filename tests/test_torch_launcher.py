@@ -2,7 +2,8 @@
 
 A 2-process run of a tiny AlexNet (full layer widths, 67-pixel crops,
 10 classes, a synthetic pool of 4 images) writes its result JSON, every
-loss is finite, and the two ranks end with equal parameters; a worker
+loss is finite, and the two ranks end with equal parameters; the
+TransformerLM trains at its default dims through the same command; a worker
 that fails stops its sibling and the launcher exits non-zero; unported
 rules and options exit non-zero naming their ROADMAP item.
 
@@ -98,6 +99,36 @@ def test_two_process_gloo_bsp_run(tmp_path, workers_import_this_file, capfd):
     # CPU tensors take the plain versions: no kernel launched
     assert not any(rec["launches"]["train"].values())
     assert "final val" in stdout
+
+
+def test_transformer_lm_at_default_dims(tmp_path, monkeypatch, capfd):
+    """The launcher reaches the LM: ``-m theanompi_tpu_torch.models.
+    transformer -c TransformerLM`` at its default dims (2 layers, d_model
+    128, 4 heads, seq 128, vocab 256, the default 4096-sequence synthetic
+    set) for one epoch of batch-64 steps on one CPU worker.  The epoch
+    record carries every K4 count at 0 (CPU tensors take the plain
+    versions) and a finite loss that fell below its start (ln 256)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    out = tmp_path / "result.json"
+    rc = _launch(["BSP", "--platform", "cpu", "-D", "1", "-m",
+                  "theanompi_tpu_torch.models.transformer", "-c",
+                  "TransformerLM", "--epochs", "1", "--set", "batch_size=64",
+                  "--snapshot-dir", str(tmp_path), "--result-json",
+                  str(out)], timeout=240)
+    stdout, stderr = capfd.readouterr()
+    assert rc == 0, stdout[-3000:] + stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert res["world_size"] == 1 and res["device"] == "cpu"
+    rec = res["records"][0]
+    assert rec["train_steps"] == 4096 // 64 and rec["val_batches"] == 512 // 64
+    for part in ("train", "val"):
+        counts = rec["launches"][part]
+        assert {k: counts[k] for k in ("attention", "attention_bwd_dq",
+                                       "attention_bwd_dkdv")} == {
+            "attention": 0, "attention_bwd_dq": 0, "attention_bwd_dkdv": 0}
+        assert not any(counts.values())
+    assert math.isfinite(rec["train_loss"]) and math.isfinite(rec["val_loss"])
+    assert rec["val_loss"] < math.log(256)
 
 
 def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,

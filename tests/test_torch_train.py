@@ -190,14 +190,51 @@ def test_sgd_trajectory_matches_optax(nesterov):
     assert H.get_learning_rate(topt) == 0.01
 
 
+def test_adamw_trajectory_matches_optax():
+    """Params after 6 AdamW steps (b1 0.9, b2 0.999, eps 1e-8, decoupled
+    weight decay 0.01) on the same gradient sequence, with the LR
+    rewritten after step 3, against ``optax.adamw`` as the JAX
+    ``build_optimizer`` chains it.  Both compute the bias-corrected
+    moments in f32 but factor them differently (PyTorch divides by
+    ``sqrt(v)/sqrt(1-b2^t)``, optax by ``sqrt(v/(1-b2^t))``, and applies
+    the decay before the Adam step): ``rtol=1e-5`` after every step."""
+    rng = np.random.default_rng(6)
+    shapes = [(4, 3), (7,)]
+    params = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(6)]
+    kw = dict(weight_decay=0.01, beta1=0.9, beta2=0.999, eps=1e-8)
+    tx = jax_opt(1e-2, "adamw", **kw)
+    jp = [jnp.asarray(p) for p in params]
+    opt_state = tx.init(jp)
+    tp = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in params]
+    topt = H.build_optimizer(tp, 1e-2, "adamw", **kw)
+    assert isinstance(topt, torch.optim.AdamW)
+    for i, gs in enumerate(grads):
+        if i == 3:
+            opt_state = jax_set_lr(opt_state, 3e-3)
+            H.set_learning_rate(topt, 3e-3)
+        updates, opt_state = tx.update([jnp.asarray(g) for g in gs],
+                                       opt_state, jp)
+        jp = [p + u for p, u in zip(jp, updates)]
+        for p, g in zip(tp, gs):
+            p.grad = torch.from_numpy(g)
+        topt.step()
+        for a, b in zip(tp, jp):
+            assert_close(a.detach().numpy(), b, rtol=1e-5, floor=1e-6,
+                         msg=f"step {i}")
+
+
 def test_helpers_and_unported_optimizers():
     assert H.scale_lr(0.1, 4) == pytest.approx(0.4)
     assert H.scale_lr(0.1, 4, "sqrt") == pytest.approx(0.2)
     assert H.divide_batches(10, 4) == 2
     assert H.divide_batches(10, 4, drop_remainder=False) == 3
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for name in ("adam", "adamw", "rmsprop", "lars"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for name in ("adam", "rmsprop", "lars"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md section A, item 7: adam, "
+                                 "rmsprop and lars"):
             H.build_optimizer(p, 0.1, name)
     with pytest.raises(ValueError, match="unknown optimizer"):
         H.build_optimizer(p, 0.1, "sgdw")

@@ -176,7 +176,9 @@ class TorchModel:
     def _optimizer_kwargs(self) -> dict:
         cfg = self.config
         return {"optimizer": cfg.optimizer, "momentum": cfg.momentum,
-                "nesterov": cfg.nesterov, "weight_decay": cfg.weight_decay}
+                "nesterov": cfg.nesterov, "weight_decay": cfg.weight_decay,
+                "beta1": cfg.adam_beta1, "beta2": cfg.adam_beta2,
+                "eps": cfg.adam_eps}
 
     def _ensure_state(self) -> TrainState:
         """The training state, made at first use: a model that only

@@ -7,6 +7,14 @@ kernels ``Conv_{i}/Conv_0/kernel`` go HWIO ``(kh, kw, in/groups, out)``
 ``Dense_{i}/Dense_0/kernel`` go (in, out) -> (out, in), and the biases
 map as they are.
 
+A JAX TransformerLM's ``params`` map onto :class:`~theanompi_tpu_torch.
+models.transformer.TransformerLMNet` (:func:`transformer_state_dict_from_
+flax`): ``Embed_0/embedding`` and ``pos_emb`` as they are, each
+``Block_i`` onto ``blocks.i`` (``LayerNorm_0``/``_1`` scale and bias, the
+bias-free ``q/k/v/o_proj`` and the ``mlp_up``/``mlp_down`` kernels (in,
+out) -> weights (out, in), with their biases), then the final
+``LayerNorm_0`` and ``Dense_0``.
+
 A JAX ResNet's ``params`` and ``batch_stats`` (nested dicts of numpy
 arrays) map leaf by leaf onto :class:`~theanompi_tpu_torch.models.
 resnet50.ResNet`:
@@ -127,6 +135,41 @@ def alexnet_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
             pool, "params", f"{scope}/{inner}/kernel").transpose(perm)
         out[f"{scope}.bias"] = _pop_leaf(pool, "params",
                                          f"{scope}/{inner}/bias")
+    return _to_torch(pool, out)
+
+
+def transformer_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
+    """The port's TransformerLMNet ``state_dict`` (f32 tensors) from a
+    flax TransformerLMNet's ``params``-shaped tree (weights, their
+    gradients, or weights after an update)."""
+    pool = {("params", k): v for k, v in _flatten(params).items()}
+    n_layers = len({k.split("/")[0] for _, k in pool
+                    if k.startswith("Block_")})
+    out: dict[str, np.ndarray] = {
+        "Embed_0.embedding": _pop_leaf(pool, "params", "Embed_0/embedding"),
+        "pos_emb": _pop_leaf(pool, "params", "pos_emb")}
+
+    def dense(port: str, scope: str, bias: bool) -> None:
+        out[f"{port}.weight"] = _pop_leaf(pool, "params",
+                                          f"{scope}/kernel").T
+        if bias:
+            out[f"{port}.bias"] = _pop_leaf(pool, "params", f"{scope}/bias")
+
+    def norm(port: str, scope: str) -> None:
+        for name in ("scale", "bias"):
+            out[f"{port}.{name}"] = _pop_leaf(pool, "params",
+                                              f"{scope}/{name}")
+
+    for i in range(n_layers):
+        scope, port = f"Block_{i}", f"blocks.{i}"
+        norm(f"{port}.LayerNorm_0", f"{scope}/LayerNorm_0")
+        norm(f"{port}.LayerNorm_1", f"{scope}/LayerNorm_1")
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            dense(f"{port}.{name}", f"{scope}/{name}", bias=False)
+        for name in ("mlp_up", "mlp_down"):
+            dense(f"{port}.{name}", f"{scope}/{name}", bias=True)
+    norm("LayerNorm_0", "LayerNorm_0")
+    dense("Dense_0", "Dense_0", bias=True)
     return _to_torch(pool, out)
 
 

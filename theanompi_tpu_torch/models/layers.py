@@ -7,11 +7,14 @@ channels-last weight, so its output permutes back to a contiguous NHWC
 tensor without a copy, and the fused BN epilogue (ops/fused_bn.py) and
 the LRN kernels (ops/lrn.py) read that ``(N*H*W, C)`` view in place.
 Pooling is ``F.max_pool2d``/``F.avg_pool2d`` on the same view, as the
-JAX package leaves it to XLA's ``reduce_window``.
+JAX package leaves it to XLA's ``reduce_window``.  The transformer's
+layers (:class:`LayerNorm`, :class:`Embed`, :func:`gelu`, bias-free
+:class:`Dense`) follow flax's defaults, which differ from PyTorch's.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -41,9 +44,31 @@ def constant_init(v: float = 0.0) -> Init:
     return init
 
 
+def xavier_uniform() -> Init:
+    """flax's ``xavier_uniform``: U(-a, a), a = sqrt(6 / (fan_in +
+    fan_out)), for a (out, in) weight."""
+    def init(t: torch.Tensor, gen: torch.Generator) -> None:
+        fan_out, fan_in = t.shape
+        a = math.sqrt(6.0 / (fan_in + fan_out))
+        t.uniform_(-a, a, generator=gen)
+    return init
+
+
+def he_normal() -> Init:
+    """flax's ``he_normal``: a normal of variance 2 / fan_in TRUNCATED at
+    two standard deviations (the std rescaled by 1/0.8796 so the
+    truncated draw keeps that variance), for an (out, in) weight."""
+    def init(t: torch.Tensor, gen: torch.Generator) -> None:
+        std = math.sqrt(2.0 / t.shape[1]) / 0.87962566103423978
+        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=gen)
+    return init
+
+
 def init_params(module: nn.Module, gen: torch.Generator) -> None:
-    """Apply every :class:`Conv`/:class:`Dense` layer's own inits, in
-    module order (layers built without inits are left as they are)."""
+    """Apply every :class:`Conv`/:class:`Dense`/:class:`Embed` layer's
+    own inits, in module order (layers built without inits are left as
+    they are)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (Conv, Dense)):
@@ -51,6 +76,8 @@ def init_params(module: nn.Module, gen: torch.Generator) -> None:
                                 (m.bias_init, m.bias)):
                     if init is not None and t is not None:
                         init(t, gen)
+            elif isinstance(m, Embed):
+                m.embedding.normal_(0.0, EMBED_STD, generator=gen)
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -206,23 +233,73 @@ class BatchNormAct(nn.Module):
 class Dense(nn.Module):
     """Fully connected layer computed in ``dtype``: f32 by default (the
     JAX ``L.Dense`` default, which the ResNet head keeps under bf16
-    compute); AlexNet's layers pass the compute dtype, as its JAX
-    model does."""
+    compute); AlexNet's and the transformer's layers pass the compute
+    dtype, as their JAX models do.  ``use_bias=False`` drops the bias
+    (the attention projections)."""
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.float32,
                  kernel_init: Init | None = None,
-                 bias_init: Init | None = None):
+                 bias_init: Init | None = None, use_bias: bool = True):
         super().__init__()
         self.dtype = dtype
         self.kernel_init = kernel_init
         self.bias_init = bias_init
         self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
-                        self.bias.to(self.dtype))
+                        None if self.bias is None
+                        else self.bias.to(self.dtype))
+
+
+#: flax's LayerNorm epsilon (PyTorch's default is 1e-5)
+LN_EPSILON = 1e-6
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm(dtype=...)`` over the last axis: epsilon
+    :data:`LN_EPSILON`, the statistics of ``x`` in f32 with the fast
+    variance ``max(0, E[x^2] - E[x]^2)``, ``(x - mean) * (rsqrt(var +
+    eps) * scale) + bias`` in f32, the result in ``dtype``."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(-1, keepdim=True)
+                              - mean * mean, 0.0)
+        mul = torch.rsqrt(var + LN_EPSILON) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+#: the std of :class:`Embed`'s N(0, std^2) init (the JAX TransformerLM's)
+EMBED_STD = 0.02
+
+
+class Embed(nn.Module):
+    """flax's ``nn.Embed``: an f32 (num, features) table, drawn by
+    :func:`init_params` from N(0, :data:`EMBED_STD`^2); the lookup of
+    integer ids (int32 or int64) returns f32."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embedding)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu``: the tanh approximation (``F.gelu``'s default
+    is the exact erf form)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def max_pool(x: torch.Tensor, window: int = 3,

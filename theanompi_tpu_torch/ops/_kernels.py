@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: library name -> its source under csrc/
 SOURCES = {"fused_bn": "fused_bn.cu", "maxpool": "maxpool.cu",
-           "lrn": "lrn.cu"}
+           "lrn": "lrn.cu", "attention": "attention.cu"}
 
 
 class KernelBuildError(RuntimeError):
