@@ -86,12 +86,17 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    card line, and last ``{"ok": true, "device": {...}}``.
 12. The attention kernels K4a (forward) and K4b (backward: row pass for
    dq, column pass for dk and dv) against their plain versions on the
-   card: the slice's (8, 1024, 12, 64) causal in bf16 and f32, a
-   non-causal case, Tq != Tk with global positions, rows that see no
-   key, ragged T (1000, 77) and d_head 32, within the limits of
+   card: the slice's (8, 1024, 12, 64) causal in bf16 (the tensor-core
+   route) and f32 (the CUDA-core route), a non-causal case, Tq != Tk
+   with global positions, rows that see no key, ragged T (1000, 77),
+   d_head 32, shuffled positions, a query tile straddling the no-key
+   border, a ragged Tk (130 against Tq 65), d_head 40, d_head 20 (not a
+   multiple of 8: plain loads instead of cp.async) and 66 000 keys (the
+   bf16 kernels plan 1024 key tiles at a time), within the limits of
    ``attention.tolerance_excess``.  Times at the slice's bf16 shape
-   beside each kernel's bound (bf16 tensor-core rate), the plain
-   versions and ``F.scaled_dot_product_attention``.
+   beside each kernel's bound (bf16 tensor-core rate), the plain versions
+   and ``F.scaled_dot_product_attention``, and the same kernels' times
+   without the causal mask (what causal tile skipping saves).
 13. One BSP step of a seeded full-width TransformerLM (12 layers,
    d_model 768, 12 heads, vocab 256) as bf16 on the card and as f32
    and bf16 on the CPU (plain attention), on the same 2 x 1024 tokens:
@@ -752,14 +757,19 @@ def check_k4(torch) -> dict:
     card: the slice's shape (8, 1024, 12, 64) causal in bf16 and f32, a
     non-causal case, Tq != Tk with global positions (q_pos = 512 +
     arange(256) against 1024 keys), rows that see no key at all, ragged
-    T (1000 and 77) and the default model's d_head 32; each within the
-    limits of ``attention.tolerance_excess`` (stated there).  At the
-    slice's bf16 shape: each kernel, the plain versions and
-    ``F.scaled_dot_product_attention`` (forward, and forward + backward
-    through autograd, on the (B, H, T, D) view) timed with CUDA graphs,
-    beside each kernel's bound (operations at the bf16 tensor-core
-    rate: 4*D per unmasked pair forward, 6*D for the row pass, 8*D for
-    the column pass, 10*D for the backward as a whole; bytes: each
+    T (1000 and 77), the default model's d_head 32, both position
+    vectors shuffled (the skip rule assumes no order), a query tile
+    holding rows that see no key beside rows that do (q_pos = arange(160)
+    - 40 against 256 keys), Tk = 130 against Tq = 65, d_head 40
+    (padded to 64), d_head 20 (loaded without cp.async) and 66 000 keys
+    (planned in two chunks of key tiles); each within the limits of
+    ``attention.tolerance_excess`` (stated there).  At the slice's bf16
+    shape: each kernel, the same kernel without the causal mask, the plain
+    versions and ``F.scaled_dot_product_attention`` (forward, and forward +
+    backward through autograd, on the (B, H, T, D) view) timed with CUDA
+    graphs, beside each kernel's bound (operations at the bf16
+    tensor-core rate: 4*D per unmasked pair forward, 6*D for the row pass,
+    8*D for the column pass, 10*D for the backward as a whole; bytes: each
     input read once, each output written once)."""
     import torch.nn.functional as F
 
@@ -768,7 +778,8 @@ def check_k4(torch) -> dict:
     bf16, f32 = torch.bfloat16, torch.float32
     b, t, h, d = (LM_BATCH, LM_DIMS["seq_len"], LM_DIMS["n_heads"],
                   LM_DIMS["d_model"] // LM_DIMS["n_heads"])
-    # (label, B, Tq, Tk, H, D, causal, q_pos offset, dtype)
+    # (label, B, Tq, Tk, H, D, causal, q_pos offset (None: both position
+    # vectors shuffled), dtype)
     cases = [("slice", b, t, t, h, d, True, 0, bf16),
              ("slice", b, t, t, h, d, True, 0, f32),
              ("non-causal", 2, t, t, h, d, False, 0, bf16),
@@ -777,8 +788,16 @@ def check_k4(torch) -> dict:
              ("rows see no key", 2, 256, t, h, d, True, -100, bf16),
              ("ragged T", 2, 1000, 1000, h, d, True, 0, bf16),
              ("ragged T", 2, 77, 77, h, d, True, 0, f32),
-             ("d_head 32", 16, 128, 128, 4, 32, True, 0, bf16)]
+             ("d_head 32", 16, 128, 128, 4, 32, True, 0, bf16),
+             ("shuffled positions", 2, t, t, h, d, True, None, bf16),
+             ("no-key border", 2, 160, 256, h, d, True, -40, bf16),
+             ("ragged Tk", 2, 65, 130, h, d, True, 0, bf16),
+             ("d_head 40", 4, 256, 256, 4, 40, True, 0, bf16),
+             ("d_head 20", 2, 70, 90, 4, 20, True, 5, bf16),
+             ("over 1024 key tiles", 1, 64, 66000, 2, 16, True, 65950,
+              bf16)]
     gen = torch.Generator(device="cuda").manual_seed(12)
+    perm = torch.Generator().manual_seed(13)
     rows_out = []
     worst = {"attention": 0.0, "attention_bwd_dq": 0.0,
              "attention_bwd_dkdv": 0.0}
@@ -788,8 +807,12 @@ def check_k4(torch) -> dict:
                                device="cuda").to(dtype)
                    for n in (tq, tk, tk))
         g = torch.randn(b_, tq, h_, d_, generator=gen, device="cuda").to(dtype)
-        q_pos = torch.arange(tq, device="cuda", dtype=torch.int32) + off
-        k_pos = torch.arange(tk, device="cuda", dtype=torch.int32)
+        if off is None:
+            q_pos, k_pos = (torch.randperm(n, generator=perm).to(
+                "cuda", torch.int32) for n in (tq, tk))
+        else:
+            q_pos = torch.arange(tq, device="cuda", dtype=torch.int32) + off
+            k_pos = torch.arange(tk, device="cuda", dtype=torch.int32)
         scale = d_ ** -0.5
         o, lse = attention.attention_fwd(q, k, v, q_pos, k_pos, scale, causal)
         grads = attention.attention_bwd(q, k, v, q_pos, k_pos, lse, g, scale,
@@ -818,7 +841,7 @@ def check_k4(torch) -> dict:
                "causal": causal, "q_pos_offset": off,
                "dtype": str(dtype).replace("torch.", ""),
                "excess": excess, "max_abs_err": err}
-        log(f"  K4 {label:17s} q {str([b_, tq, h_, d_]):18s} tk {tk:4d} "
+        log(f"  K4 {label:18s} q {str([b_, tq, h_, d_]):18s} tk {tk:4d} "
             f"{'causal' if causal else 'full':6s} {row['dtype']:8s}: "
             "error / limit " + ", ".join(f"{n} {x:.3f}"
                                          for n, x in excess.items()))
@@ -840,23 +863,32 @@ def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
     pass at the slice's shape (bf16, causal), of the plain versions
     (forward; backward from the kernel's lse) and of SDPA (forward; and
     forward + backward less forward, the backward both passes compute
-    together), with each kernel's bound."""
+    together), with each kernel's bound; and each kernel on the same
+    inputs without the causal mask (``noncausal_ms``: causal tile skipping
+    should bring the causal time near 136/256 of it)."""
     b, tq, h, d = q.shape
     tk = k.shape[1]
-    o, lse = attention.attention_fwd(q, k, v, q_pos, k_pos, scale, True)
     rd = torch.empty((b * h, tq, 2), dtype=torch.float32, device="cuda")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    dims = (b, tq, tk, h, d, scale, 1, 1)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            k_pos.data_ptr(), g.data_ptr(), lse.data_ptr())
 
-    def row_pass():
-        attention.K_BWD_DQ(q.device, *ptrs, dq.data_ptr(), rd.data_ptr(),
-                           *dims)
+    def passes(causal):
+        """K4a, the row pass and the column pass, causal or not."""
+        _, lse = attention.attention_fwd(q, k, v, q_pos, k_pos, scale,
+                                         causal)
+        dims = (b, tq, tk, h, d, scale, int(causal), 1)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
+                k_pos.data_ptr(), g.data_ptr(), lse.data_ptr())
+        return {"attention": lambda: attention.attention_fwd(
+                    q, k, v, q_pos, k_pos, scale, causal),
+                "attention_bwd_dq": lambda: attention.K_BWD_DQ(
+                    q.device, *ptrs, dq.data_ptr(), rd.data_ptr(), *dims),
+                "attention_bwd_dkdv": lambda: attention.K_BWD_DKDV(
+                    q.device, *ptrs, rd.data_ptr(), dk.data_ptr(),
+                    dv.data_ptr(), *dims)}, lse
 
-    def col_pass():
-        attention.K_BWD_DKDV(q.device, *ptrs, rd.data_ptr(), dk.data_ptr(),
-                             dv.data_ptr(), *dims)
+    # each lse stays referenced while its closures hold its pointer
+    causal_fns, lse = passes(True)
+    full_fns, lse_full = passes(False)
 
     qs, ks, vs = (x.transpose(1, 2) for x in (q, k, v))
     qr, kr, vr = (x.detach().clone().requires_grad_() for x in (qs, ks, vs))
@@ -867,10 +899,10 @@ def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
         return torch.autograd.grad(out, (qr, kr, vr), gs)
 
     reps = 4
-    ms = {"attention": graph_ms(torch, [lambda: attention.attention_fwd(
-              q, k, v, q_pos, k_pos, scale, True)], reps),
-          "attention_bwd_dq": graph_ms(torch, [row_pass], reps),
-          "attention_bwd_dkdv": graph_ms(torch, [col_pass], reps)}
+    ms = {name: graph_ms(torch, [fn], reps)
+          for name, fn in causal_fns.items()}
+    full_ms = {name: graph_ms(torch, [fn], reps)
+               for name, fn in full_fns.items()}
     plain = {"attention": graph_ms(torch, [
                  lambda: attention.attention_fwd_plain(
                      q, k, v, q_pos, k_pos, scale, True)], 2),
@@ -882,6 +914,10 @@ def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
     sdpa_fwd_bwd_ms = graph_ms(torch, [sdpa_fwd_bwd], reps)
     pairs = b * h * causal_pairs(q_pos.cpu().numpy(), k_pos.cpu().numpy(),
                                  True)
+    # the skip rule's count per (b, h), from its plain mirror (the log's
+    # reference for noncausal_ms; nothing on the card counts tiles)
+    skipped = attention.skipped_tiles(q_pos, k_pos, True)
+    kept, n_tiles = int((~skipped).sum()), skipped.numel()
     elt = q.element_size()
     n_q, n_k = q.numel() * elt, k.numel() * elt
     lse_b = lse.numel() * 4
@@ -892,7 +928,8 @@ def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
                                    8 * d * pairs),
             "backward": (2 * n_q + 2 * n_k + lse_b + n_q + 2 * n_k,
                          10 * d * pairs)}
-    out = {"pairs": pairs, "sdpa_fwd_ms": sdpa_fwd,
+    out = {"pairs": pairs, "rule_tile_pairs": [kept, n_tiles],
+           "sdpa_fwd_ms": sdpa_fwd,
            "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
            "sdpa_bwd_ms": sdpa_fwd_bwd_ms - sdpa_fwd,
            "plain_bwd_ms": plain["backward"],
@@ -904,7 +941,8 @@ def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
                                                       BF16_OPS_PER_S),
                      "bound_by": bound_by(nbytes, ops, BF16_OPS_PER_S),
                      "nbytes": nbytes, "ops": ops,
-                     "tflops": ops / k_ms / 1e9}
+                     "tflops": ops / k_ms / 1e9,
+                     "noncausal_ms": full_ms[name]}
     out["attention"].update(plain_ms=plain["attention"],
                             library_ms=sdpa_fwd)
     for name in ("attention_bwd_dq", "attention_bwd_dkdv"):
@@ -915,7 +953,9 @@ def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
                          library_ms=out["sdpa_bwd_ms"],
                          backward_ms=out["bwd_ms"],
                          backward_bound_ms=out["bwd_bound_ms"])
-    log(f"  at {[b, tq, h, d]} bf16 causal ({pairs} unmasked pairs): K4a "
+    log(f"  at {[b, tq, h, d]} bf16 causal ({pairs} unmasked pairs; the "
+        f"skip rule keeps {kept} of {n_tiles} 64x64 tile pairs per (b, h), "
+        "by its CPU mirror): K4a "
         f"{ms['attention']:.4f} ms ({out['attention']['tflops']:.1f} "
         f"TFLOP/s; bound {out['attention']['bound_ms']:.4f}, plain "
         f"{plain['attention']:.4f}, SDPA {sdpa_fwd:.4f}); K4b row pass "
@@ -925,6 +965,10 @@ def time_k4(torch, F, attention, q, k, v, g, q_pos, k_pos, scale) -> dict:
         f"{out['attention_bwd_dkdv']['bound_ms']:.4f}); backward "
         f"{out['bwd_ms']:.4f} ms (bound {out['bwd_bound_ms']:.4f}, plain "
         f"{plain['backward']:.4f}, SDPA backward {out['sdpa_bwd_ms']:.4f})")
+    log("  the same kernels without the causal mask: " + ", ".join(
+        f"{name} {full_ms[name]:.4f} ms (causal / full "
+        f"{ms[name] / full_ms[name]:.3f})" for name in ms)
+        + f"; the rule's share {kept / n_tiles:.3f}")
     return out
 
 
@@ -1637,9 +1681,9 @@ def device_kernel(torch, event) -> bool:
 def family(name: str) -> str:
     """Kernel family of a device event name in a training step."""
     n = name.lower()
-    if "attn_fwd_kernel" in n:
+    if "attn_fwd" in n:
         return "attention forward (K4a)"
-    if "attn_bwd_dq_kernel" in n or "attn_bwd_dkdv_kernel" in n:
+    if "attn_bwd_dq" in n or "attn_bwd_dkdv" in n:
         return "attention backward (K4b)"
     if "lrn_fwd_kernel" in n or "lrn_bwd_kernel" in n:
         return "LRN (K3a/K3b)"
@@ -1671,9 +1715,29 @@ def family(name: str) -> str:
     return "other elementwise"
 
 
+def eager_op_us(torch, n: int = 2000) -> float:
+    """Host microseconds per eager PyTorch call that launches one tiny
+    kernel (``add_`` on one element, ``n`` calls between two
+    synchronisations): the host's dispatch rate in this run, the yardstick
+    for a leg's host-side cost per launch."""
+    a = torch.zeros(1, device="cuda")
+    for _ in range(50):
+        a.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(n):
+        a.add_(1)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) * 1e6 / n
+
+
 def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
     """The device-step leg: one training step on a staged batch, timed
-    on the host clock (20 steps, synchronised) and traced (3 steps)."""
+    on the host clock (20 steps, synchronised) and traced (3 steps).  The
+    host side from the same trace: device events per step and the CPU
+    time of the kernel-launch calls, beside ``eager_op_us`` measured just
+    before, so a host that is slow in this run is told apart from a step
+    that makes many launches."""
     from torch.profiler import ProfilerActivity, profile
 
     x, y = next(iter(model.data.train_batches(0, batch_size)))
@@ -1692,6 +1756,7 @@ def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
         step()
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - t0) * 1e3 / reps
+    op_us = eager_op_us(torch)
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1701,9 +1766,13 @@ def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     families: dict[str, float] = {}
     by_name: dict[str, float] = {}
+    n_device, launch_us = 0, 0.0
     for e in prof.events():
+        if e.name.startswith(("cudaLaunch", "cuLaunch")):
+            launch_us += e.time_range.elapsed_us()
         if not device_kernel(torch, e):
             continue
+        n_device += 1
         us = e.time_range.elapsed_us()
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         fam = family(e.name)
@@ -1713,6 +1782,9 @@ def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
            "device_ms_per_step": device_ms,
            "idle_share": (1 - device_ms / step_ms) if device_ms else None,
            "peak_memory_gb": peak_gb,
+           "device_events_per_step": n_device / 3,
+           "launch_call_ms_per_step": launch_us / 3e3,
+           "eager_op_us": op_us,
            "families_ms_per_step": {k: v / 3e3 for k, v in sorted(
                families.items(), key=lambda kv: -kv[1])},
            "top_kernels_ms_per_step": {
@@ -1720,7 +1792,9 @@ def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
                                              key=lambda kv: -kv[1])[:25]}}
     log(f"  device-step leg: {step_ms:.2f} ms/step on the host clock "
         f"({out['images_per_s']:.0f} samples/s per card), peak memory "
-        f"{peak_gb:.1f} GB")
+        f"{peak_gb:.1f} GB; host: {n_device / 3:.0f} device events and "
+        f"{launch_us / 3e3:.2f} ms of launch calls per step (traced), "
+        f"{op_us:.2f} us per eager one-kernel op")
     if not device_ms:
         log("  torch.profiler recorded no device time (not measured)")
     else:
@@ -1779,8 +1853,8 @@ def main() -> int:
     for name, info in built.items():
         log(f"  {name}: {info['path']} in {info['seconds']:.1f} s")
         for line in info["ptxas"].splitlines():
-            if "ptxas" in line and ("Used" in line or "spill" in line
-                                    or "Compiling" in line):
+            if "spill" in line or ("ptxas" in line and (
+                    "Used" in line or "Compiling" in line)):
                 log(f"    {line.strip()}")
     log(f"  build wall {time.monotonic() - t0:.1f} s")
 
@@ -1895,7 +1969,8 @@ def main() -> int:
     for name in ("attention", "attention_bwd_dq", "attention_bwd_dkdv"):
         kernels.append({**{key: k4[name][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "backward_ms", "backward_bound_ms") if key in k4[name]},
+            "backward_ms", "backward_bound_ms", "noncausal_ms")
+            if key in k4[name]},
             "max_abs_err": k4["max_abs_err"][name], "name": name,
             "launches_path": "transformer"})
     paths = {"serving": (served, TRAIN_LAUNCHES),

@@ -226,6 +226,67 @@ def test_bf16_limits_catch_a_late_row_fault():
     assert A.tolerance_excess("lse", moved, lse) == float("inf")
 
 
+def _skip_positions(kind):
+    """(q_pos, k_pos, causal) of a skip-rule case, 48 keys."""
+    rng = np.random.default_rng(7)
+    t = np.arange(48)
+    return {"arange": (t, t, True),
+            "later shard": (t[:24] + 16, t, True),
+            "rows see no key": (t[:40] - 12, t, True),
+            "shuffled": (rng.permutation(48), rng.permutation(48), True),
+            "duplicates": (t // 3, t // 3, True),
+            "shuffled duplicates": (rng.permutation(48) // 5,
+                                    rng.permutation(48) // 5, True),
+            "non-causal": (t, t, False)}[kind]
+
+
+@pytest.mark.parametrize("kind,some", [
+    ("arange", True), ("later shard", True), ("rows see no key", True),
+    ("shuffled", False), ("duplicates", True), ("shuffled duplicates", False),
+    ("non-causal", False)])
+def test_skipped_tiles_hold_only_exact_zeros(kind, some):
+    """Every pair that ``A.skipped_tiles`` (the bf16 kernels' skip rule)
+    skips holds p exactly 0 in ``attention_fwd_plain``'s softmax and in
+    ``attention_bwd_plain``'s renormalized p, and no query tile holding a
+    row that sees no key skips anything (such a row averages every
+    key).  Tiles of 8 over 48 keys."""
+    q_pos, k_pos, causal = (torch.from_numpy(np.asarray(a)) if
+                            isinstance(a, np.ndarray) else a
+                            for a in _skip_positions(kind))
+    tq, tk, tile = len(q_pos), len(k_pos), 8
+    q, k, v, _ = (torch.from_numpy(a)
+                  for a in inputs(2, tq, tk, 2, 4, "float32", seed=8))
+    grid = A.skipped_tiles(q_pos, k_pos, causal, tile, tile)
+    assert grid.shape == (-(-tq // tile), -(-tk // tile))
+    assert bool(grid.any()) == some, grid
+    skip = grid.repeat_interleave(tile, 0).repeat_interleave(tile, 1)
+    skip = skip[:tq, :tk]
+    s = A._masked_scores(q, k, q_pos, k_pos, 0.5, causal)
+    p_fwd = torch.exp(s - s.amax(-1, keepdim=True))
+    _, lse = A.attention_fwd_plain(q, k, v, q_pos, k_pos, 0.5, causal)
+    p_bwd = torch.exp(s - lse.reshape(2, 2, tq, 1))
+    p_bwd = p_bwd / p_bwd.sum(-1, keepdim=True)
+    for p in (p_fwd, p_bwd):
+        assert (p[:, :, skip] == 0).all()
+    if causal:
+        sees_none = ~(q_pos[:, None] >= k_pos[None, :]).any(1)
+        rows_tile = torch.arange(tq) // tile
+        for i in rows_tile[sees_none].unique():
+            assert not grid[i].any()
+        if sees_none.any():
+            assert (p_bwd[:, :, sees_none] == 1 / tk).all()
+
+
+def test_skipped_tiles_count_the_causal_half():
+    """At T = 1024 in tiles of 64 (the LM slice), a causal arange visits
+    136 of the 256 tile pairs per (b, h): the diagonal and below."""
+    t = torch.arange(1024, dtype=torch.int32)
+    grid = A.skipped_tiles(t, t, True)
+    assert grid.shape == (16, 16) and int((~grid).sum()) == 136
+    assert torch.equal(grid, torch.ones(16, 16, dtype=torch.bool).triu(1))
+    assert not A.skipped_tiles(t, t, False).any()
+
+
 def test_scale_and_block_helpers_match_jax():
     q, k, _, _ = inputs(1, 5, 7, 2, 4, "float32", seed=5)
     want = JA.block_scores(jnp.asarray(q), jnp.asarray(k), 0.3)

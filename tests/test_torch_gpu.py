@@ -254,14 +254,27 @@ def _attention_inputs(cuda, b, tq, tk, h, d, dtype, seed=0):
     (2, 77, 77, 2, 64, True, 0),         # ragged T
     (1, 130, 70, 2, 48, True, 10),       # D padded to 64, ragged both
     (1, 64, 64, 2, 128, True, 0),
-    (1, 33, 33, 3, 16, False, 0)])
+    (1, 33, 33, 3, 16, False, 0),
+    (2, 256, 256, 2, 64, True, None),    # shuffled positions
+    (1, 160, 256, 2, 64, True, -40),     # a tile straddles the no-key border
+    (1, 65, 130, 2, 64, True, 0),        # ragged Tk = 130, Tq = 65
+    (1, 128, 128, 2, 40, True, 0),       # D = 40, padded
+    (1, 70, 90, 2, 20, True, 5),         # D % 8 != 0: plain loads
+    (1, 64, 66000, 1, 16, True, 65950)])  # over 1024 key tiles: chunks
 def test_attention_kernels_match_plain(cuda, dtype, b, tq, tk, h, d, causal,
                                        q_off):
     """K4a and both K4b passes against their plain versions, within the
-    limits of ``attention.tolerance_excess`` (stated there)."""
+    limits of ``attention.tolerance_excess`` (stated there).  ``q_off``
+    None: both position vectors are random permutations, so the bf16
+    kernels' tile skipping cannot assume sorted positions."""
     q, k, v, g = _attention_inputs(cuda, b, tq, tk, h, d, dtype)
-    q_pos = torch.arange(tq, device=cuda) + q_off
-    k_pos = torch.arange(tk, device=cuda)
+    if q_off is None:
+        gen = torch.Generator().manual_seed(3)
+        q_pos = torch.randperm(tq, generator=gen).to(cuda)
+        k_pos = torch.randperm(tk, generator=gen).to(cuda)
+    else:
+        q_pos = torch.arange(tq, device=cuda) + q_off
+        k_pos = torch.arange(tk, device=cuda)
     ks = (attention.K_FWD, attention.K_BWD_DQ, attention.K_BWD_DKDV)
     before = [kk.launches for kk in ks]
     o, lse = attention.attention_fwd(q, k, v, q_pos, k_pos, causal=causal)
@@ -282,10 +295,24 @@ def test_attention_kernels_match_plain(cuda, dtype, b, tq, tk, h, d, causal,
     for name, got, w in zip(("dq", "dk", "dv"), grads, want):
         excess[name] = attention.tolerance_excess(name, got, w)
     assert max(excess.values()) <= 1.0, excess
-    if q_off < 0:
+    if q_off is not None and q_off < 0:
         # a row that sees no key averages v uniformly
         torch.testing.assert_close(o[:, 0].float(),
                                    v.float().mean(1), rtol=0, atol=2e-2)
+
+
+def test_attention_bf16_backward_is_deterministic(cuda):
+    """No atomics: two bf16 backward calls at the LM slice's causal shape
+    (batch 2) give bit-identical dq, dk and dv."""
+    q, k, v, g = _attention_inputs(cuda, 2, 1024, 1024, 12, 64,
+                                   torch.bfloat16, seed=5)
+    _, lse = attention.attention_fwd(q, k, v, causal=True)
+    first = attention.attention_bwd(q, k, v, None, None, lse, g, causal=True)
+    second = attention.attention_bwd(q, k, v, None, None, lse, g,
+                                     causal=True)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 def test_attention_autograd_runs_all_three_kernels(cuda):

@@ -21,6 +21,15 @@ version; a CUDA tensor launches the kernel or raises, never falls back):
   (``attention_bwd_dq``: dq and each row's ``1/sum p`` and
   ``sum(dp p)/sum p``) and a column pass (``attention_bwd_dkdv``).
 
+Two routes in the kernels, by dtype alone: bfloat16 (the models' training
+dtype) runs on the tensor cores (``mma.sync`` bf16 products with f32
+sums, the backward's f32 ``p`` and ``ds`` fed as a bf16 pair hi + lo,
+``cp.async`` copies into a two-stage ring) and skips the (query tile, key
+tile) pairs that :func:`skipped_tiles` names, where every p is exactly 0;
+float32 runs on the CUDA cores in f32 and visits every tile (the tensor
+cores have no exact f32 route).  A failed build or launch raises; no
+route falls back to another.
+
 The kernel's online softmax rounds ``p`` after a different subtraction
 than the plain version's ``exp(s - m_final)``, and both sum in their own
 order, so the two agree within stated tolerances, not bit for bit
@@ -43,8 +52,8 @@ from theanompi_tpu_torch.ops import _kernels
 
 #: large-negative mask value, finite (see the module docstring)
 _MASK_NEG = -1e30
-#: widest head dim the kernels take (shared memory holds f32 tiles of
-#: 64 rows padded to 32, 64 or 128 columns)
+#: widest head dim the kernels take (shared memory holds tiles of 64 rows
+#: padded to 32, 64 or 128 columns)
 MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -74,6 +83,43 @@ def block_scores(q: torch.Tensor, k: torch.Tensor,
 
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor) -> torch.Tensor:
     return q_pos[:, None] >= k_pos[None, :]          # (Tq, Tk)
+
+
+#: query rows and keys of the tiles the bf16 kernels skip or visit
+TILE = 64
+
+
+def _tile_range(pos: torch.Tensor, tile: int):
+    """Per tile of ``tile`` positions: (min, max)."""
+    n = -(-pos.numel() // tile)
+    pad = n * tile - pos.numel()
+    big = torch.iinfo(torch.int64).max
+    lo = torch.cat([pos, pos.new_full((pad,), big)]).view(n, tile)
+    hi = torch.cat([pos, pos.new_full((pad,), -big)]).view(n, tile)
+    return lo.amin(1), hi.amax(1)
+
+
+def skipped_tiles(q_pos, k_pos, causal: bool, tile_q: int = TILE,
+                  tile_k: int = TILE) -> torch.Tensor:
+    """The plain mirror of the bf16 kernels' skip rule: a boolean
+    (ceil(Tq / tile_q), ceil(Tk / tile_k)) grid, True where the kernels
+    skip the (query tile, key tile) pair.  A pair is skipped only when
+    every key of the tile is masked for every query of the tile (its
+    least k_pos is above the query tile's largest q_pos) and every query
+    of the tile sees some key (its least q_pos is at least the least
+    k_pos of all keys): every score of the pair is then ``_MASK_NEG``
+    against a real row maximum or lse, so every p there is exactly 0.
+    Positions may be in any order.  Nothing is skipped unless causal.
+    Tests and ``chip_smoke.py`` use it; the kernels compute it
+    themselves."""
+    q_pos = torch.as_tensor(q_pos).flatten().long().cpu()
+    k_pos = torch.as_tensor(k_pos).flatten().long().cpu()
+    nq, nk = -(-q_pos.numel() // tile_q), -(-k_pos.numel() // tile_k)
+    if not causal:
+        return torch.zeros((nq, nk), dtype=torch.bool)
+    q_lo, q_hi = _tile_range(q_pos, tile_q)
+    k_lo, _ = _tile_range(k_pos, tile_k)
+    return (k_lo[None, :] > q_hi[:, None]) & (q_lo >= k_pos.min())[:, None]
 
 
 def _masked_scores(q, k, q_pos, k_pos, scale, causal):
