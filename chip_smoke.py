@@ -64,10 +64,14 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
 7. The LRN kernels K3a/K3b against their plain versions on the card, at
    AlexNet's batch-128 shapes (128x55x55x96 and 128x27x27x256) in bf16
    and f32, n=3 at C=32, n=4 (the adjoint window), a ragged row count, a
-   C that is not a multiple of the vector width and a misaligned tensor:
-   0 ulp (the kernels do the plain versions' f32 operations in their
-   order and round once).  Times at the bf16 AlexNet shapes beside the
-   byte bound, the plain versions and ``F.local_response_norm``.
+   C that is not a multiple of the vector width, a misaligned tensor, a
+   16-byte aligned one that does not start its buffer, C 1, 7, 9 and
+   4096 with n from 1 to 9 and wider than 2C + 1, one row, and the
+   kernels' rows per tile less and plus one: 0 ulp (the kernels do the
+   plain versions' f32 operations in their order and round once).
+   Times at the bf16 AlexNet shapes beside the byte bound, the plain
+   versions and ``F.local_response_norm``, and each kernel instance's
+   registers and spills from phase 2.
 8. One AlexNet BSP step (batch 8, 227 crops, dropout off) as bf16 on
    the card and as f32 and bf16 on the CPU (plain versions): loss within
    relative 1e-2, the flattened gradient within relative L2 0.1 of f32
@@ -129,6 +133,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -594,16 +599,55 @@ def check_k2_train(torch) -> dict:
 
 # -- phase 7: the LRN kernels against their plain versions -----------------
 
-def check_k3(torch) -> dict:
+def ptxas_usage(log: str) -> dict[str, dict]:
+    """Registers and spill bytes of each kernel in an ``-Xptxas -v``
+    report, by mangled name."""
+    usage: dict[str, dict] = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            usage[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            usage[name].update(spill_stores=nums[1], spill_loads=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            usage[name]["registers"] = int(words[words.index("Used") + 1])
+    return usage
+
+
+def k3_instances(log: str) -> dict[str, dict]:
+    """Phase 2's registers and spills of each ``lrn_kernel<T, V, FAST,
+    BWD>`` instance, named by direction, dtype, vector width and window
+    path."""
+    out = {}
+    for name, use in ptxas_usage(log).items():
+        m = re.search(r"lrn_kernelI(13__nv_bfloat16|f)Li(\d+)ELb([01])"
+                      r"ELb([01])E", name)
+        if m:
+            dtype, vec, fast, bwd = m.groups()
+            out[f"{'K3b' if bwd == '1' else 'K3a'} "
+                f"{'f32' if dtype == 'f' else 'bf16'} v{vec} "
+                f"{'n5' if fast == '1' else 'any n'}"] = use
+    return out
+
+
+def check_k3(torch, ptxas: str) -> dict:
     """K3a/K3b against their plain versions on the card: AlexNet's two
     batch-128 shapes (after conv1 and conv2) in bf16 and f32, n=3 at
     C=32, n=4 (the adjoint window), a ragged row count, a C that is not
     a multiple of the vector width and a misaligned tensor (the scalar
-    path); each 0 ulp (the kernels do the plain version's f32
-    operations in its order and round once).  At the two bf16 AlexNet
-    shapes: kernel, plain version and ``F.local_response_norm`` (on the
-    NCHW view; forward, and forward + backward through autograd) timed
-    with CUDA graphs, beside each kernel's byte bound."""
+    path), a 16-byte aligned tensor that does not start its buffer, C 1,
+    7, 9 and 4096 with n 1, 2, 5, 7, 9 and windows wider than 2C + 1,
+    one row, and the kernels' rows per tile (``lrn.tile_geometry``)
+    less and plus one; each 0 ulp (the kernels do the plain version's
+    f32 operations in its order and round once).  At the two bf16
+    AlexNet shapes: kernel, plain version and ``F.local_response_norm``
+    (on the NCHW view; forward, and forward + backward through autograd)
+    timed with CUDA graphs, beside each kernel's byte bound and the
+    registers and spills phase 2 read for each kernel instance."""
     import torch.nn.functional as F
 
     from theanompi_tpu_torch.ops import lrn
@@ -611,13 +655,25 @@ def check_k3(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
     alex = [(TRAIN_BATCH, 55, 55, 96), (TRAIN_BATCH, 27, 27, 256)]
+
+    def tile(c, n, d):
+        return (1, 1, lrn.tile_geometry(c, n)["rows"] + d, c)
+
+    edges = [((2, 9, 7, 32), 3, 0), ((3, 11, 13, 96), 4, 0),
+             ((1, 33, 33, 96), 5, 0), ((2, 5, 7, 33), 5, 0),
+             ((2, 5, 7, 32), 5, 1), ((2, 5, 7, 96), 5, 8),
+             ((2, 3, 1, 1), 1, 0), ((2, 3, 1, 1), 2, 0),
+             ((1, 2, 3, 7), 7, 0), ((2, 3, 5, 7), 31, 0),
+             ((1, 3, 2, 9), 2, 0), ((1, 3, 2, 9), 9, 0),
+             ((1, 1, 3, 4096), 1, 0), ((1, 1, 3, 4096), 5, 0),
+             ((1, 1, 2, 4096), 2, 0), ((1, 1, 1, 96), 5, 0),
+             (tile(96, 5, -1), 5, 0), (tile(96, 5, 1), 5, 0),
+             (tile(256, 5, -1), 5, 0), (tile(256, 5, 1), 5, 0),
+             (tile(33, 4, 1), 4, 0)]
     cases = ([(shp, 5, dt, 0) for dt in (bf16, f32) for shp in alex]
              + [(shp, n, dt, off) for dt in (bf16, f32)
-                for shp, n, off in (((2, 9, 7, 32), 3, 0),
-                                    ((3, 11, 13, 96), 4, 0),
-                                    ((1, 33, 33, 96), 5, 0),
-                                    ((2, 5, 7, 33), 5, 0),
-                                    ((2, 5, 7, 32), 5, 1))])
+                for shp, n, off in edges])
+    instances = k3_instances(ptxas)
     rows_out = []
     worst = {"lrn": 0.0, "lrn_bwd": 0.0}
     # per batch-128 step (both shapes, bf16): kernel, plain, library
@@ -683,8 +739,15 @@ def check_k3(torch) -> dict:
         f"{per_step['lrn_bwd']['bound_ms']:.4f}); kernels fwd+bwd "
         f"{per_step['lrn']['ms'] + per_step['lrn_bwd']['ms']:.4f} ms "
         f"against F.local_response_norm fwd+bwd {lib_fwd_bwd_ms:.4f} ms")
+    for inst, use in sorted(instances.items()):
+        log(f"  {inst}: {use.get('registers')} registers, spill "
+            f"{use.get('spill_stores')}/{use.get('spill_loads')} bytes "
+            "(stores/loads)")
+    if not instances:
+        log("  registers not read: the library was built before this run")
     return {"cases": rows_out, "max_abs_err": worst, "per_step": per_step,
-            "library_fwd_bwd_ms_per_step": lib_fwd_bwd_ms}
+            "library_fwd_bwd_ms_per_step": lib_fwd_bwd_ms,
+            "instances": instances}
 
 
 def time_k3(torch, F, lrn, x, g, n) -> dict:
@@ -1685,7 +1748,7 @@ def family(name: str) -> str:
         return "attention forward (K4a)"
     if "attn_bwd_dq" in n or "attn_bwd_dkdv" in n:
         return "attention backward (K4b)"
-    if "lrn_fwd_kernel" in n or "lrn_bwd_kernel" in n:
+    if "lrn_kernel" in n:
         return "LRN (K3a/K3b)"
     if "max_pool" in n or "avg_pool" in n:
         return "pools (F.max_pool2d)"
@@ -1835,8 +1898,16 @@ def main() -> int:
               f"{os.environ['CUDA_VISIBLE_DEVICES']} shows "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 2
-    from theanompi_tpu_torch.models.resnet50 import ResNet50
-    from theanompi_tpu_torch.ops import _kernels
+    try:
+        from theanompi_tpu_torch.models.resnet50 import ResNet50
+        from theanompi_tpu_torch.ops import _kernels
+    except ModuleNotFoundError as e:
+        if e.name != "theanompi_tpu_torch":
+            raise
+        print("chip_smoke: the port's package theanompi_tpu_torch is not "
+              "beside this script; run it from the repository root",
+              file=sys.stderr)
+        return 2
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1898,7 +1969,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 7: the LRN kernels against their plain versions")
-    k3 = check_k3(torch)
+    k3 = check_k3(torch, built["lrn"]["ptxas"])
     torch.cuda.empty_cache()
     log("phase 8: one AlexNet step on the card against the CPU references")
     alex_checked = alexnet_grad_check(torch)

@@ -125,44 +125,51 @@ def test_two_rank_gloo_bsp_matches_jax_data_mesh(tmp_path, mesh8):
         [sys.executable, os.path.abspath(__file__), str(r), "2", str(port),
          str(tmp_path)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        # the JAX step on a 2-device data mesh while the ranks run
+        def loss_fn(params, model_state, batch, rng_):
+            x, y = batch
+            logits, upd = jmod.apply({"params": params, **model_state}, x,
+                                     train=True, mutable=["batch_stats"])
+            loss = JL.softmax_cross_entropy(logits, y)
+            return loss, ({**model_state, **upd},
+                          {"error": JL.error_rate(logits, y)})
 
-    # the JAX step on a 2-device data mesh while the ranks run
-    def loss_fn(params, model_state, batch, rng_):
-        x, y = batch
-        logits, upd = jmod.apply({"params": params, **model_state}, x,
-                                 train=True, mutable=["batch_stats"])
-        loss = JL.softmax_cross_entropy(logits, y)
-        return loss, ({**model_state, **upd},
-                      {"error": JL.error_rate(logits, y)})
+        mesh = data_mesh(2, mesh8.devices.ravel()[:2])
+        tx = build_optimizer(LR, "sgd", **OPT)
+        state = replicate(JaxState.create(
+            variables["params"], tx,
+            {"batch_stats": variables["batch_stats"]}), mesh)
+        step = make_bsp_train_step(loss_fn, tx, mesh,
+                                   BSP_Exchanger("psum", avg=True))
+        for i in range(STEPS):
+            state, metrics = step(state, shard_batch(
+                (jnp.asarray(batches[f"x{i}"]),
+                 jnp.asarray(batches[f"y{i}"])), mesh), jax.random.key(0))
 
-    mesh = data_mesh(2, mesh8.devices.ravel()[:2])
-    tx = build_optimizer(LR, "sgd", **OPT)
-    state = replicate(JaxState.create(
-        variables["params"], tx, {"batch_stats": variables["batch_stats"]}),
-        mesh)
-    step = make_bsp_train_step(loss_fn, tx, mesh,
-                               BSP_Exchanger("psum", avg=True))
-    for i in range(STEPS):
-        state, metrics = step(state, shard_batch(
-            (jnp.asarray(batches[f"x{i}"]), jnp.asarray(batches[f"y{i}"])),
-            mesh), jax.random.key(0))
-
-    outs = []
-    for p in procs:
-        out, _ = p.communicate(timeout=180)
-        assert p.returncode == 0, out
-    outs = [torch.load(tmp_path / f"out{r}.pt") for r in range(2)]
-    for k, v in outs[0]["state"].items():        # replicas stay identical
-        assert torch.equal(v, outs[1]["state"][k]), k
-    got = outs[0]["state"]
-    assert_close(outs[0]["loss"], metrics["loss"], msg="loss")
-    want = params_from_flax(module, jax.tree.map(np.asarray,
-                                                 state.params))
-    want.update(batch_stats_from_flax(module, jax.tree.map(
-        np.asarray, state.model_state["batch_stats"])))
-    assert set(want) == set(got)
-    for name, w in want.items():
-        assert_close(got[name].numpy(), w.numpy(), floor=1e-4, msg=name)
+        outs = []
+        for p in procs:
+            out, _ = p.communicate(timeout=180)
+            assert p.returncode == 0, out
+        outs = [torch.load(tmp_path / f"out{r}.pt") for r in range(2)]
+        for k, v in outs[0]["state"].items():        # replicas stay identical
+            assert torch.equal(v, outs[1]["state"][k]), k
+        got = outs[0]["state"]
+        assert_close(outs[0]["loss"], metrics["loss"], msg="loss")
+        want = params_from_flax(module, jax.tree.map(np.asarray,
+                                                     state.params))
+        want.update(batch_stats_from_flax(module, jax.tree.map(
+            np.asarray, state.model_state["batch_stats"])))
+        assert set(want) == set(got)
+        for name, w in want.items():
+            assert_close(got[name].numpy(), w.numpy(), floor=1e-4, msg=name)
+    finally:
+        # a rank that hangs, or a failure above, must not outlive the
+        # test (communicate's timeout does not end the process)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
 
 
 if __name__ == "__main__":

@@ -197,10 +197,24 @@ def _lrn_inputs(cuda, shape, dtype, offset=0):
     ((2, 9, 7, 32), 3, 0), ((3, 11, 13, 96), 4, 0),
     ((1, 33, 33, 96), 5, 0),        # 1089 rows: a ragged last tile
     ((2, 5, 7, 33), 5, 0),          # C not a multiple of the vector
-    ((2, 5, 7, 32), 5, 1)])         # misaligned: the scalar path
+    ((2, 5, 7, 32), 5, 1),          # misaligned: the scalar path
+    ((2, 5, 7, 96), 5, 8),          # 16-byte aligned, not at the start
+    ((2, 3, 1, 1), 1, 0), ((2, 3, 1, 1), 2, 0),   # C 1: n > 2C + 1
+    ((1, 2, 3, 7), 7, 0), ((1, 2, 3, 7), 9, 0), ((2, 3, 5, 7), 31, 0),
+    ((1, 3, 2, 9), 2, 0), ((1, 3, 2, 9), 9, 0),
+    ((1, 1, 3, 4096), 1, 0), ((1, 1, 3, 4096), 5, 0),
+    ((1, 1, 3, 4096), 7, 0), ((1, 1, 2, 4096), 2, 0),
+    ((1, 1, 1, 96), 5, 0),          # one row
+    # ("tile", C, d): the kernels' rows per tile for (C, n), plus d
+    (("tile", 96, -1), 5, 0), (("tile", 96, 1), 5, 0),
+    (("tile", 256, -1), 5, 0), (("tile", 256, 1), 5, 0),
+    (("tile", 33, 1), 4, 0), (("tile", 96, 1), 3, 8)])
 def test_lrn_kernels_match_plain(cuda, dtype, shape, n, offset):
     """K3a/K3b against their plain versions: the same f32 operations in
     the same order, rounded once, so bit-exact."""
+    if shape[0] == "tile":
+        _, c, d = shape
+        shape = (1, 1, lrn.tile_geometry(c, n)["rows"] + d, c)
     x, g = _lrn_inputs(cuda, shape, dtype, offset)
     before = (lrn.K_FWD.launches, lrn.K_BWD.launches)
     y = lrn.lrn_fwd(x, n)
@@ -212,6 +226,24 @@ def test_lrn_kernels_match_plain(cuda, dtype, shape, n, offset):
     assert y.dtype == dx.dtype == dtype
     assert torch.equal(y, want_y)
     assert torch.equal(dx, want_dx)
+
+
+def test_lrn_tile_geometry_fits_every_c(cuda):
+    """For every C the kernels take and windows from 1 tap to far wider
+    than the row: a tile's rows fit the block's 256 x 16 element slots,
+    its planes fit a block's 232 448 bytes of shared memory, and
+    each row's zero columns cover the window cut to C."""
+    for c in range(1, lrn.MAX_CHANNELS + 1):
+        for n in {1, 2, 5, 9, 2 * c + 1, 2 * c + 2, 10 ** 6}:
+            geo = lrn.tile_geometry(c, n)
+            reach = min(max((n - 1) // 2, n - 1 - (n - 1) // 2), c)
+            assert 1 <= geo["rows"] and geo["rows"] * c <= 4096, (c, n, geo)
+            assert geo["bwd_smem_bytes"] <= 232448, (c, n, geo)
+            assert geo["pad"] >= reach and geo["pad"] % 4 == 0, (c, n, geo)
+            assert geo["stride"] >= c + 2 * geo["pad"], (c, n, geo)
+            plane = 4 * geo["rows"] * geo["stride"]
+            assert (geo["fwd_smem_bytes"], geo["bwd_smem_bytes"]) == (
+                2 * plane, 3 * plane), (c, n, geo)
 
 
 def test_lrn_autograd_runs_both_kernels(cuda):

@@ -84,11 +84,19 @@ def bf16_ulp(v: np.ndarray) -> np.ndarray:
 
 
 # (shape, n, alpha_scaled_by_n): C 32/96/256, n 3/4/5, alpha as given,
-# and 1089 rows, which TILE_M = 1024 does not divide
+# and 1089 rows, which TILE_M = 1024 does not divide; then the edges the
+# CUDA kernels treat apart, each at a few rows: C 1 (a window wider than
+# the row), 7 and 9 (no multiple of the 16-byte vector: the scalar
+# path), 4096 (one row per tile), with n 1, 2, 7 and 9 (even n mirror
+# the adjoint window; n > 2C + 1 is cut to C on each side)
 CASES = [((2, 5, 7, 32), 5, True), ((2, 5, 7, 96), 5, True),
          ((2, 5, 7, 256), 5, True), ((2, 5, 7, 32), 3, True),
          ((2, 5, 7, 32), 4, True), ((2, 5, 7, 96), 4, False),
-         ((2, 5, 7, 96), 5, False), ((1, 33, 33, 96), 5, True)]
+         ((2, 5, 7, 96), 5, False), ((1, 33, 33, 96), 5, True),
+         ((2, 3, 1, 1), 1, True), ((2, 3, 1, 1), 2, True),
+         ((1, 2, 3, 7), 7, True), ((1, 2, 3, 7), 9, False),
+         ((1, 3, 2, 9), 2, True), ((1, 3, 2, 9), 9, True),
+         ((1, 1, 3, 4096), 1, True), ((1, 1, 3, 4096), 7, True)]
 
 
 @pytest.mark.parametrize("shape,n,scaled", CASES)

@@ -69,7 +69,10 @@ def close(got, want) -> bool:
 
 
 def run_threads(target, n: int, timeout: float = 120.0) -> None:
-    threads = [threading.Thread(target=target, args=(i,), name=f"client-{i}")
+    """Run ``target(i)`` in ``n`` daemon threads: a client that hangs
+    fails the assert below and cannot keep the worker process alive."""
+    threads = [threading.Thread(target=target, args=(i,), name=f"client-{i}",
+                                daemon=True)
                for i in range(n)]
     for t in threads:
         t.start()
@@ -132,7 +135,8 @@ def test_hot_reload_follows_new_export_without_failed_requests(ref,
             except Exception as e:
                 errors.append(e)
 
-    threads = [threading.Thread(target=storm, args=(i,), name=f"storm-{i}")
+    threads = [threading.Thread(target=storm, args=(i,), name=f"storm-{i}",
+                                daemon=True)
                for i in range(4)]
     try:
         for t in threads:

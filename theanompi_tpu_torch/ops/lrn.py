@@ -39,8 +39,7 @@ import torch.nn.functional as F
 
 from theanompi_tpu_torch.ops import _kernels
 
-#: widest C the kernels take (the backward's three f32 planes of one row
-#: fill the default 48 KB of shared memory)
+#: widest C the kernels take (one row per tile of ``csrc/lrn.cu``)
 MAX_CHANNELS = 4096
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -102,6 +101,23 @@ def lrn_bwd_plain(x: torch.Tensor, g: torch.Tensor, n: int = 5,
     dx = gf * s_mb1 * s - (2.0 * a * beta) * xf * window_sum(
         gf * xf * s_mb1, n, adjoint=True)
     return dx.to(x.dtype)
+
+
+def tile_geometry(c: int, n: int) -> dict[str, int]:
+    """The tile the kernels take for ``C = c`` and window ``n``, as
+    ``csrc/lrn.cu`` computes it (``geometry``, read from the built
+    library, so only where it builds): ``rows`` per tile, ``stride``
+    floats per row of a shared plane, ``pad`` zero columns on each side
+    of a row, and K3a's and K3b's shared memory per block in bytes
+    (``fwd_smem_bytes``, ``bwd_smem_bytes``)."""
+    fn = _kernels.load("lrn").tm_lrn_geometry
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    if fn(c, n, out) != 0:
+        raise ValueError(f"no LRN tile for C={c}, n={n}")
+    return dict(zip(("rows", "stride", "pad", "fwd_smem_bytes",
+                     "bwd_smem_bytes"), out))
 
 
 def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
