@@ -9,7 +9,8 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
 1. Device: the card's name and power limit (nvidia-smi).  No card: exit.
 2. Build: compile every kernel under ``theanompi_tpu_torch/csrc/`` with
    nvcc for sm_90a (one nvcc per source, in parallel); print each
-   ``-Xptxas -v`` report and the build seconds.
+   ``-Xptxas -v`` report, the build seconds and each max-pool kernel
+   instance's registers and spills (a K2b or K2c spill fails the run).
 3. Kernels against their plain PyTorch versions on the card, at the
    shapes one batch-32 ResNet-50 forward gives them: the fused BN
    epilogue K1a/K1b at every (rows, C) the forward launches (bf16) plus
@@ -38,7 +39,9 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    within 1e-5 of the sum of |g*x| (|g|) (the kernel and the plain
    version sum in different orders); the argmax pool K2b and the
    gather backward K2c at (128, 112, 112, 64) bf16 with ties, NaNs and
-   an all-(-inf) window, exact.  Times as in phase 3, beside each
+   an all-(-inf) window, and at ``K2_EDGE_SHAPES`` (the edges of their
+   tiles) in bf16 and f32 with pixels whose gradient sum depends on the
+   order, y's bits, idx and dx exact.  Times as in phase 3, beside each
    kernel's byte bound, its plain version and, where one PyTorch call
    computes the same function, that call (never used by the port).
    The forward K1a/K1b are timed again at the batch-128 shapes.
@@ -210,6 +213,15 @@ ALEX_VAL_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "lrn": 2}
 #: synthetic pool (8192 images: 64 steps of 128, 4 validation batches);
 #: the second epoch's steps are the timed ones
 ALEX_EPOCHS = 2
+#: K2b/K2c edge cases beside the batch-128 stem shape, each in bf16 and
+#: f32 (N, H, W, C; C None: one 16-byte vector, 8 bf16 or 4 f32): H = W
+#: = 2; N = 1 with OH = 5, not a multiple of a strip's 2 rows; C = 256,
+#: whose K2b tiles split OW = 15 into 8 + 7 columns; a row K2c's tiles
+#: cut short (OW = 113 in tiles of 29 in bf16); C = 320, split into
+#: channel tiles (2 in bf16, 3 in f32); an odd C of three bf16 vectors
+K2_EDGE_SHAPES = [(2, 2, 2, None), (1, 10, 12, 64), (3, 16, 12, 32),
+                  (2, 18, 30, 256), (1, 6, 226, 256), (1, 10, 30, 320),
+                  (2, 12, 14, 24)]
 #: LRN activations ~ N(0, 20^2) in the kernel check, so a*W(x^2) is live
 LRN_SCALE = 20.0
 #: the transformer slice: tools/bench_lm.py's recipe (GPT-2-small widths,
@@ -300,6 +312,13 @@ def ulp_distance(torch, a, b) -> int:
     ia = torch.where(ia < 0, -(ia & mask), ia)
     ib = torch.where(ib < 0, -(ib & mask), ib)
     return int((ia - ib).abs().max().item()) if a.numel() else 0
+
+
+def same_bits(torch, a, b) -> bool:
+    """Two float tensors of one dtype hold the same bits (NaNs too)."""
+    itype = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return bool(torch.equal(a.contiguous().view(itype),
+                            b.contiguous().view(itype)))
 
 
 # -- phase 3: kernels against their plain versions --------------------------
@@ -517,14 +536,84 @@ def check_k1_bwd(torch, cases) -> dict:
             "per_step": per_step_out}
 
 
+def k2_edge_case(torch, shape, dtype, gen):
+    """x and g of one K2b/K2c case with every rule in play: an
+    all-(-inf) window at (0, 0), two NaNs in one window, ties, and quads
+    whose odd/odd pixel wins all four of its windows (at input (3, 3),
+    (7, 7) and, where K2c's tiles split the columns, at the first tile's
+    last column), with g of those windows (-1, eps, eps, 1) for
+    ((oy, ox), (oy, ox + 1), (oy + 1, ox), (oy + 1, ox + 1)), eps half
+    an ulp of 1: summed in the plain version's order, (oy + 1, ox + 1)
+    first, they give 0, and 2 eps in the opposite order.  Returns (x, g,
+    the quads' input pixels)."""
+    from theanompi_tpu_torch.ops import maxpool
+
+    n, h, w, c = shape
+    if c is None:
+        c = 16 // torch.empty((), dtype=dtype).element_size()
+    x = torch.randn((n, h, w, c), generator=gen, device="cuda").to(dtype)
+    g = torch.randn((n, h // 2, w // 2, c), generator=gen,
+                    device="cuda").to(dtype)
+    x[0, 0:2, 0:2, :] = float("-inf")
+    x[-1, -3:, -3:, :] = 1.0
+    x[-1, -2:, -1, :2] = float("nan")      # taps 5 and 8 of one window
+    eps = 2.0 ** (-8 if dtype == torch.bfloat16 else -24)
+    geo = maxpool.train_geometry_plain(True, dtype, h, w, c)
+    quads = [(3, 3), (7, 7)] + ([(3, 2 * geo["cols"] - 1)]
+                                if geo["col_tiles"] > 1 else [])
+    quads = [(iy, ix) for iy, ix in quads if iy + 3 <= h and ix + 3 <= w]
+    for iy, ix in quads:
+        oy, ox = iy // 2, ix // 2
+        x[0, iy, ix, :] = 100.0
+        g[0, oy, ox], g[0, oy, ox + 1] = -1.0, eps
+        g[0, oy + 1, ox], g[0, oy + 1, ox + 1] = eps, 1.0
+    return x, g, quads
+
+
+def k2_instances(log: str) -> dict[str, dict]:
+    """Phase 2's registers and spills of each max-pool kernel instance,
+    named by kernel id and dtype."""
+    ids = {"": "K2a", "_argmax_tile": "K2b", "_bwd_tile": "K2c"}
+    out = {}
+    for name, use in ptxas_usage(log).items():
+        m = re.search(r"maxpool3x3s2(|_argmax_tile|_bwd_tile)_kernelI"
+                      r"(13__nv_bfloat16|f)E", name)
+        if m:
+            out[f"{ids[m.group(1)]} "
+                f"{'f32' if m.group(2) == 'f' else 'bf16'}"] = use
+    return out
+
+
 def check_k2_train(torch) -> dict:
     """K2b and K2c at (128, 112, 112, 64) bf16 with ties, NaNs and an
-    all-(-inf) window: y, idx and dx exact."""
+    all-(-inf) window, and at ``K2_EDGE_SHAPES`` in bf16 and f32
+    (``k2_edge_case``): y's bits (NaNs too), idx and dx exact, and each
+    order-sensitive quad's pixel 0, as the plain version sums it."""
     import torch.nn.functional as F
 
     from theanompi_tpu_torch.ops import maxpool
 
     gen = torch.Generator(device="cuda").manual_seed(5)
+    n_quads = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for edge in K2_EDGE_SHAPES:
+            x, g, quads = k2_edge_case(torch, edge, dtype, gen)
+            y, idx = maxpool.maxpool3x3s2_argmax(x)
+            dx = maxpool.maxpool3x3s2_bwd(g, idx)
+            want_y, want_idx = maxpool.maxpool3x3s2_argmax_plain(x)
+            want_dx = maxpool.maxpool3x3s2_bwd_plain(g, want_idx)
+            torch.cuda.synchronize()
+            if not (same_bits(torch, y, want_y)
+                    and torch.equal(idx, want_idx)
+                    and torch.equal(dx, want_dx)):
+                raise AssertionError(f"K2b/K2c {tuple(x.shape)} {dtype} "
+                                     "differ from their plain versions")
+            if any(bool(want_dx[0, iy, ix].any()) for iy, ix in quads):
+                raise AssertionError("K2c: an order-sensitive quad's "
+                                     "plain sum is not 0")
+            n_quads += len(quads)
+    log(f"  K2b/K2c exact at {len(K2_EDGE_SHAPES)} edge shapes in bf16 and "
+        f"f32 ({n_quads} order-sensitive quads)")
     shape = (TRAIN_BATCH, 112, 112, 64)
 
     def rand(shp):
@@ -542,10 +631,8 @@ def check_k2_train(torch) -> dict:
     dx = maxpool.maxpool3x3s2_bwd(g, idx)
     want_dx = maxpool.maxpool3x3s2_bwd_plain(g, want_idx)
     torch.cuda.synchronize()
-    same_nan = bool(torch.equal(torch.isnan(y), torch.isnan(want_y)))
-    fin = ~torch.isnan(want_y)
-    if not (same_nan and torch.equal(y[fin], want_y[fin])
-            and torch.equal(idx, want_idx) and torch.equal(dx, want_dx)):
+    if not (same_bits(torch, y, want_y) and torch.equal(idx, want_idx)
+            and torch.equal(dx, want_dx)):
         raise AssertionError("K2b/K2c differ from their plain versions")
     if not bool((idx[0, 0, 0] == 4).all()):
         raise AssertionError("K2b: all-(-inf) window's tap is not 4")
@@ -1928,6 +2015,16 @@ def main() -> int:
                     "Used" in line or "Compiling" in line)):
                 log(f"    {line.strip()}")
     log(f"  build wall {time.monotonic() - t0:.1f} s")
+    k2_regs = k2_instances(built["maxpool"]["ptxas"])
+    for inst, use in sorted(k2_regs.items()):
+        log(f"  {inst}: {use.get('registers')} registers, spill "
+            f"{use.get('spill_stores')}/{use.get('spill_loads')} bytes "
+            "(stores/loads)")
+    if not k2_regs:
+        log("  K2 registers not read: the library was built before this run")
+    elif any(use.get("spill_stores") or use.get("spill_loads")
+             for inst, use in k2_regs.items() if inst[:3] in ("K2b", "K2c")):
+        raise AssertionError(f"K2b/K2c spill: {k2_regs}")
 
     log("phase 3: kernels against their plain versions")
     model = ResNet50(device="cuda")
@@ -1952,6 +2049,10 @@ def main() -> int:
             f"{served['p50_ms']:.1f} ms p99 {served['p99_ms']:.1f} ms")
         log("phase 4b: where one batch-32 infer spends its time")
         traced = trace_forward(torch, export_dir)
+        if (traced["device_ms_per_infer"]
+                and not traced["families_ms_per_infer"]["maxpool (K2)"]):
+            raise AssertionError("phase 4b filed no device time under "
+                                 "maxpool (K2)")
 
     log("phase 5: the training kernels against their plain versions")
     x0 = torch.zeros((TRAIN_BATCH, 224, 224, 3), dtype=torch.uint8,
@@ -1961,6 +2062,7 @@ def main() -> int:
     k1_128 = check_k1(torch, cases128)
     k1_bwd = check_k1_bwd(torch, cases128)
     k2_train = check_k2_train(torch)
+    k2_train["instances"] = k2_regs
     del model
     torch.cuda.empty_cache()
 
@@ -1992,6 +2094,11 @@ def main() -> int:
             session, trained = train_session(torch, tmp)
         log("phase 6c: where one training step spends its time")
         step_trace = trace_train_step(torch, trained)
+        if (step_trace["device_ms_per_step"] and not step_trace[
+                "families_ms_per_step"].get("max-pool (K2b/K2c)")):
+            raise AssertionError("phase 6c filed no device time under "
+                                 "max-pool (K2b/K2c): a kernel name the "
+                                 "family matcher does not know")
         del trained
         torch.cuda.empty_cache()
         log("phase 9: the launcher: AlexNet BSP, one worker on this card")

@@ -10,6 +10,7 @@ machine set up for the port need not have):
 import pytest
 import torch
 
+import chip_smoke
 from theanompi_tpu_torch.ops import _kernels, attention, fused_bn, lrn, maxpool
 
 pytestmark = pytest.mark.gpu
@@ -115,27 +116,46 @@ def test_scale_bias_act_autograd_runs_the_backward_kernel(cuda):
     assert x.grad.dtype == torch.bfloat16 and scale.grad is not None
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_maxpool_argmax_and_bwd_kernels_match_plain(cuda, dtype):
+@pytest.mark.parametrize("shape", chip_smoke.K2_EDGE_SHAPES)
+def test_maxpool_argmax_and_bwd_kernels_match_plain(cuda, dtype, shape):
+    """K2b/K2c at the edges of their tiles (``chip_smoke.K2_EDGE_SHAPES``)
+    with an all-(-inf) window, two NaNs in one window, ties, and quads
+    whose bf16 (f32) sum depends on the order: y's bits (NaNs too), idx
+    and dx equal the plain versions', each quad's pixel is the plain
+    order's 0, and each kernel launched once."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(3, 16, 12, 32, generator=gen, device=cuda).to(dtype)
-    x[0, 0:2, 0:2, :] = float("-inf")          # all-(-inf) window
-    x[1, 3, 5, :4] = float("nan")
-    x[1, 4, 4, :4] = float("nan")               # a second NaN, same window
-    x[2, 6:9, 6:9, :] = 1.0                     # ties
+    x, g, quads = chip_smoke.k2_edge_case(torch, shape, dtype, gen)
     before = (maxpool.K_POOL_ARGMAX.launches, maxpool.K_POOL_BWD.launches)
     y, idx = maxpool.maxpool3x3s2_argmax(x)
-    want_y, want_idx = maxpool.maxpool3x3s2_argmax_plain(x)
-    g = torch.randn(y.shape, generator=gen, device=cuda).to(dtype)
     dx = maxpool.maxpool3x3s2_bwd(g, idx)
-    want_dx = maxpool.maxpool3x3s2_bwd_plain(g, want_idx)
     torch.cuda.synchronize()
     assert (maxpool.K_POOL_ARGMAX.launches, maxpool.K_POOL_BWD.launches) == (
         before[0] + 1, before[1] + 1)
-    torch.testing.assert_close(y, want_y, rtol=0, atol=0, equal_nan=True)
+    want_y, want_idx = maxpool.maxpool3x3s2_argmax_plain(x)
+    want_dx = maxpool.maxpool3x3s2_bwd_plain(g, want_idx)
+    assert torch.isnan(want_y).sum() == 2
+    assert torch.equal(_bits(y), _bits(want_y))
     assert torch.equal(idx, want_idx)
     assert torch.equal(dx, want_dx)
-    assert (idx[0, 0, 0] == 4).all()
+    assert (idx[0, 0, 0] == 4).all() and torch.isneginf(y[0, 0, 0]).all()
+    for iy, ix in quads:
+        assert not dx[0, iy, ix].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool_train_geometry_matches_its_mirror(cuda, dtype):
+    """The tiles ``csrc/maxpool.cu`` computes are those of the Python
+    mirror that the CPU tests check for coverage."""
+    lanes = 16 // torch.empty((), dtype=dtype).element_size()
+    for _, h, w, c in chip_smoke.K2_EDGE_SHAPES + [(128, 112, 112, 64)]:
+        for bwd in (False, True):
+            assert maxpool.train_geometry(bwd, dtype, h, w, c or lanes) == (
+                maxpool.train_geometry_plain(bwd, dtype, h, w, c or lanes))
 
 
 def test_training_kernels_refuse_what_they_do_not_take(cuda):

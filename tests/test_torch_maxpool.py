@@ -14,6 +14,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import chip_smoke
 from theanompi_tpu.ops.maxpool_pallas import maxpool3x3s2 as jax_pool
 from theanompi_tpu_torch.ops import maxpool
 
@@ -141,6 +142,112 @@ def test_gather_backward_nan_and_all_neg_inf_windows():
     _, idx = maxpool.maxpool3x3s2_argmax(torch.from_numpy(x))
     assert (idx[0, 0, 0] == 4).all()
     assert idx[0, 2, 2, 2] == 1         # (3, 4) is tap (0, 1) of (2, 2)
+
+
+def test_order_sensitive_bf16_gather_matches_pallas():
+    """An odd/odd input pixel that wins all four of its windows sums four
+    g terms whose bf16 result depends on the order.  The plain K2c adds
+    them in the Pallas class plane's order, window (oy + 1, ox + 1)
+    first, as the Pallas ``_mp_bwd`` does in interpret mode: bit for
+    bit, and 0 here, where the opposite order gives 2^-7."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((1, 10, 10, 8)).astype(np.float32)
+    g = rng.standard_normal((1, 5, 5, 8)).astype(np.float32)
+    # g of windows (oy, ox), (oy, ox + 1), (oy + 1, ox), (oy + 1, ox + 1)
+    terms = (-1.0, 2.0 ** -8, 2.0 ** -8, 1.0)
+    for iy, ix in ((1, 1), (7, 7)):
+        oy, ox = iy // 2, ix // 2
+        x[0, iy, ix] = 100.0
+        (g[0, oy, ox], g[0, oy, ox + 1], g[0, oy + 1, ox],
+         g[0, oy + 1, ox + 1]) = terms
+    y, dx, want_y, want_dx = _vjp_both(x, g, "bfloat16")
+    _assert_exact(y, want_y)
+    np.testing.assert_array_equal(dx, want_dx)
+    assert not dx[0, 1, 1].any() and not dx[0, 7, 7].any()
+    # the pin has teeth: in the opposite order the same terms give 2^-7
+    acc = torch.zeros((), dtype=torch.bfloat16)
+    for v in terms:
+        acc = acc + torch.tensor(v, dtype=torch.bfloat16)
+    assert float(acc) == 2.0 ** -7
+
+
+def _tiles(geo: dict, n: int, oh: int, ow: int, cv: int):
+    """Each block's tile (image, first output row, column and channel
+    vector, and extent), as the kernels' ``tile_of`` reads it from
+    blockIdx.x."""
+    for i in range(n * geo["strips"] * geo["col_tiles"] * geo["vec_tiles"]):
+        c0 = i % geo["vec_tiles"] * geo["vecs"]
+        i //= geo["vec_tiles"]
+        ox0 = i % geo["col_tiles"] * geo["cols"]
+        i //= geo["col_tiles"]
+        oy0 = i % geo["strips"] * geo["rows"]
+        yield (i // geo["strips"], oy0, ox0, c0, min(geo["rows"], oh - oy0),
+               min(geo["cols"], ow - ox0), min(geo["vecs"], cv - c0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape",
+                         chip_smoke.K2_EDGE_SHAPES + [(2, 112, 112, 64)])
+def test_train_tiles_cover_every_pixel_once(shape, dtype):
+    """The blocks and threads of K2b and K2c walked over the Python
+    mirror of their tiles (the card test holds ``csrc/maxpool.cu``'s
+    geometry to it): K2b writes every output cell, and K2c every input
+    pixel, from exactly one (block, thread); every tap or window a thread
+    reads lies in what its block staged; every stage fits the block's
+    shared memory."""
+    lanes = 16 // torch.empty((), dtype=dtype).element_size()
+    n, h, w, c = shape
+    c = c or lanes
+    oh, ow, cv = h // 2, w // 2, c // lanes
+
+    def threads_work(cols, vecs):
+        # (column, channel vector) of each position p of a tile; thread t
+        # takes positions t, t + threads, ..., so each position one thread
+        p = np.arange(cols * vecs)
+        return p // vecs, p % vecs
+
+    geo = maxpool.train_geometry_plain(False, dtype, h, w, c)
+    assert geo["smem"] == ((2 * geo["rows"] + 1) * (2 * geo["cols"] + 1)
+                           * geo["vecs"] * 16) <= maxpool.TILE_BYTES
+    written = np.zeros((n, oh, ow, cv), np.int64)
+    for b, oy0, ox0, c0, rows, cols, vecs in _tiles(geo, n, oh, ow, cv):
+        ox, ch = threads_work(cols, vecs)
+        # staged: input rows 2*oy0 - 1 .. 2*(oy0 + rows) - 1 and columns
+        # 2*ox0 - 1 .. 2*(ox0 + cols) - 1, on the image but for the -1s
+        assert 2 * (oy0 + rows) - 1 <= h - 1 and 2 * (ox0 + cols) - 1 <= w - 1
+        for r in range(rows):
+            np.add.at(written, (b, oy0 + r, ox0 + ox, c0 + ch), 1)
+            for d in range(3):
+                iy, ix = 2 * (oy0 + r) - 1 + d, 2 * (ox0 + ox) - 1 + d
+                assert 2 * oy0 - 1 <= iy <= 2 * (oy0 + rows) - 1
+                assert ((2 * ox0 - 1 <= ix) & (ix <= 2 * (ox0 + cols) - 1)
+                        ).all()
+    assert (written == 1).all()
+
+    geo = maxpool.train_geometry_plain(True, dtype, h, w, c)
+    assert geo["smem"] == ((geo["rows"] + 1) * (geo["cols"] + 1)
+                           * geo["vecs"] * (16 + lanes)) <= maxpool.TILE_BYTES
+    written = np.zeros((n, h, w, cv), np.int64)
+    read = np.zeros((n, oh, ow, cv), np.int64)
+    for b, oy0, ox0, c0, rows, cols, vecs in _tiles(geo, n, oh, ow, cv):
+        ox, ch = threads_work(cols, vecs)
+        for r in range(rows):
+            oy = oy0 + r
+            for pi in (0, 1):
+                for pj in (0, 1):
+                    np.add.at(written, (b, 2 * oy + pi,
+                                        2 * (ox0 + ox) + pj, c0 + ch), 1)
+            # windows (oy, ox) .. (oy + 1, ox + 1): staged output rows
+            # oy0 .. oy0 + rows and columns ox0 .. ox0 + cols; those off
+            # the image are the staged zero-g, tap -1 halo
+            for a in (0, 1):
+                wx = ox0 + ox + a
+                assert (wx <= ox0 + cols).all() and oy + 1 <= oy0 + rows
+                for wy in (oy, oy + 1)[:oh - oy]:
+                    on = wx < ow
+                    np.add.at(read, (b, wy, wx[on], c0 + ch[on]), 1)
+    assert (written == 1).all()
+    assert (read >= 1).all()
 
 
 def test_non_contiguous_raises():

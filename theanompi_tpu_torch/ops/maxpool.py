@@ -47,6 +47,64 @@ K_POOL_BWD = _kernels.Kernel("maxpool3x3s2_bwd", "maxpool",
                              "tm_maxpool3x3s2_bwd", _TRAIN_ARGTYPES)
 
 
+#: the training kernels' tiles, as ``csrc/maxpool.cu`` sets them: shared
+#: memory a tile may take, channel vectors per tile, output rows per tile
+#: of K2b and of K2c, threads per block
+TILE_BYTES = 74 * 1024
+MAX_TILE_VECS = 32
+ARGMAX_ROWS, BWD_ROWS = 2, 2
+TRAIN_THREADS = 256
+_GEOMETRY_KEYS = ("rows", "cols", "vecs", "strips", "col_tiles",
+                  "vec_tiles", "smem", "threads")
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def train_geometry_plain(bwd: bool, dtype: torch.dtype, h: int, w: int,
+                         c: int) -> dict[str, int]:
+    """The tiles of K2b (``bwd`` False) or K2c for images of ``(h, w, c)``
+    in ``dtype``, computed as ``csrc/maxpool.cu`` ``train_geometry``
+    computes them: a block takes ``rows`` output rows by ``cols`` output
+    columns by ``vecs`` 16-byte channel vectors of one image (the last
+    tile of each axis may be cut short), an image has ``strips`` x
+    ``col_tiles`` x ``vec_tiles`` of them, and a block takes ``smem``
+    bytes of shared memory and ``threads`` threads.  K2b stages the
+    2*rows + 1 input rows and 2*cols + 1 input columns under its windows;
+    K2c stages g and idx of rows + 1 output rows and cols + 1 columns."""
+    lanes = 16 // torch.empty((), dtype=dtype).element_size()
+    oh, ow, cv = h // 2, w // 2, c // lanes
+    vec_tiles = _ceil_div(cv, MAX_TILE_VECS)
+    vecs = _ceil_div(cv, vec_tiles)
+    rows = min(BWD_ROWS if bwd else ARGMAX_ROWS, oh)
+    vec_bytes = 16 + lanes if bwd else 16
+    stage_rows = rows + 1 if bwd else 2 * rows + 1
+    per_row = TILE_BYTES // (vec_bytes * vecs) // stage_rows
+    max_cols = max(1, per_row - 1 if bwd else (per_row - 1) // 2)
+    col_tiles = _ceil_div(ow, max_cols)
+    cols = _ceil_div(ow, col_tiles)
+    smem = (stage_rows * ((cols + 1) if bwd else (2 * cols + 1)) * vecs
+            * vec_bytes)
+    return dict(zip(_GEOMETRY_KEYS, (rows, cols, vecs, _ceil_div(oh, rows),
+                                     col_tiles, vec_tiles, smem,
+                                     TRAIN_THREADS)))
+
+
+def train_geometry(bwd: bool, dtype: torch.dtype, h: int, w: int,
+                   c: int) -> dict[str, int]:
+    """:func:`train_geometry_plain`'s tiles as the built library computes
+    them (``tm_maxpool_train_geometry``; so only where it builds)."""
+    fn = _kernels.load("maxpool").tm_maxpool_train_geometry
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    if fn(int(bwd), _DTYPE_CODES[dtype], h, w, c, out) != 0:
+        raise ValueError(f"no max-pool tile for {dtype} (H, W, C) = "
+                         f"{(h, w, c)}")
+    return dict(zip(_GEOMETRY_KEYS, out))
+
+
 def _check(x: torch.Tensor) -> tuple[int, int, int, int]:
     if x.ndim != 4:
         raise ValueError(f"maxpool3x3s2 expects NHWC, got {tuple(x.shape)}")

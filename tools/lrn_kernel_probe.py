@@ -41,6 +41,9 @@ SHAPES = [(128, 55, 55, 96), (128, 27, 27, 256)]
 FWD_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+#: SASS opcodes counted on their own (LDGSTS: cp.async; BSSY: a
+#: divergent branch region)
+SASS_KEYS = ("MUFU", "LDS", "STS", "LDG", "STG", "BAR", "LDGSTS", "BSSY")
 BWD_ARGS = [ctypes.c_void_p] * 3 + [
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_int,
@@ -53,7 +56,7 @@ def build(sources: dict[str, Path], out_dir: Path) -> dict[str, dict]:
 
     nvcc = _kernels.find_nvcc()
     if nvcc is None:
-        raise SystemExit("lrn_kernel_probe: nvcc not found")
+        raise SystemExit("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, src in sources.items():
@@ -76,7 +79,7 @@ def build(sources: dict[str, Path], out_dir: Path) -> dict[str, dict]:
 
 def sass_counts(lib: Path, dump: Path) -> dict[str, dict]:
     """Static SASS instruction count of each kernel, with its MUFU,
-    shared-memory and global-memory instructions."""
+    shared-memory, global-memory, barrier and cp.async instructions."""
     from theanompi_tpu_torch.ops import _kernels
 
     cuobjdump = Path(_kernels.find_nvcc()).with_name("cuobjdump")
@@ -89,8 +92,7 @@ def sass_counts(lib: Path, dump: Path) -> dict[str, dict]:
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = m.group(1)
-            counts[name] = {"total": 0, "MUFU": 0, "LDS": 0, "STS": 0,
-                            "LDG": 0, "STG": 0, "BAR": 0}
+            counts[name] = {"total": 0, **{key: 0 for key in SASS_KEYS}}
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
                      line)
@@ -99,9 +101,8 @@ def sass_counts(lib: Path, dump: Path) -> dict[str, dict]:
             if op == "NOP":
                 continue
             counts[name]["total"] += 1
-            for key in ("MUFU", "LDS", "STS", "LDG", "STG", "BAR"):
-                if op == key:
-                    counts[name][key] += 1
+            if op in SASS_KEYS:
+                counts[name][op] += 1
     return counts
 
 
