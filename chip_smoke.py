@@ -120,10 +120,35 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    ``train_flops_per_sample``).
 15. One TransformerLM training step on a staged batch, timed and traced
    as in 6c: device time by family, the idle share and peak memory.
+16. Checkpoint and resume on the card, through the launcher a user runs
+   (``python -m theanompi_tpu_torch.launcher BSP -D 1 -m
+   theanompi_tpu_torch.models.resnet50 -c ResNet50``): full-width
+   ResNet-50 at batch 128, bf16 on f32 master weights, on shard files of
+   8 training and 2 validation batches cut from the synthetic pool
+   (``--set data_dir=...``), ``n_epochs=3``, a checkpoint per epoch.
+   (a) Unbroken, twice; the first with ``THEANOMPI_TPU_PROFILE`` over 3
+   steps.  (b) ``--epochs 2`` with a fault plan that truncates epoch 1's
+   checkpoint after its manifest is written, then ``--resume --epochs
+   2``: epoch 1 is found corrupt and quarantined, epoch 0 restored,
+   epochs 1-2 run again and epoch 1 saved again, verifying.  (c)
+   ``--max-restarts 1`` with ``CrashOnceResNet50`` (this script's model
+   class: it raises at step 3 of epoch 1 in its first life only): the
+   launcher restarts the group with ``--resume``.  Checks: (b) and (c)
+   end with epochs 0-2 in their records and ``epochs_run`` 2 (a: 3),
+   finite losses and the launches of phase 6b per step and per
+   validation batch; each restore's state digest (parameters, buffers,
+   momentum, step) equals the one taken at save; the final state
+   digests of (b) and (c) equal (a)'s when the two unbroken runs agree
+   bit for bit, else their final states are within ``CKPT_MARGIN``
+   times the two unbroken runs' relative L2 of (a)'s; the profiler's
+   trace names K1a-K1d, K2b and K2c among its kernel events.  Prints
+   the training thread's pause per save, the background write and
+   manifest digest seconds, the restore seconds and the checkpoint's MB.
 
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
-one-rank NCCL process group in this process (the launcher's worker makes
-its own).
+one-rank NCCL process group in this process (the launchers' workers make
+their own); 16 runs after it.  Phase 9 checkpoints each epoch, as the
+launcher does; 6b and 14 call ``run_bsp_session`` without checkpoints.
 
 Full results (per-shape kernel times, the traces) go to
 ``build/chip_smoke.json``.
@@ -240,6 +265,34 @@ LM_VAL_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES}, "attention": 12}
 LM_GRAD_CHECK = (2, 1024)
 LM_GRAD_LIMITS = {"loss_rel": 1e-2, "grad_vs_f32": 0.1,
                   "grad_vs_cpu_bf16": 0.1}
+#: phase 16: ResNet-50 through the launcher at batch 128 on shard files
+#: cut from the synthetic pool: CKPT_STEPS steps and CKPT_VAL_BATCHES
+#: validation batches an epoch, CKPT_EPOCHS epochs; the profiled run
+#: traces CKPT_PROFILE_STEPS steps; (c) crashes at step CKPT_CRASH_STEP
+#: of epoch 1 in its first life
+CKPT_STEPS, CKPT_VAL_BATCHES, CKPT_EPOCHS = 8, 2, 3
+CKPT_PROFILE_STEPS, CKPT_CRASH_STEP = 3, 3
+#: launches per validation batch of the ResNet-50 forward
+RESNET_VAL_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES},
+                       "scale_bias_act": 37, "scale_bias_act_res": 16,
+                       "maxpool3x3s2": 1}
+#: phase 16, when two unbroken runs end apart (a nondeterministic
+#: kernel, e.g. a cuDNN backward that sums with atomics): a resumed run's
+#: final state may be this many times as far (relative L2) from the
+#: first unbroken run's as the second unbroken run is; a resume at the
+#: wrong epoch, with stale momentum or the wrong LR, moves the state by
+#: a whole epoch's training, far more
+CKPT_MARGIN = 10.0
+#: kernel names in a torch.profiler trace -> the kernel table's ids:
+#: demangled (``<__nv_bfloat16, true, true>``) or mangled (``Lb1E``),
+#: the first bool template argument being RES
+TRACE_KERNELS = {
+    "K1a": r"scale_bias_act_kernel(<[^,<>]+,\s*false|I\w*?Lb0E)",
+    "K1b": r"scale_bias_act_kernel(<[^,<>]+,\s*true|I\w*?Lb1E)",
+    "K1c": r"scale_bias_act_bwd_kernel(<[^,<>]+,\s*false|I\w*?Lb0E)",
+    "K1d": r"scale_bias_act_bwd_kernel(<[^,<>]+,\s*true|I\w*?Lb1E)",
+    "K2b": r"maxpool3x3s2_argmax_tile_kernel",
+    "K2c": r"maxpool3x3s2_bwd_tile_kernel"}
 
 
 def log(msg: str) -> None:
@@ -1579,7 +1632,26 @@ def launcher_session(torch, workdir: str) -> dict:
         f"{out['images_per_s']:.0f} images/s per card (epoch 0, first "
         f"steps included: {out['first_epoch_ms_per_step']:.2f} ms/step); "
         f"train loss {[r['train_loss'] for r in recs]}, val {res['val']}")
+    out["overlap"] = overlap_ms(last)
+    log(f"  epoch {last['epoch']} by the part of epoch {last['epoch'] - 1}'s "
+        f"save running in the background: {overlap_line(out['overlap'])}")
     return out
+
+
+def overlap_ms(rec: dict) -> dict:
+    """An epoch record's ``ckpt_overlap`` as steps, ms per step and loader
+    wait in ms per step, per background part of a save ("none": steps no
+    part overlapped)."""
+    return {part: {"steps": v["steps"],
+                   "ms_per_step": v["s"] * 1e3 / v["steps"],
+                   "wait_ms_per_step": v["wait_s"] * 1e3 / v["steps"]}
+            for part, v in rec["ckpt_overlap"].items() if v["steps"]}
+
+
+def overlap_line(split: dict) -> str:
+    return "; ".join(f"{part} {v['steps']} steps {v['ms_per_step']:.2f} ms"
+                     f"/step (loader wait {v['wait_ms_per_step']:.2f})"
+                     for part, v in split.items())
 
 
 def free_port() -> int:
@@ -1630,7 +1702,9 @@ def counted_session(torch, model) -> dict:
                             flops_per_sample=model.train_flops_per_sample)
     _kernels.reset_launch_counts()
     t0 = time.monotonic()
-    result = run_bsp_session(model, recorder=recorder)
+    # no checkpoints: these sessions time the step as earlier PRs did
+    # (phase 16 drives the checkpoints)
+    result = run_bsp_session(model, recorder=recorder, checkpoint=False)
     wall = time.monotonic() - t0
     launches = _kernels.launch_counts()
     # the session's own flush after the epoch's last step is the final
@@ -1969,6 +2043,247 @@ def trace_alexnet_step(torch) -> dict:
     return trace_train_step(torch, model)
 
 
+# -- phase 16: checkpoint and resume on the card ----------------------------
+
+def __getattr__(name: str):
+    """``CrashOnceResNet50``, the model class phase 16 (c) names to the
+    launcher (``-m chip_smoke -c CrashOnceResNet50``): ResNet-50 that
+    raises at step ``CKPT_CRASH_STEP`` of epoch 1 in the first life of a
+    launcher group, never after.  Built on first access, so importing
+    this script needs no port."""
+    if name != "CrashOnceResNet50":
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    from theanompi_tpu_torch.launcher import RESTART_ENV
+    from theanompi_tpu_torch.models.resnet50 import ResNet50
+
+    class CrashOnceResNet50(ResNet50):
+        def train_iter(self, count, recorder):
+            if (os.environ.get(RESTART_ENV, "0") == "0"
+                    and self.current_epoch == 1 and count == CKPT_CRASH_STEP):
+                raise RuntimeError("phase 16: crash on purpose")
+            return super().train_iter(count, recorder)
+
+    return CrashOnceResNet50
+
+
+def ckpt_shards(root: str) -> str:
+    """A shard tree of ``CKPT_STEPS`` training batches and
+    ``CKPT_VAL_BATCHES`` validation batches of 128 uint8 256x256 images
+    drawn from the port's synthetic pool (64 images, seed 0); returns its
+    directory."""
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+
+    pool = ImageNet_data(seed=0, synthetic_n=CKPT_STEPS * TRAIN_BATCH,
+                         synthetic_pool=64)
+    os.makedirs(root, exist_ok=True)
+    for part, batches in (
+            ("train", pool.train_batches(0, CKPT_STEPS * TRAIN_BATCH)),
+            ("val", pool.train_batches(1, CKPT_VAL_BATCHES * TRAIN_BATCH))):
+        x, y = next(iter(batches))
+        np.save(os.path.join(root, f"{part}_0.x.npy"), x)
+        np.save(os.path.join(root, f"{part}_0.y.npy"), y)
+    return root
+
+
+def ckpt_run(name: str, snap: str, workdir: str, data_dir: str,
+             *extra: str,
+             model=("theanompi_tpu_torch.models.resnet50", "ResNet50"),
+             env: dict | None = None) -> dict:
+    """One ``python -m theanompi_tpu_torch.launcher BSP -D 1`` run with
+    snapshot directory ``workdir/<snap>``; returns its result JSON with
+    the run's wall seconds and stderr's ``[resilience]`` lines.  Fails on
+    a non-zero exit."""
+    out = os.path.join(workdir, f"{name}.json")
+    cmd = [sys.executable, "-m", "theanompi_tpu_torch.launcher", "BSP",
+           "-D", "1", "-m", model[0], "-c", model[1],
+           "--snapshot-dir", os.path.join(workdir, snap),
+           "--set", f"data_dir={data_dir}", "--set",
+           f"n_epochs={CKPT_EPOCHS}", "--set", "print_freq=4",
+           "--result-json", out, *extra]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
+                          env={**os.environ, **(env or {})},
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.monotonic() - t0
+    resilience = [line for line in proc.stderr.splitlines()
+                  if line.startswith("[resilience]")]
+    for line in resilience:
+        log(f"    | {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 16 run {name} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        res = json.load(f)
+    res.update(wall_s=wall, resilience=resilience)
+    log(f"  ({name}) {' '.join(extra) or 'unbroken'}: {wall:.1f} s, "
+        f"epochs_run {res['epochs_run']}, epochs "
+        f"{[r['epoch'] for r in res['records']]}")
+    return res
+
+
+def trace_kernel_ids(path: str) -> dict[str, int]:
+    """Device kernel events per kernel id in a Chrome trace that
+    ``StepProfiler`` wrote."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events
+             if str(e.get("cat", "")).lower() == "kernel"]
+    return {k: sum(1 for n in names if re.search(pat, n))
+            for k, pat in TRACE_KERNELS.items()}
+
+
+def final_state(torch, snap: str):
+    """The flattened float tensors of the last epoch's checkpoint under
+    ``snap`` (parameters, BN statistics, momentum), in f64."""
+    from theanompi_tpu_torch.utils.checkpoint import Checkpointer
+
+    ck = Checkpointer(os.path.join(snap, "resnet50"), read_only=True)
+    payload = ck.restore(CKPT_EPOCHS - 1)
+    ck.close()
+    parts = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            if x.is_floating_point():
+                parts.append(x.double().reshape(-1))
+        elif isinstance(x, dict):
+            for k in sorted(x, key=str):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    for key in ("params", "model_state", "opt_state"):
+        walk(payload[key])
+    return torch.cat(parts)
+
+
+def check_ckpt_run(res: dict, want_epochs_run: int) -> None:
+    """Epochs 0..CKPT_EPOCHS-1 in the records, ``epochs_run`` as the JAX
+    package counts it (epochs this invocation ran), every loss finite and
+    the exact launches per step and validation batch."""
+    epochs = [r["epoch"] for r in res["records"]]
+    if epochs != list(range(CKPT_EPOCHS)) or (
+            res["epochs_run"] != want_epochs_run):
+        raise AssertionError(f"epochs {epochs}, epochs_run "
+                             f"{res['epochs_run']} (want {want_epochs_run})")
+    for rec in res["records"]:
+        if not all(math.isfinite(rec[k]) for k in ("train_loss",
+                                                   "val_loss")):
+            raise AssertionError(f"non-finite loss in {rec}")
+        steps, n_val = rec["train_steps"], rec["val_batches"]
+        if (steps, n_val) != (CKPT_STEPS, CKPT_VAL_BATCHES):
+            raise AssertionError(f"epoch {rec['epoch']}: {steps} steps, "
+                                 f"{n_val} validation batches")
+        for part, per, n in (("train", TRAIN_LAUNCHES, steps),
+                             ("val", RESNET_VAL_LAUNCHES, n_val)):
+            got = rec["launches"][part]
+            want = {k: v * n for k, v in per.items()}
+            if ({k: got.get(k, 0) for k in want} != want
+                    or set(got) - set(want)):
+                raise AssertionError(f"epoch {rec['epoch']} {part} "
+                                     f"launches {got} != {want}")
+
+
+def checkpoint_phase(torch, workdir: str) -> dict:
+    """Phase 16 (module docstring): ResNet-50 through the launcher, (a)
+    unbroken twice (the first profiled), (b) corrupted at its latest
+    epoch by the fault plan and resumed through the fallback, (c) crashed
+    and auto-resumed; every restore bit-exact against its save, the
+    final states held to (a)'s."""
+    from theanompi_tpu_torch.resilience import recovery
+
+    data = ckpt_shards(os.path.join(workdir, "data"))
+    prof = os.path.join(workdir, "profile")
+    a1 = ckpt_run("a1", "a1", workdir, data,
+                  env={"THEANOMPI_TPU_PROFILE": prof,
+                       "THEANOMPI_TPU_PROFILE_STEPS":
+                       str(CKPT_PROFILE_STEPS)})
+    a2 = ckpt_run("a2", "a2", workdir, data)
+    ckpt_run("b1", "b", workdir, data, "--epochs", "2", "--fault-plan",
+             json.dumps([{"site": "checkpoint", "epoch": 1,
+                          "action": "truncate"}]))
+    b2 = ckpt_run("b2", "b", workdir, data, "--resume", "--epochs", "2")
+    c = ckpt_run("c", "c", workdir, data, "--max-restarts", "1",
+                 model=("chip_smoke", "CrashOnceResNet50"))
+    for res, want in ((a1, CKPT_EPOCHS), (a2, CKPT_EPOCHS), (b2, 2), (c, 2)):
+        check_ckpt_run(res, want)
+    if not any("is CORRUPT" in line for line in b2["resilience"]):
+        raise AssertionError(f"(b) found no corrupt epoch: {b2['resilience']}")
+    if not any("auto-resume 1/1" in line for line in c["resilience"]):
+        raise AssertionError(f"(c) did not auto-resume: {c['resilience']}")
+    restores = {}
+    for name, res in (("b", b2), ("c", c)):
+        r = res["checkpoint"]["restore"]
+        if r is None or r["epoch"] != 0 or (
+                r["digest_restored"] != r["digest_at_save"]):
+            raise AssertionError(f"({name}) restore {r}: want epoch 0, its "
+                                 "digest after restore equal to the one "
+                                 "at save")
+        restores[name] = r
+    snap_b = os.path.join(workdir, "b", "resnet50")
+    if (os.listdir(os.path.join(snap_b, "quarantine")) != ["1"]
+            or recovery.verify_checkpoint(snap_b, 1)[0] is not True):
+        raise AssertionError("(b): epoch 1 not quarantined and saved again")
+    # the last-state comparison
+    digests = {n: r["state_digests"][0]
+               for n, r in (("a1", a1), ("a2", a2), ("b", b2), ("c", c))}
+    if digests["a1"] == digests["a2"]:
+        rule = "exact (the two unbroken runs agree bit for bit)"
+        rel = {}
+        if digests["b"] != digests["a1"] or digests["c"] != digests["a1"]:
+            raise AssertionError(f"final state digests {digests}")
+    else:
+        ref = final_state(torch, os.path.join(workdir, "a1"))
+        rel = {n: float((final_state(torch, os.path.join(workdir, n)) - ref)
+                        .norm() / ref.norm()) for n in ("a2", "b", "c")}
+        limit = CKPT_MARGIN * rel["a2"]
+        rule = (f"relative L2 (the two unbroken runs differ by "
+                f"{rel['a2']:.3g}; limit {CKPT_MARGIN} x that = "
+                f"{limit:.3g})")
+        if not (rel["b"] <= limit and rel["c"] <= limit):
+            raise AssertionError(f"final states off (a): {rel}, {rule}")
+    log(f"  last state against (a): {rule}; {rel or digests}")
+    out = {"runs": {"a1": a1, "a2": a2, "b2": b2, "c": c},
+           "rule": rule, "rel_l2": rel, "digests": digests,
+           "restores": restores}
+    traces = [os.path.join(prof, f) for f in os.listdir(prof)
+              if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"profile dir holds {traces}")
+    ids = trace_kernel_ids(traces[0])
+    log(f"  trace {os.path.basename(traces[0])} "
+        f"({os.path.getsize(traces[0]) / 1e6:.1f} MB, "
+        f"{CKPT_PROFILE_STEPS} steps): kernel events {ids}")
+    if not all(ids.values()):
+        raise AssertionError(f"the profiler trace does not name every "
+                             f"kernel of the path: {ids}")
+    out["trace_kernels"] = ids
+    runs = [r["checkpoint"]["saves"] for r in (a1, a2, b2, c)]
+    saves = [s for run in runs for s in run]
+    out["saves"] = saves
+    # a process's first save also pins its host buffers
+    first = sorted(run[0]["pause_ms"] for run in runs)
+    pause = sorted(s["pause_ms"] for run in runs for s in run[1:])
+    parts = {k: sorted(s[k] for s in saves if k in s)
+             for k in ("write_s", "digest_s", "manifest_s")}
+    restore_s = [r["s"] for r in restores.values()]
+    mb = saves[0]["bytes"] / 1e6
+    out.update(pause_first_ms=first, pause_ms=pause, restore_s=restore_s,
+               checkpoint_mb=mb, **parts)
+    log(f"  {card_line()}: save pause of the training thread "
+        f"{pause[len(pause) // 2]:.2f} ms median of {len(pause)} "
+        f"({pause[0]:.2f}-{pause[-1]:.2f}; a process's first save "
+        f"{first[0]:.2f}-{first[-1]:.2f}); in the background, medians "
+        + ", ".join(f"{k[:-2]} {v[len(v) // 2]:.3f} s ({v[0]:.3f}-"
+                    f"{v[-1]:.3f})" for k, v in parts.items())
+        + f"; restore (read, verify, load into the card) "
+        f"{restore_s[0]:.3f} / {restore_s[1]:.3f} s; checkpoint {mb:.1f} MB")
+    return out
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -2121,6 +2436,11 @@ def main() -> int:
         del lm_trained
     finally:
         dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    log("phase 16: checkpoint and resume on the card (the launcher)")
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = checkpoint_phase(torch, tmp)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -2175,7 +2495,8 @@ def main() -> int:
                    "alexnet_session": alex_session,
                    "alexnet_step_trace": alex_trace, "k4": k4,
                    "lm_grad_check": lm_checked, "lm_session": lm_run,
-                   "lm_step_trace": lm_trace, "kernels": kernels,
+                   "lm_step_trace": lm_trace, "checkpoint": ckpt,
+                   "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "
                            "per_train_step: per batch-128 step) or per "

@@ -398,3 +398,65 @@ def test_attention_kernels_refuse_what_they_do_not_take(cuda):
         attention.fused_attention(y, y, y)
     with pytest.raises(TypeError, match="dtype"):
         attention.fused_attention(x, x.bfloat16(), x)
+
+
+def test_checkpoint_snapshot_is_taken_before_save_returns(cuda, tmp_path):
+    """The async contract on the card: ``save`` copies every tensor off
+    the card before it returns, so kernels queued right after it (the
+    next step's in-place update) never reach the file."""
+    from theanompi_tpu_torch.utils.checkpoint import Checkpointer
+
+    n = 1 << 22
+    w = torch.arange(n, dtype=torch.float32, device=cuda)
+    b = torch.ones(n, dtype=torch.bfloat16, device=cuda)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(0, {"params": {"w": w, "b": b}, "step": 1})
+    w.add_(1.0)
+    b.mul_(3.0)
+    ck.save(1, {"params": {"w": w, "b": b}, "step": 2})
+    w.add_(1.0)
+    ck.close()
+    first, second = ck.restore(0), ck.restore(1)
+    want = torch.arange(n, dtype=torch.float32)
+    assert torch.equal(first["params"]["w"], want)
+    assert torch.equal(first["params"]["b"], torch.ones(n).bfloat16())
+    assert torch.equal(second["params"]["w"], want + 1)
+    assert torch.equal(second["params"]["b"], torch.full((n,), 3.0).bfloat16())
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A trained ResNet's payload restored with ``map_location='cuda:0'``
+    lands on the card, and a fresh model that adopts it holds the saved
+    state bit for bit (its digest equals the one taken at save)."""
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.resnet50 import ResNet50
+    from theanompi_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        state_digest,
+    )
+
+    def model():
+        data = ImageNet_data(crop=64, seed=0, synthetic_n=16,
+                             synthetic_pool=4, synthetic_store=72)
+        m = ResNet50(device="cuda", stage_sizes=(1, 1, 1, 1), crop=64,
+                     data=data)
+        m.compile_iter_fns()
+        return m
+
+    trained = model()
+    x, y = next(iter(trained.data.train_batches(0, 8)))
+    trained.train_step(trained.state, (torch.from_numpy(x).to(cuda),
+                                       torch.from_numpy(y).to(cuda)),
+                       trained._epoch_rng(0))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(0, trained.checkpoint_payload(0))
+    payload = ck.restore(0, map_location="cuda:0")
+    assert ck.saved_digest(0) == state_digest(trained.checkpoint_payload())
+    ck.close()
+    assert all(t.device == torch.device("cuda", 0)
+               for t in payload["params"].values())
+    fresh = model()
+    fresh.adopt_restored_state(payload)
+    assert next(iter(fresh.state.optimizer.state.values()))[
+        "momentum_buffer"].device.type == "cuda"
+    assert state_digest(fresh.checkpoint_payload()) == ck.saved_digest(0)

@@ -4,8 +4,10 @@ A 2-process run of a tiny AlexNet (full layer widths, 67-pixel crops,
 10 classes, a synthetic pool of 4 images) writes its result JSON, every
 loss is finite, and the two ranks end with equal parameters; the
 TransformerLM trains at its default dims through the same command; a worker
-that fails stops its sibling and the launcher exits non-zero; unported
-rules and options exit non-zero naming their ROADMAP item.
+that fails stops its sibling and the launcher exits non-zero; two ranks
+stopped and resumed end as two unbroken ranks; ``--multihost`` joins two
+launchers of one rank each into one world; unported rules and options
+exit non-zero naming their ROADMAP item.
 
 This file imports no JAX: it is also the model module the launched
 workers import (``-m test_torch_launcher -c TinyAlexNet``).  Every
@@ -144,13 +146,97 @@ def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
 
 @pytest.mark.parametrize("argv,item", [
     (["EASGD"], 14), (["GOSGD"], 14), (["ASGD"], 14), (["SERVE"], 19),
-    (["BSP", "--resume"], 10), (["BSP", "--tau", "4"], 10),
-    (["BSP", "--model-parallel=2"], 10), (["BSP", "--decode-max-seqs", "4"],
-                                          10)])
+    (["BSP", "--collector"], 16), (["BSP", "--tau", "4"], 14),
+    (["BSP", "--model-parallel=2"], 18), (["BSP", "--decode-max-seqs", "4"],
+                                          20)])
 def test_unported_rules_and_options_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP.md "
                                          rf"section A, item {item}\)"):
         launcher.main(argv + ["-m", "x", "-c", "y"])
+
+
+def _resilience_run(tmp_path, name, *extra, devices="2"):
+    """One ``test_torch_resilience.TinyResNet`` run of ``devices`` gloo
+    ranks at 8 images a rank; returns its result JSON."""
+    out = tmp_path / f"{name}.json"
+    rc = _launch(["BSP", "-D", devices, "--platform", "cpu", "-m",
+                  "test_torch_resilience", "-c", "TinyResNet", "--set",
+                  "batch_size=8", "--snapshot-dir", str(tmp_path / name),
+                  "--result-json", str(out), *extra], timeout=150)
+    assert rc == 0
+    return json.loads(out.read_text())
+
+
+def test_two_process_gloo_run_resumed(tmp_path, workers_import_this_file):
+    """Two ranks stopped after 2 of 3 epochs and resumed (rank 0 restores
+    first, then rank 1, both the same epoch) end as two unbroken ranks
+    do: every rank's state digest equal, to each other and to the
+    unbroken run's."""
+    whole = _resilience_run(tmp_path, "whole")
+    first = _resilience_run(tmp_path, "parts", "--epochs", "2")
+    assert first["epochs_run"] == 2
+    res = _resilience_run(tmp_path, "parts", "--resume", "--sync-type",
+                          "avg")
+    assert res["world_size"] == 2 and res["epochs_run"] == 1
+    assert res["checkpoint"]["restore"]["epoch"] == 1
+    assert len(set(res["state_digests"])) == 1
+    assert res["state_digests"] == whole["state_digests"]
+    assert [r["train_steps"] for r in res["records"]] == [3, 3, 3]
+
+
+def _two_hosts(tmp_path, name: str, snap: dict[int, str],
+               *extra: str) -> dict:
+    """One ``--multihost`` session of two launchers of one rank each
+    (hosts 0 and 1 on localhost), host ``h`` with snapshot directory
+    ``snap[h]``; returns host 0's result (host 1 writes none)."""
+    port = str(launcher._free_port())
+    outs = {}
+    argv = ["BSP", "--multihost", "--coordinator", f"localhost:{port}",
+            "--nhosts", "2", "-D", "1", "--platform", "cpu", "-m",
+            "test_torch_resilience", "-c", "TinyResNet", "--set",
+            "batch_size=8", *extra]
+    threads = [threading.Thread(target=lambda h=h: outs.update({
+        h: launcher.main(argv + ["--host-id", str(h), "--snapshot-dir",
+                                 snap[h], "--result-json",
+                                 str(tmp_path / f"{name}{h}.json")])}),
+        daemon=True) for h in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(150)
+        assert not t.is_alive(), "a host's launcher still running"
+    assert outs == {0: 0, 1: 0}
+    assert not (tmp_path / f"{name}1.json").exists()
+    return json.loads((tmp_path / f"{name}0.json").read_text())
+
+
+def test_multihost_options_two_hosts_of_one_rank(tmp_path,
+                                                 workers_import_this_file):
+    """``--multihost`` on two launchers of one rank each: one world of
+    two ranks; host 0's rank 0 writes the result."""
+    res = _two_hosts(tmp_path, "host", {h: str(tmp_path / f"host{h}")
+                                        for h in (0, 1)}, "--epochs", "1")
+    assert res["world_size"] == 2 and res["epochs_run"] == 1
+    assert len(set(res["state_digests"])) == 1
+    assert res["records"][0]["train_steps"] == 3   # 48 images / (2 x 8)
+
+
+def test_multihost_resume_from_a_shared_snapshot_dir(
+        tmp_path, workers_import_this_file):
+    """Two hosts that share one snapshot directory: one epoch, then
+    ``--resume`` for one more (host 1 reads what host 0's rank 0 wrote)
+    ends in the state of two unbroken epochs."""
+    whole = _two_hosts(tmp_path, "whole", {h: str(tmp_path / "a")
+                                           for h in (0, 1)},
+                       "--epochs", "2")
+    shared = {h: str(tmp_path / "b") for h in (0, 1)}
+    _two_hosts(tmp_path, "first", shared, "--epochs", "1")
+    res = _two_hosts(tmp_path, "resumed", shared, "--resume", "--epochs", "1")
+    assert res["epochs_run"] == 1
+    assert res["checkpoint"]["restore"]["epoch"] == 0
+    assert [r["epoch"] for r in res["records"]] == [0, 1]
+    assert res["state_digests"] == whole["state_digests"]
+    assert len(set(res["state_digests"])) == 1
 
 
 def test_refusals(tmp_path):
@@ -162,6 +248,15 @@ def test_refusals(tmp_path):
         launcher.model_config(launcher.parse_args(
             ["BSP", "-m", "test_torch_launcher", "-c", "TinyAlexNet",
              "--set", "bogus=1"]))
+    for argv, what in ((["--multihost", "--nhosts", "2"], "needs"),
+                       (["--host-id", "1"], "need --multihost"),
+                       (["--multihost", "--coordinator", "h", "--nhosts",
+                         "2", "--host-id", "0"], "HOST:PORT"),
+                       (["--multihost", "--coordinator", "h:1", "--nhosts",
+                         "2", "--host-id", "2"], "not in"),
+                       (["--max-restarts", "-1"], ">= 0")):
+        with pytest.raises(SystemExit, match=what):
+            launcher.main(["BSP", "-m", "x", "-c", "y", *argv])
     if not torch.cuda.is_available():
         # the launcher never picks the CPU by itself
         with pytest.raises(SystemExit, match="--platform cpu"):

@@ -436,11 +436,10 @@ def test_bsp_rule_and_refusals(tmp_path):
         data=ImageNet_data(crop=32, synthetic_n=32, synthetic_pool=4,
                            synthetic_store=32, n_classes=10))
     assert np.isfinite(rule.wait()["val"]["loss"])
-    model = _tiny_model(tmp_path)
-    for kw in (dict(checkpoint=True), dict(resume=True),
-               dict(profile_dir=str(tmp_path))):
+    for cfg in (dict(zero_sharding=True), dict(fsdp_sharding=True),
+                dict(exchange_dtype="bf16")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_bsp_session(model, **kw)
+            run_bsp_session(_tiny_model(tmp_path, **cfg))
     for cfg in (dict(steps_per_call=2), dict(grad_accum_steps=2),
                 dict(exchange_strategy="nccl16"), dict(sync_bn=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -1,7 +1,6 @@
 """``tmlocal BSP`` for the port: one process per card.
 
-Counterpart of ``theanompi_tpu/launcher.py`` (its single-host
-``tmlocal``), for the BSP rule::
+Counterpart of ``theanompi_tpu/launcher.py`` for the BSP rule::
 
     python -m theanompi_tpu_torch.launcher BSP -D 1 \\
         -m theanompi_tpu_torch.models.alex_net -c AlexNet --epochs 1
@@ -15,8 +14,32 @@ joins the default process group (NCCL on ``cuda``, gloo on ``cpu``),
 also when it is the only rank, so one card runs the same collectives as
 eight, and drives ``BSP().init(...).wait()`` on card ``LOCAL_RANK``.
 Rank 0 writes ``--result-json``: the session result (validation metrics,
-epoch records with their kernel launches), the world size and every
-rank's parameter digest (equal digests: the replicas ended identical).
+epoch records with their kernel launches, the checkpoint timings), the
+world size, every rank's parameter digest and every rank's state digest
+(parameters, buffers, optimizer state and step: equal digests, equal
+training states).
+
+Checkpoints are on (``<snapshot-dir>/<model name>/``, one per epoch);
+``--resume`` goes on from the newest one that verifies.  The JAX
+options with their semantics:
+
+* ``--sync-type avg|cdd``: average or sum the exchanged gradients;
+* ``--monitor-dir DIR``: exported to the workers as
+  ``THEANOMPI_TPU_MONITOR`` (metrics, crash markers);
+* ``--fault-plan PATH|JSON``: exported as ``THEANOMPI_TPU_FAULTS``,
+  which each worker's ``resilience.faults`` installs when imported (so
+  afresh in every life of the group);
+* ``--max-restarts N``: a rank that dies leaves its peers blocked in
+  their collectives, so the launcher stops the whole group and starts
+  it again with ``--resume`` and a fresh ``MASTER_PORT``, up to N times
+  (``THEANOMPI_TPU_RESTART`` tells the workers which life they are);
+* ``--multihost --coordinator HOST:PORT --nhosts H --host-id I``: the
+  same command on every host, each starting its ``-D L`` local ranks
+  as global ranks ``I * L + r`` of ``H * L``, the coordinator as
+  ``MASTER_ADDR``/``MASTER_PORT``.  A multi-host run never restarts.
+  Its ``--resume`` needs a ``--snapshot-dir`` that every host sees
+  (a shared file system): rank 0 alone writes checkpoints, and every
+  other rank restores from that directory on its own host.
 
 The launcher never picks the CPU by itself: ``--platform`` defaults to
 ``cuda`` and fails without a card.  A worker that fails terminates its
@@ -40,21 +63,28 @@ import time
 #: rules of the JAX launcher -> the ROADMAP.md section A item porting
 #: each (BSP is ported)
 RULES = {"BSP": None, "EASGD": 14, "ASGD": 14, "GOSGD": 14, "SERVE": 19}
-#: options of the JAX launcher this one does not take yet (item 10, the
-#: rest of the launcher); ``--decode-*`` are matched by prefix
-UNPORTED_OPTIONS = frozenset((
-    "--resume", "--sync-type", "--model-parallel", "--seq-parallel",
-    "--pipe-parallel", "--expert-parallel", "--tau", "--alpha", "--p-push",
-    "--merge-momentum", "--server-addr", "--shards", "--ingest",
-    "--overlap-exchange",
-    "--local-aggregation", "--wire-protocol", "--wire-compression",
-    "--wire-dtype", "--n-total-workers", "--rank-offset", "--session-id",
-    "--max-restarts", "--fault-plan", "--export-dir", "--port",
-    "--serve-host", "--serve-replicas", "--max-batch", "--max-delay-ms",
-    "--serve-buckets", "--max-queue", "--reload-poll-s", "--decode",
-    "--disaggregate", "--prefill-replicas", "--autoscale", "--scale-max",
-    "--slo-p99-ms", "--compilation-cache-dir", "--monitor-dir",
-    "--collector", "--multihost", "--coordinator", "--nhosts", "--host-id"))
+#: options of the JAX launcher this one does not take yet -> the ROADMAP
+#: item porting each; ``--decode-*`` are matched by prefix (item 20)
+UNPORTED_OPTIONS = {
+    **dict.fromkeys(("--model-parallel", "--seq-parallel", "--pipe-parallel",
+                     "--expert-parallel"), 18),
+    **dict.fromkeys(("--tau", "--alpha", "--p-push", "--merge-momentum",
+                     "--server-addr", "--overlap-exchange",
+                     "--n-total-workers", "--rank-offset", "--session-id"),
+                    14),
+    **dict.fromkeys(("--shards", "--local-aggregation", "--wire-protocol",
+                     "--wire-compression", "--wire-dtype"), 15),
+    "--collector": 16, "--ingest": 17,
+    **dict.fromkeys(("--export-dir", "--port", "--serve-host",
+                     "--serve-replicas", "--max-batch", "--max-delay-ms",
+                     "--serve-buckets", "--max-queue", "--reload-poll-s"),
+                    19),
+    "--decode": 20,
+    **dict.fromkeys(("--disaggregate", "--prefill-replicas", "--autoscale",
+                     "--scale-max", "--slo-p99-ms"), 21),
+    "--compilation-cache-dir": 22}
+#: tells a worker which life of the group it is (0: the first)
+RESTART_ENV = "THEANOMPI_TPU_RESTART"
 
 
 def _not_ported(what: str, item: int) -> SystemExit:
@@ -87,6 +117,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default; NCCL) or cpu (gloo)")
     p.add_argument("--result-json", default=None, metavar="PATH",
                    help="rank 0 writes the session result here as JSON")
+    p.add_argument("--resume", action="store_true",
+                   help="go on from the newest checkpoint that verifies")
+    p.add_argument("--sync-type", default="avg", choices=("avg", "cdd"),
+                   help="average (avg) or sum (cdd) the exchanged gradients")
+    p.add_argument("--monitor-dir", default=None, metavar="DIR",
+                   help="telemetry and crash markers under DIR (exported "
+                        "to the workers as THEANOMPI_TPU_MONITOR)")
+    p.add_argument("--fault-plan", default=None, metavar="PATH|JSON",
+                   help="deterministic fault injection (exported to the "
+                        "workers as THEANOMPI_TPU_FAULTS)")
+    p.add_argument("--max-restarts", type=int, default=0, metavar="N",
+                   help="restart a group whose worker died, from its "
+                        "latest verified checkpoint, up to N times "
+                        "(single host only)")
+    p.add_argument("--multihost", action="store_true",
+                   help="one launcher per host; needs --coordinator, "
+                        "--nhosts and --host-id")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="host 0's address (MASTER_ADDR:MASTER_PORT)")
+    p.add_argument("--nhosts", type=int, default=None)
+    p.add_argument("--host-id", type=int, default=None)
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -102,12 +153,31 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
         raise _not_ported(f"rule {args.rule}", RULES[args.rule])
     for tok in extra:
         name = tok.split("=", 1)[0]
-        if name in UNPORTED_OPTIONS or name.startswith("--decode-"):
-            raise _not_ported(f"option {name}", 10)
+        if name.startswith("--decode-"):
+            raise _not_ported(f"option {name}", UNPORTED_OPTIONS["--decode"])
+        if name in UNPORTED_OPTIONS:
+            raise _not_ported(f"option {name}", UNPORTED_OPTIONS[name])
     if extra:
         raise SystemExit(f"unrecognized arguments: {' '.join(extra)}")
     if args.devices is not None and args.devices < 1:
         raise SystemExit("-D must be >= 1")
+    if args.max_restarts < 0:
+        raise SystemExit("--max-restarts must be >= 0")
+    hosts = (args.coordinator, args.nhosts, args.host_id)
+    if args.multihost:
+        if None in hosts:
+            raise SystemExit("--multihost needs --coordinator HOST:PORT, "
+                             "--nhosts and --host-id")
+        host, _, port = args.coordinator.rpartition(":")
+        if not host or not port.isdigit():
+            raise SystemExit(f"--coordinator expects HOST:PORT, got "
+                             f"{args.coordinator!r}")
+        if not 0 <= args.host_id < args.nhosts:
+            raise SystemExit(f"--host-id {args.host_id} is not in "
+                             f"[0, {args.nhosts})")
+    elif hosts != (None, None, None):
+        raise SystemExit("--coordinator, --nhosts and --host-id need "
+                         "--multihost")
     return args
 
 
@@ -185,6 +255,7 @@ def run_worker(args: argparse.Namespace) -> int:
 
     from theanompi_tpu_torch.rules.base import rank_device
     from theanompi_tpu_torch.rules.bsp import BSP
+    from theanompi_tpu_torch.utils.checkpoint import state_digest
 
     device = rank_device(args.platform)
     if device.type == "cuda":
@@ -195,20 +266,25 @@ def run_worker(args: argparse.Namespace) -> int:
         _, config = model_config(args)
         rule = BSP().init(device=device, modelfile=args.modelfile,
                           modelclass=args.modelclass, config=config,
+                          resume=args.resume, sync_type=args.sync_type,
                           max_epochs=args.epochs)
         result = rule.wait()
-        digests = [None] * dist.get_world_size()
+        world = dist.get_world_size()
+        digests = [None] * world
         dist.all_gather_object(digests, param_digest(rule.model.module))
-        rank = dist.get_rank()
-        if rank == 0:
+        states = [None] * world
+        dist.all_gather_object(states, state_digest(
+            rule.model.checkpoint_payload()))
+        if dist.get_rank() == 0:
             print("final val:", {k: round(float(v), 4)
                                  for k, v in result.get("val", {}).items()},
                   flush=True)
             if args.result_json:
                 with open(args.result_json, "w") as f:
-                    json.dump({**result, "world_size": len(digests),
+                    json.dump({**result, "world_size": world,
                                "device": str(device),
-                               "param_digests": digests}, f)
+                               "param_digests": digests,
+                               "state_digests": states}, f)
     finally:
         dist.destroy_process_group()
     return 0
@@ -235,10 +311,38 @@ def _stop(procs: list[subprocess.Popen], grace_s: float = 10.0) -> None:
             p.wait()
 
 
+def _run_group(argv: list[str], env: dict, n: int, rank0: int,
+               life: int) -> int:
+    """One life of the local ranks ``rank0 .. rank0 + n - 1``: start a
+    worker per rank and wait; the first to fail stops the others and its
+    exit code (1 for a signal) is returned."""
+    procs: list[subprocess.Popen] = []
+    try:
+        for r in range(n):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "theanompi_tpu_torch.launcher",
+                 "--worker", *argv],
+                env=dict(env, RANK=str(rank0 + r), LOCAL_RANK=str(r),
+                         **{RESTART_ENV: str(life)})))
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [c for c in codes if c not in (None, 0)]
+            if bad:
+                print(f"launcher: a worker exited with code {bad[0]}; "
+                      "stopping the others", file=sys.stderr, flush=True)
+                return bad[0] if bad[0] > 0 else 1
+            if all(c == 0 for c in codes):
+                return 0
+            time.sleep(0.1)
+    finally:
+        _stop(procs)
+
+
 def spawn(args: argparse.Namespace, argv: list[str]) -> int:
-    """Start one worker per card (or ``-D`` CPU workers) and wait; the
-    first worker to fail stops the others and its exit code (1 for a
-    signal) is returned."""
+    """Start one worker per card (or ``-D`` CPU workers) and wait; a
+    group whose worker failed is started again with ``--resume`` up to
+    ``--max-restarts`` times (single host), else the failed worker's
+    exit code is returned."""
     import torch
 
     if args.platform == "cuda":
@@ -254,30 +358,39 @@ def spawn(args: argparse.Namespace, argv: list[str]) -> int:
         n = args.devices or 1
     model_config(args)  # fail here, before any worker starts
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, WORLD_SIZE=str(n), MASTER_ADDR="localhost",
-               MASTER_PORT=str(_free_port()),
-               PYTHONPATH=os.pathsep.join(
-                   [root] + [p for p in os.environ.get(
-                       "PYTHONPATH", "").split(os.pathsep) if p]))
-    procs: list[subprocess.Popen] = []
-    try:
-        for r in range(n):
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "theanompi_tpu_torch.launcher",
-                 "--worker", *argv],
-                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))))
-        while True:
-            codes = [p.poll() for p in procs]
-            bad = [c for c in codes if c not in (None, 0)]
-            if bad:
-                print(f"launcher: a worker exited with code {bad[0]}; "
-                      "stopping the others", file=sys.stderr, flush=True)
-                return bad[0] if bad[0] > 0 else 1
-            if all(c == 0 for c in codes):
-                return 0
-            time.sleep(0.1)
-    finally:
-        _stop(procs)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    if args.monitor_dir:
+        env["THEANOMPI_TPU_MONITOR"] = args.monitor_dir
+    if args.fault_plan:
+        env["THEANOMPI_TPU_FAULTS"] = args.fault_plan
+    if args.multihost:
+        addr, _, port = args.coordinator.rpartition(":")
+        env.update(WORLD_SIZE=str(n * args.nhosts), MASTER_ADDR=addr,
+                   MASTER_PORT=port)
+        rank0 = args.host_id * n
+        restarts = 0  # one host cannot rejoin its peers' collectives
+        if args.max_restarts:
+            print("[resilience] --max-restarts is ignored under "
+                  "--multihost: restart every host with --resume",
+                  file=sys.stderr, flush=True)
+    else:
+        env.update(WORLD_SIZE=str(n), MASTER_ADDR="localhost")
+        rank0, restarts = 0, args.max_restarts
+    life = 0
+    while True:
+        if not args.multihost:
+            env["MASTER_PORT"] = str(_free_port())
+        rc = _run_group(argv, env, n, rank0, life)
+        if rc == 0 or life >= restarts:
+            return rc
+        life += 1
+        print(f"[resilience] {args.rule} session died (worker exit code "
+              f"{rc}); auto-resume {life}/{restarts} from the latest "
+              "verified checkpoint", file=sys.stderr, flush=True)
+        if "--resume" not in argv:
+            argv = [*argv, "--resume"]
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -10,8 +10,12 @@ round-trips between the two.
 until training starts), its dataset, its device and compute dtype, and
 the reference contract the rules drive: ``compile_iter_fns``,
 ``begin_epoch``, ``train_iter``, ``val_iter``/``val_epoch``,
-``adjust_hyperp`` and ``cleanup``.  One process trains on one card;
-the rank and worker count come from ``torch.distributed``.
+``adjust_hyperp`` and ``cleanup``, and the checkpoint hooks
+``checkpoint_payload`` / ``adopt_restored_state``.  ``begin_epoch``'s
+random stream and the data streams are pure functions of (seed, epoch,
+rank), so a run resumed at an epoch boundary replays the unbroken one.
+One process trains on one card; the rank and worker count come from
+``torch.distributed``.
 """
 
 from __future__ import annotations
@@ -188,6 +192,39 @@ class TorchModel:
                 self.module.parameters(), self._base_lr,
                 **self._optimizer_kwargs()))
         return self.state
+
+    # -- checkpoint payload --------------------------------------------------
+
+    def checkpoint_payload(self, epoch: int | None = None) -> dict:
+        """The training state as the canonical checkpoint payload (the
+        JAX package's names): ``params`` and ``model_state`` (the
+        module's parameters and its other state-dict entries, the BN
+        running statistics, by name), ``opt_state`` (the optimizer's
+        state dict), ``step`` and, when given, ``epoch``.  The tensors
+        are the live ones: ``Checkpointer.save`` copies them."""
+        state = self._ensure_state()
+        tensors = state.module.state_dict()
+        names = {n for n, _ in state.module.named_parameters()}
+        payload = {
+            "params": {k: v for k, v in tensors.items() if k in names},
+            "model_state": {k: v for k, v in tensors.items()
+                            if k not in names},
+            "opt_state": state.optimizer.state_dict(),
+            "step": state.step}
+        if epoch is not None:
+            payload["epoch"] = int(epoch)
+        return payload
+
+    def adopt_restored_state(self, payload: dict) -> TrainState:
+        """Load a checkpoint payload (:meth:`checkpoint_payload`'s form,
+        tensors anywhere) into the module and the optimizer on this
+        rank's device, in place: the optimizer keeps its parameters."""
+        state = self._ensure_state()
+        state.module.load_state_dict({**payload["params"],
+                                      **payload["model_state"]})
+        state.optimizer.load_state_dict(payload["opt_state"])
+        state.step = int(payload["step"])
+        return state
 
     def loss_fn(self, module: nn.Module, batch, rng):
         """Softmax CE (with the config's label smoothing) + top-1 error;

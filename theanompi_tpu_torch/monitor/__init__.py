@@ -42,6 +42,12 @@ def registry() -> MetricsRegistry:
     return _state.registry
 
 
+def monitor_dir() -> str | None:
+    """The active session's run directory, or None when monitoring is
+    off (where ``resilience.recovery.record_crash`` drops its marker)."""
+    return _state.run_dir
+
+
 @contextlib.contextmanager
 def session(run_dir: str | None = None,
             name: str = "rank0") -> Iterator[bool]:

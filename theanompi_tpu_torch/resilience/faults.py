@@ -2,10 +2,18 @@
 faults.py``).
 
 A fault plan is a JSON list of specs, each naming a ``site``, coordinate
-matchers and an ``action``; this package wires the ``serve_step`` site
-(one replica batch execution; coords ``replica``, ``step``):
+matchers and an ``action``; this package wires two sites:
+
+* ``serve_step``: one replica batch execution (coords ``replica``,
+  ``step``);
+* ``checkpoint``: one epoch's manifest, just written on the
+  checkpointer's background worker (coord ``epoch``); the ``truncate``
+  action then halves the step directory's largest file, so the epoch
+  fails verification at the next resume (utils/checkpoint.py).  A
+  ``raise`` there is logged by the worker, never fatal.
 
     [{"site": "serve_step", "replica": 0, "step": 3, "action": "raise"}]
+    [{"site": "checkpoint", "epoch": 1, "action": "truncate"}]
 
 ``action``: ``raise`` (default) raises :class:`FaultInjected`; ``delay``
 sleeps ``delay_s`` (default 0.1) and proceeds; any other string is

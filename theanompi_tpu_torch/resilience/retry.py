@@ -1,0 +1,90 @@
+"""Retry/backoff policy: exponential delays with jitter, an attempt cap,
+a deadline and a classifier (copy of ``theanompi_tpu/resilience/
+retry.py``).
+
+``Checkpointer.restore`` (utils/checkpoint.py) retries transient read
+I/O on the resume path through :meth:`RetryPolicy.call`; the write fence
+is never retried, since a retried fence could report a failed write as
+success.  Each retry counts ``retry/attempts_total{site=...}``, a no-op
+unless monitoring is on.
+"""
+
+from __future__ import annotations
+
+import random
+import time
+from typing import Any, Callable, Iterable
+
+from theanompi_tpu_torch import monitor
+
+#: transport-shaped failures that reconnect/backoff can actually fix.
+#: OSError covers the socket family (ConnectionError subclasses it);
+#: EOFError is multiprocessing.connection's peer-went-away signal.
+CONNECTION_ERRORS: tuple[type[BaseException], ...] = (OSError, EOFError)
+
+
+class RetryPolicy:
+    """Exponential backoff with jitter, an attempt cap, an optional
+    wall-clock deadline, and a retryable-exception classifier.
+
+    ``delay(attempt)`` for attempt=0,1,2,... is
+    ``min(max_delay, base_delay * multiplier**attempt)`` scaled into
+    ``[d*(1-jitter), d]`` uniformly — full determinism at ``jitter=0``.
+    """
+
+    def __init__(self, max_attempts: int = 5, base_delay: float = 0.05,
+                 max_delay: float = 2.0, multiplier: float = 2.0,
+                 jitter: float = 0.5, deadline_s: float | None = None,
+                 retryable: Iterable[type[BaseException]] = CONNECTION_ERRORS,
+                 classify: Callable[[BaseException], bool] | None = None,
+                 name: str = "retry"):
+        if max_attempts < 1:
+            raise ValueError(f"max_attempts must be >= 1, got {max_attempts}")
+        if not 0.0 <= jitter <= 1.0:
+            raise ValueError(f"jitter must be in [0, 1], got {jitter}")
+        self.max_attempts = max_attempts
+        self.base_delay = base_delay
+        self.max_delay = max_delay
+        self.multiplier = multiplier
+        self.jitter = jitter
+        self.deadline_s = deadline_s
+        self.retryable = tuple(retryable)
+        self.classify = classify
+        self.name = name
+
+    def is_retryable(self, exc: BaseException) -> bool:
+        if self.classify is not None:
+            return bool(self.classify(exc))
+        return isinstance(exc, self.retryable)
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.max_delay,
+                self.base_delay * self.multiplier ** max(0, attempt))
+        if self.jitter:
+            d *= 1.0 - self.jitter * random.random()
+        return d
+
+    def call(self, fn: Callable[..., Any], *args,
+             site: str | None = None,
+             on_retry: Callable[[int, BaseException], None] | None = None,
+             **kwargs) -> Any:
+        """Run ``fn`` with retries; re-raises the last error when the
+        attempt cap, the deadline, or the classifier says stop."""
+        t0 = time.monotonic()
+        for attempt in range(self.max_attempts):
+            try:
+                return fn(*args, **kwargs)
+            except BaseException as e:
+                if (attempt + 1 >= self.max_attempts
+                        or not self.is_retryable(e)):
+                    raise
+                d = self.delay(attempt)
+                if (self.deadline_s is not None
+                        and time.monotonic() - t0 + d > self.deadline_s):
+                    raise
+                monitor.inc("retry/attempts_total",
+                            site=site or self.name)
+                if on_retry is not None:
+                    on_retry(attempt + 1, e)
+                time.sleep(d)
+        raise AssertionError("unreachable")  # pragma: no cover

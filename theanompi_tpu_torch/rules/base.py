@@ -11,7 +11,9 @@ card with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT`` in the environment; when ``WORLD_SIZE > 1``,
 :meth:`Rule.init` joins the default process group (NCCL on ``cuda``,
 gloo on ``cpu``) before the model is built.  The session runs on a
-background thread; ``wait()`` joins it and re-raises its failure.
+background thread; ``wait()`` joins it and re-raises its failure.  A
+session that dies leaves a crash marker in the monitor run dir when
+monitoring is on (``resilience.recovery.record_crash``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch.distributed as dist
 from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch._device import resolve_device
 from theanompi_tpu_torch.models.base import ModelConfig, TorchModel
+from theanompi_tpu_torch.resilience import recovery
 
 
 def resolve_model_class(modelfile: str, modelclass: str) -> type:
@@ -99,10 +102,17 @@ class Rule:
             try:
                 rank = dist.get_rank() if dist.is_initialized() else 0
                 with monitor.session(name=f"rank{rank}"):
-                    if device.type == "cuda":
-                        torch.cuda.set_device(device)
-                    self._session(device, modelfile, modelclass, config,
-                                  resume, sync_type, **kwargs)
+                    try:
+                        if device.type == "cuda":
+                            torch.cuda.set_device(device)
+                        self._session(device, modelfile, modelclass,
+                                      config, resume, sync_type, **kwargs)
+                    except BaseException as e:
+                        # postmortem: a crash marker with the resume hint,
+                        # written while the monitor session is live
+                        # (record_crash never raises)
+                        recovery.record_crash(self.name, e, model=self.model)
+                        raise
             except BaseException as e:  # propagated by wait()
                 traceback.print_exc()
                 self._error = e

@@ -5,7 +5,7 @@ returns before the card finishes (CUDA work is asynchronous), so a wall
 timer around it measures the enqueue; ``end(section, block_on=...)``
 first fences on the card that holds ``block_on`` (a tensor or a
 structure of tensors), so 'calc' means device time.  Output is JSONL,
-one record per epoch.
+one record per epoch; :meth:`Recorder.load` reads it back on resume.
 """
 
 from __future__ import annotations
@@ -56,6 +56,9 @@ class Recorder:
         self.flops_per_sample = flops_per_sample
         self._t0: float | None = None
         self.epoch_time: dict[str, float] = defaultdict(float)
+        #: section seconds over the whole run (a resume rebuilds them
+        #: from the loaded records)
+        self.all_time: dict[str, float] = defaultdict(float)
         self.train_losses: list[float] = []
         self.train_errors: list[float] = []
         self.epoch_records: list[dict] = []
@@ -82,6 +85,7 @@ class Recorder:
         dt = time.monotonic() - self._t0
         self._t0 = None
         self.epoch_time[section] += dt
+        self.all_time[section] += dt
         # thin client of the telemetry registry: every closed section
         # also lands in the section-time histogram (count+sum there are
         # the per-section span totals; no-op when monitoring is off)
@@ -165,3 +169,23 @@ class Recorder:
             for rec in self.epoch_records:
                 f.write(json.dumps(rec) + "\n")
         return path
+
+    def load(self, save_dir: str, before_epoch: int | None = None) -> None:
+        """Read back the records :meth:`save` wrote (a resumed run goes on
+        appending to them) and rebuild ``all_time`` from them.
+        ``before_epoch`` drops the records of that epoch and later: a
+        resume that fell back past them runs those epochs again."""
+        path = os.path.join(save_dir, f"record_rank{self.rank}.jsonl")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        if before_epoch is not None:
+            records = [r for r in records if r["epoch"] < before_epoch]
+        self.epoch_records = records
+        if records:
+            self.epoch = records[-1]["epoch"] + 1
+            self.all_time = defaultdict(float)
+            for rec in records:
+                for section, dt in rec.get("time", {}).items():
+                    self.all_time[section] += float(dt)
