@@ -145,10 +145,42 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    the training thread's pause per save, the background write and
    manifest digest seconds, the restore seconds and the checkpoint's MB.
 
+17. The rest of the BSP step on the card: full-width ResNet-50 at batch
+   128, bf16 on f32 master weights, seeded weights, on a one-rank NCCL
+   group, the model's steps driven on staged synthetic batches.
+   (a) Exchange modes, one model each from the same weights: after
+   1 + ``P17_ROUNDS`` steps f32 at 4 buckets (overlapped with the
+   backward) ends bit-identical to f32 at 1 bucket, and so does
+   ``exchange_what='params'`` (one rank); the bf16 wire's exchanged
+   gradients equal bf16->f32 of the captured gradients on step 1, bit for
+   bit; with error feedback at 1 and at 4 buckets the residual after step
+   1 is ``g - bf16(g)`` exactly and the two end bit-identical.  Where two
+   f32 one-bucket models differ, their difference is the limit, and the
+   phase says so.  (b) adam, rmsprop and lars (momentum 0.9, weight
+   decay 5e-5): after each of ``P17_OPT_STEPS`` steps the card's
+   parameters are within ``P17_OPT_REL`` of each parameter's largest
+   value of the same optimizer class run on the CPU from the card's own
+   gradients; losses finite.  (c) ``steps_per_call = 4`` over 8 batches
+   ends bit-identical to 8 single calls; ``grad_accum_steps = 2`` at
+   microbatch 64 takes 4 updates with finite losses and launches, per
+   update, exactly twice phase 6b's per-step counts of K1a-K1d, K2b and
+   K2c.  (e) Times: every model of (a)-(c) takes its next dispatch in
+   turn, ``P17_ROUNDS`` rounds, each between synchronises; medians per
+   step of the host enqueue, the host wall and the CUDA event span; the
+   f32 4-bucket run's host enqueue less the 1-bucket run's is what the
+   161 gradient hooks cost the host (one rank: no overlap to show).
+   (d) The launcher with
+   lars, ``grad_accum_steps=2``, the bf16 wire, error feedback and 4
+   buckets on phase 16's shard files (2 epochs of 4 updates): stopped
+   after epoch 0 and resumed, it ends with the unbroken run's state
+   digests, residual included.
+
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
-their own); 16 runs after it.  Phase 9 checkpoints each epoch, as the
-launcher does; 6b and 14 call ``run_bsp_session`` without checkpoints.
+their own); 16 runs after it, then 17 on a one-rank group of its own
+(its launcher runs after that group ends).  Phase 9 checkpoints each
+epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
+checkpoints.
 
 Full results (per-shape kernel times, the traces) go to
 ``build/chip_smoke.json``.
@@ -283,6 +315,17 @@ RESNET_VAL_LAUNCHES = {**{k: 0 for k in TRAIN_LAUNCHES},
 #: wrong epoch, with stale momentum or the wrong LR, moves the state by
 #: a whole epoch's training, far more
 CKPT_MARGIN = 10.0
+#: phase 17: staged batches, checked steps per optimizer and their limit
+#: (relative to each parameter's largest value), timed rounds (each run's
+#: next dispatch in turn), and each optimizer's learning rate (momentum
+#: 0.9, weight decay 5e-5)
+P17_BATCHES, P17_OPT_STEPS, P17_OPT_REL, P17_ROUNDS = 8, 3, 1e-6, 9
+P17_OPTIMIZERS = {"adam": 1e-3, "rmsprop": 1e-4, "lars": 0.1}
+#: phase 17 (d): the launcher's --set of the rest of the BSP step
+P17_SETS = ("optimizer=lars", "momentum=0.9", "weight_decay=5e-5",
+            "learning_rate=0.1", "grad_accum_steps=2",
+            "exchange_dtype=bf16", "exchange_error_feedback=true",
+            "exchange_buckets=4", "n_epochs=2")
 #: kernel names in a torch.profiler trace -> the kernel table's ids:
 #: demangled (``<__nv_bfloat16, true, true>``) or mangled (``Lb1E``),
 #: the first bool template argument being RES
@@ -2111,7 +2154,7 @@ def ckpt_run(name: str, snap: str, workdir: str, data_dir: str,
     for line in resilience:
         log(f"    | {line}")
     if proc.returncode != 0:
-        raise AssertionError(f"phase 16 run {name} exited "
+        raise AssertionError(f"launcher run {name} exited "
                              f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
                              f"{proc.stderr[-3000:]}")
     with open(out) as f:
@@ -2284,6 +2327,343 @@ def checkpoint_phase(torch, workdir: str) -> dict:
     return out
 
 
+# -- phase 17: the rest of the BSP step on the card ------------------------
+
+def p17_batches(torch, n: int):
+    """``n`` synthetic batch-128 uint8 batches staged on the card, and
+    their dataset (on-device augment)."""
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+
+    data = ImageNet_data(seed=0, synthetic_n=n * TRAIN_BATCH,
+                         synthetic_pool=64, synthetic_store=256,
+                         augment_on_device=True)
+    it = data.train_batches(0, TRAIN_BATCH)
+    return data, [tuple(torch.from_numpy(a).cuda() for a in next(it))
+                  for _ in range(n)]
+
+
+class P17Run:
+    """One phase-17 model (full-width ResNet-50, the seeded weights every
+    model of the phase starts from, bf16, batch 128 unless set) with its
+    steps built, its epoch-0 generator, and ``call(run, i)``: its i-th
+    dispatch (a step, a ``steps_per_call`` call or an accumulated
+    update) on the staged batches."""
+
+    def __init__(self, data, call, **cfg):
+        from theanompi_tpu_torch.models.resnet50 import ResNet50
+
+        config = dataclasses.replace(
+            ResNet50.default_config(), **{"batch_size": TRAIN_BATCH,
+                                          "n_epochs": 1, "print_freq": 0,
+                                          **cfg})
+        self.model = ResNet50(config=config, device="cuda", data=data)
+        self.model.compile_iter_fns()
+        self.gen = self.model._epoch_rng(0)
+        self.call = call
+        self.done = 0
+        self.losses: list = []
+
+    def step(self):
+        metrics = self.call(self, self.done)
+        self.done += 1
+        self.losses.append(metrics["loss"])
+        return metrics
+
+    def state(self, torch):
+        """Parameters and floating buffers, flattened (f32)."""
+        return torch.cat([t.detach().float().reshape(-1)
+                          for t in self.model.module.state_dict().values()
+                          if t.is_floating_point()])
+
+    def finite(self, torch) -> list[float]:
+        losses = [float(x) for x in torch.cat(
+            [torch.as_tensor(v).reshape(-1) for v in self.losses]).cpu()]
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"non-finite loss: {losses}")
+        return losses
+
+
+def single_step(batches):
+    return lambda run, i: run.model.train_step(
+        run.model.state, batches[i % len(batches)], run.gen)
+
+
+def capture_grads(model) -> tuple[list, list]:
+    """Hooks that clone each parameter's gradient as the backward leaves
+    it (before any exchange); returns the list they fill, in parameter
+    order, and their handles (remove them after the step)."""
+    params = list(model.module.parameters())
+    got = [None] * len(params)
+
+    def hook_for(i):
+        def hook(p):
+            got[i] = p.grad.detach().clone()
+        return hook
+
+    return got, [p.register_post_accumulate_grad_hook(hook_for(i))
+                 for i, p in enumerate(params)]
+
+
+def p17_exchange(torch, data, batches) -> tuple[dict, dict]:
+    """Phase 17 (a), its first step: one model per exchange mode, step 1
+    with the bf16 wire's and the residual's exact checks.  Returns the
+    runs (timed and compared later) and the checks."""
+    runs, checks = {}, {}
+    # two f32 one-bucket models: their difference is the reproducibility
+    # limit of the comparisons, their times the spread of a mode
+    for name, cfg in (("f32-b1", {}), ("f32-b4", dict(exchange_buckets=4)),
+                      ("params", dict(exchange_what="params")),
+                      ("bf16-b1", dict(exchange_dtype="bf16")),
+                      ("ef-b1", dict(exchange_dtype="bf16",
+                                     exchange_error_feedback=True)),
+                      ("ef-b4", dict(exchange_dtype="bf16",
+                                     exchange_error_feedback=True,
+                                     exchange_buckets=4)),
+                      ("f32-b1-again", {})):
+        run = runs[name] = P17Run(data, single_step(batches), **cfg)
+        raw, hooks = capture_grads(run.model)
+        run.step()
+        torch.cuda.synchronize()
+        for h in hooks:      # step 1 only: the timed steps run bare
+            h.remove()
+        params = list(run.model.module.parameters())
+        if name == "bf16-b1":
+            # the optimizer leaves .grad as the exchange wrote it
+            checks[name] = all(torch.equal(p.grad, g.to(torch.bfloat16)
+                                           .float())
+                               for p, g in zip(params, raw))
+        elif name.startswith("ef"):
+            checks[name] = all(torch.equal(r, g - g.to(torch.bfloat16)
+                                           .float())
+                               for r, g in zip(
+                                   run.model.state.exchange_residual, raw))
+        del raw
+    log(f"  step-1 exact checks {checks}")
+    if checks != {"bf16-b1": True, "ef-b1": True, "ef-b4": True}:
+        raise AssertionError(f"bf16 wire / residual checks failed: {checks}")
+    return runs, checks
+
+
+def p17_exchange_compare(torch, runs) -> dict:
+    """Phase 17 (a), after the timed rounds: the modes' final states
+    against one bucket."""
+    final = {n: r.state(torch) for n, r in runs.items()}
+    for n in ("ef-b1", "ef-b4"):
+        final[n + "/residual"] = torch.cat(
+            [x.reshape(-1) for x in runs[n].model.state.exchange_residual])
+    ref = final["f32-b1"]
+    repro = float((final["f32-b1-again"] - ref).abs().max())
+    rule = ("bit for bit (two f32 one-bucket runs agree)" if repro == 0
+            else f"within {repro:.3g} (the largest difference of two f32 "
+                 "one-bucket runs)")
+    diffs = {n: float((final[n] - ref).abs().max())
+             for n in ("f32-b4", "params")}
+    diffs["ef-b4"] = float((final["ef-b4"] - final["ef-b1"]).abs().max())
+    diffs["ef-b4/residual"] = float(
+        (final["ef-b4/residual"] - final["ef-b1/residual"]).abs().max())
+    log(f"  (a) after {runs['f32-b1'].done} steps each, against one "
+        f"bucket, {rule}: largest differences {diffs}")
+    if any(v > repro for v in diffs.values()):
+        raise AssertionError(f"exchange modes differ: {diffs}, {rule}")
+    return {"repro_max_abs": repro, "diffs": diffs}
+
+
+def p17_optimizers(torch, data, batches) -> tuple[dict, dict]:
+    """Phase 17 (b): each optimizer's first ``P17_OPT_STEPS`` steps on the
+    card against its class on the CPU, from the card's own gradients.
+    Returns the runs (timed later) and the largest differences."""
+    from theanompi_tpu_torch.utils.helper_funcs import build_optimizer
+
+    runs, worst = {}, {}
+    for name, lr in P17_OPTIMIZERS.items():
+        run = runs[name] = P17Run(data, single_step(batches), optimizer=name,
+                                  learning_rate=lr, momentum=0.9,
+                                  weight_decay=5e-5)
+        params = list(run.model.module.parameters())
+        shadow = [p.detach().cpu().clone() for p in params]
+        cpu_opt = build_optimizer(shadow, lr, **run.model._optimizer_kwargs())
+        if type(cpu_opt) is not type(run.model.state.optimizer):
+            raise AssertionError(f"{name}: CPU optimizer class differs")
+        worst[name] = 0.0
+        for _ in range(P17_OPT_STEPS):
+            run.step()
+            for s_, p in zip(shadow, params):
+                s_.grad = p.grad.detach().cpu()
+            cpu_opt.step()
+            for s_, p in zip(shadow, params):
+                rel = float((p.detach().cpu() - s_).abs().max()
+                            / s_.abs().max().clamp_min(1e-30))
+                worst[name] = max(worst[name], rel)
+        log(f"  ({name}) card vs {type(cpu_opt).__name__} on the CPU over "
+            f"{P17_OPT_STEPS} steps: largest difference {worst[name]:.3g} "
+            f"of a parameter's largest value (limit {P17_OPT_REL}); losses "
+            f"{run.finite(torch)}")
+        if worst[name] > P17_OPT_REL:
+            raise AssertionError(f"{name}: card vs CPU {worst[name]}")
+        del shadow, cpu_opt
+    return runs, worst
+
+
+def p17_cadences(torch, data, batches) -> tuple[dict, dict]:
+    """Phase 17 (c): steps_per_call against single calls, and
+    accumulation's launches.  Returns the ``steps_per_call`` and
+    accumulation runs (timed later) and the results."""
+    from theanompi_tpu_torch.ops import _kernels
+
+    final = {}
+    for name, cfg, call, n in (
+            ("single", {}, single_step(batches), P17_BATCHES),
+            ("single-again", {}, single_step(batches), P17_BATCHES),
+            ("steps_per_call=4", dict(steps_per_call=4),
+             lambda run, i: run.model.train_step_multi(
+                 run.model.state, [batches[(4 * i + j) % len(batches)]
+                                   for j in range(4)], run.gen),
+             P17_BATCHES // 4)):
+        run = P17Run(data, call, **cfg)
+        for _ in range(n):
+            run.step()
+        final[name] = run.state(torch)
+        run.finite(torch)
+        if name != "steps_per_call=4":
+            del run
+            torch.cuda.empty_cache()
+    multi = run
+    repro = float((final["single-again"] - final["single"]).abs().max())
+    diff = float((final["steps_per_call=4"] - final["single"]).abs().max())
+    log(f"  steps_per_call=4 against 8 single calls: largest difference "
+        f"{diff} (two single runs: {repro})")
+    if diff > repro:
+        raise AssertionError(f"steps_per_call differs: {diff} > {repro}")
+    half = TRAIN_BATCH // 2
+    micro = [(x[i:i + half], y[i:i + half]) for x, y in batches
+             for i in (0, half)]
+    accum = P17Run(data, lambda run, i: run.model.train_step_accum(
+        run.model.state, [micro[(2 * i + j) % len(micro)] for j in (0, 1)],
+        run.gen), batch_size=half, grad_accum_steps=2)
+    updates = 4
+    _kernels.reset_launch_counts()
+    for _ in range(updates):
+        accum.step()
+    torch.cuda.synchronize()
+    counts = _kernels.launch_counts()
+    want = {k: 2 * v * updates for k, v in TRAIN_LAUNCHES.items()}
+    log(f"  grad_accum_steps=2 at 64: {updates} updates, "
+        f"{accum.model.state.step} optimizer steps, losses "
+        f"{accum.finite(torch)}; launches {counts}")
+    if ({k: counts.get(k, 0) for k in want} != want
+            or accum.model.state.step != updates):
+        raise AssertionError(f"accumulation launches {counts} != {want}")
+    return ({"steps_per_call=4": multi, "grad_accum_steps=2": accum},
+            {"steps_per_call_diff": diff, "repro_max_abs": repro,
+             "accum_launches": counts})
+
+
+def p17_rounds(torch, runs: dict, rounds: int) -> dict:
+    """Each run's next dispatch in turn, ``rounds`` times (so drift of the
+    host hits every run alike), each one alone between synchronises:
+    host enqueue (until the call returns; it also waits whenever the
+    card's launch queue is full), host wall and the CUDA event span.
+    Returns per run the medians in ms, per step (a ``steps_per_call``
+    call counts 4, an accumulated update 1)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    samples = {n: [] for n in runs}
+    for _ in range(rounds):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            start.record()
+            run.step()
+            t1 = time.monotonic()
+            end.record()
+            end.synchronize()
+            samples[name].append(((t1 - t0) * 1e3,
+                                  (time.monotonic() - t0) * 1e3,
+                                  start.elapsed_time(end)))
+    out = {}
+    for name, rows in samples.items():
+        per = 4 if name == "steps_per_call=4" else 1
+        cols = [sorted(c) for c in zip(*rows)]
+        med = [c[len(c) // 2] / per for c in cols]
+        out[name] = {"enqueue_ms": med[0], "wall_ms": med[1],
+                     "event_ms": med[2],
+                     "wall_ms_range": [cols[1][0] / per, cols[1][-1] / per]}
+        runs[name].finite(torch)
+        unit = "update" if name == "grad_accum_steps=2" else "step"
+        log(f"  ({name}) ms per {unit}, median of {rounds}: host enqueue "
+            f"{med[0]:.2f}, host wall {med[1]:.2f} "
+            f"({cols[1][0] / per:.2f}-{cols[1][-1] / per:.2f}), CUDA event "
+            f"span {med[2]:.2f}")
+    return out
+
+
+def p17_launcher(torch, workdir: str, data_dir: str) -> dict:
+    """Phase 17 (d): the launcher with the rest of the BSP step, stopped
+    after epoch 0 and resumed, against the unbroken run."""
+    sets = [a for kv in P17_SETS for a in ("--set", kv)]
+    unbroken = ckpt_run("p17-unbroken", "p17u", workdir, data_dir, *sets)
+    ckpt_run("p17-first", "p17r", workdir, data_dir, *sets, "--epochs", "1")
+    resumed = ckpt_run("p17-resumed", "p17r", workdir, data_dir, *sets,
+                       "--resume", "--epochs", "1")
+    for res in (unbroken, resumed):
+        for rec in res["records"]:
+            got = rec["launches"]["train"]
+            want = {k: v * CKPT_STEPS for k, v in TRAIN_LAUNCHES.items()}
+            if ({k: got.get(k, 0) for k in want} != want
+                    or rec["train_steps"] != CKPT_STEPS
+                    or not math.isfinite(rec["train_loss"])):
+                raise AssertionError(f"(d) epoch record {rec}")
+    restore = resumed["checkpoint"]["restore"]
+    if (restore is None or restore["epoch"] != 0
+            or restore["digest_restored"] != restore["digest_at_save"]):
+        raise AssertionError(f"(d) restore {restore}")
+    if [r["epoch"] for r in resumed["records"]] != [0, 1]:
+        raise AssertionError(f"(d) records {resumed['records']}")
+    same = resumed["state_digests"] == unbroken["state_digests"]
+    log(f"  resumed run's state digest {'equals' if same else 'DIFFERS from'}"
+        f" the unbroken run's ({unbroken['state_digests'][0][:16]}...)")
+    if not same:
+        raise AssertionError(f"(d) {resumed['state_digests']} != "
+                             f"{unbroken['state_digests']}")
+    return {"unbroken": unbroken, "resumed": resumed}
+
+
+def rest_of_bsp_phase(torch, workdir: str, data_dir: str) -> dict:
+    """Phase 17 (module docstring)."""
+    import torch.distributed as dist
+
+    data, batches = p17_batches(torch, P17_BATCHES)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        log("  (a) exchange modes")
+        exchange, checks = p17_exchange(torch, data, batches)
+        log("  (b) optimizers")
+        optimizers, opt_err = p17_optimizers(torch, data, batches)
+        log("  (c) cadences")
+        cadences, cadence = p17_cadences(torch, data, batches)
+        log(f"  (e) {card_line()}: every run in turn (one rank: the "
+            "4-bucket runs show what 161 gradient hooks cost the host, "
+            "not overlap)")
+        times = p17_rounds(torch, {**exchange, **optimizers, **cadences},
+                           P17_ROUNDS)
+        hooks = (times["f32-b4"]["enqueue_ms"]
+                 - times["f32-b1"]["enqueue_ms"])
+        log(f"  the hooks' host cost: f32 host enqueue ms per step, 4 "
+            f"buckets minus one bucket, {hooks:.3f}")
+        compared = p17_exchange_compare(torch, exchange)
+    finally:
+        dist.destroy_process_group()
+    del exchange, optimizers, cadences, batches
+    torch.cuda.empty_cache()
+    log("  (d) the launcher: lars, accumulation, bf16 wire, error "
+        "feedback, 4 buckets; stop and resume")
+    launched = p17_launcher(torch, workdir, data_dir)
+    return {"exchange": {**compared, "step1_checks": checks},
+            "optimizer_max_rel_err": opt_err, "cadences": cadence,
+            "times": times, "hook_enqueue_ms": hooks, "launcher": launched}
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -2441,6 +2821,9 @@ def main() -> int:
     log("phase 16: checkpoint and resume on the card (the launcher)")
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = checkpoint_phase(torch, tmp)
+        torch.cuda.empty_cache()
+        log("phase 17: the rest of the BSP step on the card")
+        rest = rest_of_bsp_phase(torch, tmp, os.path.join(tmp, "data"))
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -2496,6 +2879,7 @@ def main() -> int:
                    "alexnet_step_trace": alex_trace, "k4": k4,
                    "lm_grad_check": lm_checked, "lm_session": lm_run,
                    "lm_step_trace": lm_trace, "checkpoint": ckpt,
+                   "rest_of_bsp": rest,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "

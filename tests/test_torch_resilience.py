@@ -64,6 +64,20 @@ class TinyResNet(ResNet50):
             lr_decay_epochs=(2,), compute_dtype="float32", print_freq=0)
 
 
+class TinyResNetEF(TinyResNet):
+    """TinyResNet on 128 synthetic images (4 steps of 2 x 16 an epoch at
+    two ranks), for the error-feedback resume."""
+
+    def __init__(self, config=None, device="cuda"):
+        torch.set_num_threads(1)
+        data = ImageNet_data(crop=32, seed=0, synthetic_n=128,
+                             synthetic_pool=8, synthetic_store=36,
+                             n_classes=10)
+        data.n_val = 32
+        ResNet50.__init__(self, config, device, stage_sizes=(1, 1, 1, 1),
+                          width=8, n_classes=10, crop=32, data=data)
+
+
 class CrashOnceResNet(TinyResNet):
     """Raises at step 1 of epoch 1 in the first life of a launcher group
     (``THEANOMPI_TPU_RESTART`` unset or 0), never after."""
@@ -451,6 +465,68 @@ def test_crashed_run_auto_resumes(tmp_path, unbroken,
     assert res["epochs_run"] == 2
     assert [r["epoch"] for r in res["records"]] == [0, 1, 2]
     assert res["state_digests"] == unbroken["state_digests"]
+
+
+#: the rest of the BSP step through ``--set``: the bf16 wire with error
+#: feedback over 4 overlapped buckets, LARS, accumulation of 2
+EF_SETS = ["--set", "exchange_dtype=bf16", "--set",
+           "exchange_error_feedback=true", "--set", "exchange_buckets=4",
+           "--set", "optimizer=lars", "--set", "grad_accum_steps=2",
+           "--set", "n_epochs=2"]
+
+
+def test_error_feedback_run_resumes_to_the_unbroken_state(
+        tmp_path, workers_import_this_file, capfd):
+    """Two gloo ranks, error feedback on: a run stopped after epoch 0
+    and resumed ends with the unbroken run's state digests, residual
+    included; the checkpoint holds every rank's residual in JAX's
+    ``(n_ranks, *shape)`` layout."""
+    def ef_run(name, *extra):
+        out = tmp_path / f"{name}.json"
+        rc = launch(["BSP", "-D", "2", "--platform", "cpu", "-m",
+                     "test_torch_resilience", "-c", "TinyResNetEF",
+                     "--snapshot-dir", str(tmp_path / name.split("-")[0]),
+                     "--result-json", str(out), *EF_SETS, *extra],
+                    timeout=240)
+        assert rc == 0, capfd.readouterr().err[-3000:]
+        return json.loads(out.read_text())
+
+    unbroken = ef_run("unbroken")
+    assert unbroken["epochs_run"] == 2
+    assert len(set(unbroken["state_digests"])) == 1    # ranks agree
+    first = ef_run("resumed-first", "--epochs", "1")
+    assert first["state_digests"] != unbroken["state_digests"]
+    res = ef_run("resumed", "--resume", "--epochs", "1")
+    assert res["checkpoint"]["restore"]["epoch"] == 0
+    assert res["state_digests"] == unbroken["state_digests"]
+    for rec in unbroken["records"]:
+        assert rec["train_steps"] == 4 and math.isfinite(rec["train_loss"])
+    ck = Checkpointer(str(tmp_path / "resumed" / "resnet50"),
+                      read_only=True)
+    payload = ck.restore(0)
+    ck.close()
+    model = TinyResNetEF(device="cpu")
+    residual = payload["exchange_residual"]
+    names = [n for n, _ in model.module.named_parameters()]
+    assert list(residual) == names
+    for n, p in model.module.named_parameters():
+        assert residual[n].shape == (2,) + tuple(p.shape)
+        assert residual[n].dtype == torch.float32
+    assert any(not torch.equal(r[0], r[1]) for r in residual.values())
+
+
+def test_payload_without_error_feedback_is_unchanged(tmp_path):
+    """A run without error feedback writes the payload keys it wrote
+    before the residual existed."""
+    res = BSP().init(device="cpu", modelfile="test_torch_resilience",
+                     modelclass="TinyResNet",
+                     config=_config(tmp_path, n_epochs=1)).wait()
+    assert res["epochs_run"] == 1
+    ck = Checkpointer(str(tmp_path / "resnet50"), read_only=True)
+    payload = ck.restore(0)
+    ck.close()
+    assert set(payload) == {"params", "model_state", "opt_state", "step",
+                            "epoch"}
 
 
 def test_crash_without_restarts_exits_nonzero(tmp_path,

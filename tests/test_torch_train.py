@@ -50,6 +50,7 @@ from theanompi_tpu_torch.ops import _kernels
 from theanompi_tpu_torch.ops.augment import crop_flip_normalize
 from theanompi_tpu_torch.rules.bsp import BSP, run_bsp_session
 from theanompi_tpu_torch.utils import helper_funcs as H
+from theanompi_tpu_torch.utils.recorder import Recorder
 
 TINY = dict(stage_sizes=(1, 1, 1, 1), width=8, n_classes=10)
 
@@ -226,16 +227,21 @@ def test_adamw_trajectory_matches_optax():
 
 
 def test_helpers_and_unported_optimizers():
+    """The helpers, every optimizer family of the JAX package built (each
+    of its own class, the LR readable), and the unknown-name check."""
     assert H.scale_lr(0.1, 4) == pytest.approx(0.4)
     assert H.scale_lr(0.1, 4, "sqrt") == pytest.approx(0.2)
     assert H.divide_batches(10, 4) == 2
     assert H.divide_batches(10, 4, drop_remainder=False) == 3
     p = [torch.nn.Parameter(torch.zeros(2))]
-    for name in ("adam", "rmsprop", "lars"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md section A, item 7: adam, "
-                                 "rmsprop and lars"):
-            H.build_optimizer(p, 0.1, name)
+    want = {"sgd": torch.optim.SGD, "adam": torch.optim.Adam,
+            "adamw": torch.optim.AdamW, "rmsprop": H.RMSprop,
+            "lars": H.LARS}
+    assert set(want) == set(H.OPTIMIZERS)
+    for name, cls in want.items():
+        opt = H.build_optimizer(p, 0.1, name, momentum=0.9)
+        assert type(opt) is cls, name
+        assert H.get_learning_rate(opt) == pytest.approx(0.1)
     with pytest.raises(ValueError, match="unknown optimizer"):
         H.build_optimizer(p, 0.1, "sgdw")
 
@@ -436,14 +442,27 @@ def test_bsp_rule_and_refusals(tmp_path):
         data=ImageNet_data(crop=32, synthetic_n=32, synthetic_pool=4,
                            synthetic_store=32, n_classes=10))
     assert np.isfinite(rule.wait()["val"]["loss"])
-    for cfg in (dict(zero_sharding=True), dict(fsdp_sharding=True),
-                dict(exchange_dtype="bf16")):
+    # ROADMAP item 13's planes are still refused
+    for cfg in (dict(zero_sharding=True), dict(fsdp_sharding=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_bsp_session(_tiny_model(tmp_path, **cfg))
-    for cfg in (dict(steps_per_call=2), dict(grad_accum_steps=2),
-                dict(exchange_strategy="nccl16"), dict(sync_bn=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            _tiny_model(tmp_path, **cfg).compile_iter_fns()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        _tiny_model(tmp_path, sync_bn=True).compile_iter_fns()
+    # the bf16 wire (by dtype and by the reference's strategy name) and
+    # the two cadences compile and take a step
+    for cfg in (dict(exchange_dtype="bf16"), dict(steps_per_call=2),
+                dict(grad_accum_steps=2), dict(exchange_strategy="nccl16")):
+        model = _tiny_model(tmp_path, **cfg)
+        model.compile_iter_fns()
+        model.begin_epoch(0)
+        covered = model.train_iter(0, Recorder(print_freq=0))
+        model._flush_metrics(Recorder(print_freq=0))
+        assert covered == max(cfg.get("steps_per_call", 1),
+                              cfg.get("grad_accum_steps", 1)), cfg
+        assert model.state.step == (2 if "steps_per_call" in cfg else 1)
+        assert all(torch.isfinite(p).all()
+                   for p in model.module.parameters()), cfg
+        model.cleanup()
 
 
 @pytest.mark.parametrize("schedule,warmup,want", [

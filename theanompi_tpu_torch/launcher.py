@@ -20,8 +20,17 @@ world size, every rank's parameter digest and every rank's state digest
 training states).
 
 Checkpoints are on (``<snapshot-dir>/<model name>/``, one per epoch);
-``--resume`` goes on from the newest one that verifies.  The JAX
-options with their semantics:
+``--resume`` goes on from the newest one that verifies.  ``--set K=V``
+reaches every ``ModelConfig`` field, the BSP step's knobs among them:
+the wire (``exchange_dtype=bf16`` or ``exchange_strategy=nccl16``),
+``exchange_error_feedback=true`` (its per-rank residual rides the
+checkpoints), ``exchange_buckets=B`` (overlapped with the backward),
+``exchange_what=params``, ``optimizer=adam|rmsprop|lars``, and
+``steps_per_call=k`` or ``grad_accum_steps=a``; for example
+``--set exchange_dtype=bf16 --set exchange_error_feedback=true --set
+exchange_buckets=4 --set optimizer=lars --set grad_accum_steps=2``.
+``zero_sharding``, ``fsdp_sharding`` and ``sync_bn`` stop the worker
+with their ROADMAP item (13).  The JAX options with their semantics:
 
 * ``--sync-type avg|cdd``: average or sum the exchanged gradients;
 * ``--monitor-dir DIR``: exported to the workers as

@@ -11,7 +11,10 @@ until training starts), its dataset, its device and compute dtype, and
 the reference contract the rules drive: ``compile_iter_fns``,
 ``begin_epoch``, ``train_iter``, ``val_iter``/``val_epoch``,
 ``adjust_hyperp`` and ``cleanup``, and the checkpoint hooks
-``checkpoint_payload`` / ``adopt_restored_state``.  ``begin_epoch``'s
+``checkpoint_payload`` / ``adopt_restored_state``.  Every exchange mode,
+optimizer and cadence of the JAX BSP step is taken (``steps_per_call``:
+k steps per ``train_iter``; ``grad_accum_steps``: one update from ``a``
+microbatches), apart from ZeRO, FSDP and ``sync_bn``.  ``begin_epoch``'s
 random stream and the data streams are pure functions of (seed, epoch,
 rank), so a run resumed at an epoch boundary replays the unbroken one.
 One process trains on one card; the rank and worker count come from
@@ -38,7 +41,10 @@ from theanompi_tpu_torch.models.layers import (
 )
 from theanompi_tpu_torch.parallel.bsp import (
     TrainState,
+    init_exchange_residual,
+    make_bsp_accum_step,
     make_bsp_eval_step,
+    make_bsp_multi_step,
     make_bsp_train_step,
 )
 from theanompi_tpu_torch.parallel.exchanger import BSP_Exchanger
@@ -102,6 +108,32 @@ class ModelConfig:
     track_top5: bool = False
 
 
+def names_in_order(module: nn.Module) -> list[str]:
+    """The module's parameter names, in ``parameters()`` order."""
+    return [n for n, _ in module.named_parameters()]
+
+
+def gather_rows(tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Every rank's copy of each tensor, stacked ``(n_ranks, *shape)``,
+    with one all-gather over a flat buffer (one row without a process
+    group).  Every rank must call it together."""
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        n = dist.get_world_size()
+        out = torch.empty(n * flat.numel(), dtype=flat.dtype,
+                          device=flat.device)
+        dist.all_gather_into_tensor(out, flat)
+        out = out.view(n, flat.numel())
+    else:
+        out = flat[None]
+    rows, at = [], 0
+    for t in tensors:
+        rows.append(out[:, at:at + t.numel()].reshape((-1,) + t.shape))
+        at += t.numel()
+    return rows
+
+
 class TorchModel:
     """A model: module + dataset + device + compute dtype, and the
     training contract (module docstring).
@@ -152,6 +184,9 @@ class TorchModel:
         self._train_prefetcher: DevicePrefetcher | None = None
         self._train_iter: Iterator | None = None
         self._pending: list[tuple[int, dict]] = []
+        self.exchanger: BSP_Exchanger | None = None
+        self.train_step_multi = None
+        self.train_step_accum = None
         #: batches the last :meth:`val_epoch` ran
         self.val_batches_run = 0
 
@@ -182,16 +217,31 @@ class TorchModel:
         return {"optimizer": cfg.optimizer, "momentum": cfg.momentum,
                 "nesterov": cfg.nesterov, "weight_decay": cfg.weight_decay,
                 "beta1": cfg.adam_beta1, "beta2": cfg.adam_beta2,
-                "eps": cfg.adam_eps}
+                "eps": cfg.adam_eps, "rmsprop_decay": cfg.rmsprop_decay,
+                "lars_trust_coefficient": cfg.lars_trust_coefficient}
 
     def _ensure_state(self) -> TrainState:
         """The training state, made at first use: a model that only
         serves never builds an optimizer."""
         if self.state is None:
-            self.state = TrainState(self.module, build_optimizer(
-                self.module.parameters(), self._base_lr,
-                **self._optimizer_kwargs()))
+            self.state = TrainState(
+                self.module, build_optimizer(self.module.parameters(),
+                                             self._base_lr,
+                                             **self._optimizer_kwargs()),
+                exchange_residual=self._init_residual())
         return self.state
+
+    def _init_residual(self) -> list[torch.Tensor] | None:
+        """The error-feedback residual of the bf16 gradient exchange
+        (``ModelConfig.exchange_error_feedback``): zeros, one f32 tensor
+        per parameter on this rank's device; ``None`` when off."""
+        cfg = self.config
+        if not cfg.exchange_error_feedback:
+            return None
+        if cfg.exchange_dtype != "bf16":
+            raise ValueError("exchange_error_feedback compensates bf16 "
+                             "quantization; set exchange_dtype='bf16'")
+        return init_exchange_residual(self.module)
 
     # -- checkpoint payload --------------------------------------------------
 
@@ -200,8 +250,12 @@ class TorchModel:
         JAX package's names): ``params`` and ``model_state`` (the
         module's parameters and its other state-dict entries, the BN
         running statistics, by name), ``opt_state`` (the optimizer's
-        state dict), ``step`` and, when given, ``epoch``.  The tensors
-        are the live ones: ``Checkpointer.save`` copies them."""
+        state dict), ``step`` and, when given, ``epoch``.  With error
+        feedback also ``exchange_residual``: per parameter name, every
+        rank's residual stacked ``(n_ranks, *shape)`` (JAX's layout),
+        gathered from the ranks, so every rank must call this together.
+        The other tensors are the live ones: ``Checkpointer.save`` copies
+        them."""
         state = self._ensure_state()
         tensors = state.module.state_dict()
         names = {n for n, _ in state.module.named_parameters()}
@@ -211,6 +265,10 @@ class TorchModel:
                             if k not in names},
             "opt_state": state.optimizer.state_dict(),
             "step": state.step}
+        if state.exchange_residual is not None:
+            payload["exchange_residual"] = dict(zip(
+                names_in_order(state.module),
+                gather_rows(state.exchange_residual)))
         if epoch is not None:
             payload["epoch"] = int(epoch)
         return payload
@@ -218,12 +276,30 @@ class TorchModel:
     def adopt_restored_state(self, payload: dict) -> TrainState:
         """Load a checkpoint payload (:meth:`checkpoint_payload`'s form,
         tensors anywhere) into the module and the optimizer on this
-        rank's device, in place: the optimizer keeps its parameters."""
+        rank's device, in place: the optimizer keeps its parameters.  Each
+        rank takes its own row of a saved error-feedback residual."""
         state = self._ensure_state()
+        saved = payload.get("exchange_residual")
+        if (saved is None) != (state.exchange_residual is None):
+            raise ValueError(
+                "checkpoint and config disagree on error feedback: the "
+                "payload " + ("lacks" if saved is None else "holds")
+                + " an exchange_residual and exchange_error_feedback is "
+                + str(self.config.exchange_error_feedback))
         state.module.load_state_dict({**payload["params"],
                                       **payload["model_state"]})
         state.optimizer.load_state_dict(payload["opt_state"])
         state.step = int(payload["step"])
+        if saved is not None:
+            for name, r in zip(names_in_order(state.module),
+                               state.exchange_residual):
+                rows = saved[name]
+                if rows.shape != (self.n_workers,) + tuple(r.shape):
+                    raise ValueError(
+                        f"exchange_residual[{name!r}] has shape "
+                        f"{tuple(rows.shape)}; this run needs "
+                        f"{(self.n_workers,) + tuple(r.shape)}")
+                r.copy_(rows[self.rank])
         return state
 
     def loss_fn(self, module: nn.Module, batch, rng):
@@ -260,20 +336,21 @@ class TorchModel:
 
     def compile_iter_fns(self, sync_type: str = "avg") -> None:
         """Build the BSP train and eval steps (``sync_type`` 'avg'
-        averages the exchanged gradients, 'cdd' sums them) and put the
-        module in train mode.  Raises on the configuration knobs the
-        port has not taken over yet."""
+        averages the exchanged gradients, 'cdd' sums them), the stacked
+        cadence's step when one is set, and put the module in train mode.
+        Raises on the configuration knobs the port has not taken over
+        yet (ZeRO, FSDP, ``sync_bn``)."""
         cfg = self.config
-        unported = {"steps_per_call": (cfg.steps_per_call > 1, 9),
-                    "grad_accum_steps": (cfg.grad_accum_steps > 1, 9),
-                    "zero_sharding": (cfg.zero_sharding, 13),
-                    "fsdp_sharding": (cfg.fsdp_sharding, 13),
-                    "sync_bn": (cfg.sync_bn, 13)}
-        for knob, (on, item) in unported.items():
-            if on:
+        for knob in ("zero_sharding", "fsdp_sharding", "sync_bn"):
+            if getattr(cfg, knob):
                 raise NotImplementedError(
                     f"ModelConfig.{knob} is not ported yet (ROADMAP.md "
-                    f"section A, item {item})")
+                    "section A, item 13)")
+        if cfg.steps_per_call > 1 and cfg.grad_accum_steps > 1:
+            raise ValueError(
+                "steps_per_call and grad_accum_steps are both stacked-"
+                "batch cadences; combining them by nesting is not "
+                "supported — set one of them to 1")
         if self.uses_batchnorm and self.batch_size < 16:
             warnings.warn(
                 f"{type(self).__name__}: per-rank batch {self.batch_size} "
@@ -287,7 +364,14 @@ class TorchModel:
             error_feedback=cfg.exchange_error_feedback,
             exchange_buckets=cfg.exchange_buckets)
         self._ensure_state()
+        self.exchanger = exchanger
         self.train_step = make_bsp_train_step(self.loss_fn, exchanger)
+        self.train_step_multi = (
+            make_bsp_multi_step(self.loss_fn, exchanger)
+            if cfg.steps_per_call > 1 else None)
+        self.train_step_accum = (
+            make_bsp_accum_step(self.loss_fn, exchanger)
+            if cfg.grad_accum_steps > 1 else None)
         self.eval_step = make_bsp_eval_step(self.eval_fn)
         self.module.train()
 
@@ -302,7 +386,10 @@ class TorchModel:
 
     def begin_epoch(self, epoch: int) -> int:
         """Start the epoch's prefetched train stream (this rank's block
-        of every global batch); returns the number of iterations."""
+        of every global batch); returns the number of iterations,
+        rounded down to a multiple of the stacked cadence
+        (``max(steps_per_call, grad_accum_steps)``); an epoch shorter
+        than one stack raises."""
         self.cleanup_iter()
         self.current_epoch = epoch
         self._rng = self._epoch_rng(epoch)
@@ -312,38 +399,63 @@ class TorchModel:
         else:
             host_iter = self.data.train_batches(epoch, self.global_batch)
         n_iters = self.data.n_train_batches_for(epoch, self.global_batch)
+        stack = max(self.config.steps_per_call,
+                    self.config.grad_accum_steps)
+        if stack > 1:
+            n_iters -= n_iters % stack
+            if n_iters == 0:
+                raise ValueError(
+                    f"the epoch has fewer iterations than the stacked "
+                    f"cadence ({stack} = max(steps_per_call, "
+                    f"grad_accum_steps)) — every epoch would train "
+                    f"NOTHING; shrink the stack or grow the dataset/"
+                    f"batch ratio")
         self._train_prefetcher = DevicePrefetcher(host_iter, self.device)
         self._train_iter = iter(self._train_prefetcher)
         return n_iters
 
     def train_iter(self, count: int, recorder: Recorder) -> int:
-        """One training step; returns the iterations it covered (1)."""
+        """One training dispatch; returns the iterations it covered
+        (``steps_per_call`` k steps on k batches, ``grad_accum_steps`` one
+        update from that many microbatches, else 1)."""
         if self.train_step is None:
             raise RuntimeError("call compile_iter_fns() first")
+        # the cadences exclude each other: at most one of k, a exceeds 1
+        k, a = self.config.steps_per_call, self.config.grad_accum_steps
+        consumed = max(k, a)
         recorder.start()
-        batch = next(self._train_iter)
+        batches = [next(self._train_iter) for _ in range(consumed)]
         recorder.end("wait")  # time blocked on the loader
         recorder.start()
-        metrics = self.train_step(self.state, batch, self._rng)
+        if k > 1:
+            metrics = self.train_step_multi(self.state, batches, self._rng)
+        elif a > 1:
+            metrics = self.train_step_accum(self.state, batches, self._rng)
+        else:
+            metrics = self.train_step(self.state, batches[0], self._rng)
         recorder.end("calc")  # enqueue; device time lands on the flush
         self._pending.append((count, metrics))
         window = recorder.print_freq if recorder.print_freq > 0 else 50
-        if len(self._pending) >= window:
+        if len(self._pending) * consumed >= window:
             self._flush_metrics(recorder)
             recorder.print_train_info(count)
-        return 1
+        return consumed
 
     def _flush_metrics(self, recorder: Recorder) -> None:
         """Bring the pending steps' metrics to the host in ONE copy
-        (which waits for the card: charged to 'calc')."""
+        (which waits for the card: charged to 'calc').  A steps_per_call
+        entry holds one metric per sub-step, each recorded over the
+        global batch; an accumulated entry covers ``grad_accum_steps``
+        global batches of images."""
         if not self._pending:
             return
         recorder.start()
-        host = torch.stack([torch.stack([m["loss"], m["error"]])
-                            for _, m in self._pending]).cpu().numpy()
+        host = torch.cat([torch.stack([m["loss"].reshape(-1),
+                                       m["error"].reshape(-1)], 1)
+                          for _, m in self._pending]).cpu().numpy()
+        per_row = self.global_batch * self.config.grad_accum_steps
         for loss, err in host:
-            recorder.train_metrics(float(loss), float(err),
-                                   self.global_batch)
+            recorder.train_metrics(float(loss), float(err), per_row)
         recorder.end("calc")
         self._pending.clear()
         self.current_info = {

@@ -6,7 +6,9 @@ bookkeeping) over the model's BSP steps (parallel/bsp.py).
 
 Checkpoints (on by default): after each epoch's ``adjust_hyperp``, rank 0
 saves the model's canonical payload to ``<snapshot_dir>/<model.name>/``
-(utils/checkpoint.py; every rank holds the same state after a BSP step).
+(utils/checkpoint.py; every rank holds the same state after a BSP step,
+apart from its error-feedback residual, which every rank's payload
+gathers into one ``(n_ranks, ...)`` tensor per parameter).
 ``resume=True`` restores the newest checkpoint that verifies on every
 rank (rank 0 first: it alone quarantines a corrupt epoch), loads it into
 the module and the optimizer, checks that the restored state's digest
@@ -159,14 +161,18 @@ def run_bsp_session(model: TorchModel, sync_type: str = "avg",
                             last_val = model.val_epoch(recorder)
                         counts.append(_kernels.launch_counts())
                         model.adjust_hyperp(epoch + 1)
-                        if ckpt is not None:
+                        if checkpoint:
                             monitor.progress(phase="checkpoint")
                             t0 = time.monotonic()
                             with monitor.span("bsp/checkpoint"):
-                                ckpt.save(epoch,
-                                          model.checkpoint_payload(epoch))
-                            saves.append({"epoch": epoch, "pause_ms": (
-                                time.monotonic() - t0) * 1e3})
+                                # every rank: with error feedback the
+                                # payload gathers each rank's residual
+                                payload = model.checkpoint_payload(epoch)
+                                if ckpt is not None:
+                                    ckpt.save(epoch, payload)
+                            if ckpt is not None:
+                                saves.append({"epoch": epoch, "pause_ms": (
+                                    time.monotonic() - t0) * 1e3})
                         extra = {"train_steps": it,
                                  "val_batches": model.val_batches_run,
                                  "train_s": round(train_s, 6),

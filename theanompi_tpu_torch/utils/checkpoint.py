@@ -15,7 +15,8 @@ directory and manifest contract:
 The payload is the canonical tree ``{params, opt_state, model_state,
 epoch, step}`` (``TorchModel.checkpoint_payload``): the module's
 parameters and buffers by name, the optimizer's state dict and
-``TrainState.step``.
+``TrainState.step``; with error feedback also ``exchange_residual``,
+every rank's residual per parameter name.
 """
 
 from __future__ import annotations
@@ -37,8 +38,10 @@ from theanompi_tpu_torch.resilience.retry import RetryPolicy
 
 PAYLOAD_FILE = "state.pt"
 DIGEST_FILE = "state.sha256"
-#: the payload keys a state digest covers (not ``epoch``: a label)
-STATE_KEYS = ("params", "model_state", "opt_state", "step")
+#: the payload keys a state digest covers (not ``epoch``: a label);
+#: ``exchange_residual`` is there only with error feedback
+STATE_KEYS = ("params", "model_state", "opt_state", "step",
+              "exchange_residual")
 #: the parts of a save that run in the background, in their order
 BACKGROUND_PARTS = ("write", "digest", "manifest")
 
