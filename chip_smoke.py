@@ -175,10 +175,43 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    after epoch 0 and resumed, it ends with the unbroken run's state
    digests, residual included.
 
+18. The classifier zoo, on one card.  (a) One BSP step of seeded
+   full-width VGG16 and GoogLeNet (batch 8, their recipes' inits and
+   SGD, dropout off, GoogLeNet's loss with both aux terms) in f32 and
+   in bf16 on the card, each through a training step's K1 (and K3)
+   launches, and in f32 and bf16 on the CPU (plain versions), on the
+   same 8 uint8 images, crops and flips.  The f32 card step against the
+   f32 CPU step: loss within relative 1e-5, the flattened gradient
+   within relative L2 2e-3 and each parameter's within 0.05.  The bf16
+   card step: loss within relative 1e-2 of f32, the flattened gradient
+   within relative L2 0.1 of both CPU steps.  (b)
+   ``run_bsp_session`` on a one-rank NCCL group: VGG16 and GoogLeNet at
+   batch 64, bf16, synthetic ImageNet with on-device augment, 16 steps;
+   Cifar10 at batch 128, f32, its synthetic pool (32 steps); and 8 steps
+   each of VGG16 with ``batch_norm``, AlexNet with ``batch_norm`` (batch
+   128), ResNet-101 and ``resnet50_large`` (batch 128).  Each run: exact
+   launches per training step and per validation batch (VGG16 13 K1a +
+   13 K1c; GoogLeNet 59 K1a + 59 K1c + 2 K3a + 2 K3b, eval 57 K1a + 2
+   K3a; Cifar10 2 K3a + 2 K3b; BN AlexNet 5 + 5 K1 and 2 + 2 K3;
+   ResNet-101 71/33/71/33 of K1a-K1d and K2b/K2c 1; resnet50_large
+   ResNet-50's), every loss finite; images/s and ms per step.  (c) The
+   launcher: ``python -m theanompi_tpu_torch.launcher BSP -D 1 -m
+   theanompi_tpu_torch.models.googlenet -c GoogLeNet`` and ``-m
+   theanompi_tpu_torch.models.cifar10 -c Cifar10_model``, one epoch of
+   the default recipe and data each, with the launches of (b) per step
+   and per validation batch and finite losses.  (d) K1a/K1c at unit
+   scale at every (rows, C) of a batch-64 VGG16 and GoogLeNet training
+   forward, y and dx exact against the plain versions, and
+   K3a/K3b at GoogLeNet's (64, 56, 56, 64/192) bf16 n = 5 and Cifar10's
+   (128, 15/7, 15/7, 32) f32 n = 3 shapes, 0 ulp; summed per training
+   step beside the byte bound, the plain versions and (K3)
+   ``F.local_response_norm``.
+
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
 their own); 16 runs after it, then 17 on a one-rank group of its own
-(its launcher runs after that group ends).  Phase 9 checkpoints each
+(its launcher runs after that group ends), then 18 (18a before its own
+one-rank group, 18c's launchers after it).  Phase 9 checkpoints each
 epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
 checkpoints.
 
@@ -326,6 +359,45 @@ P17_SETS = ("optimizer=lars", "momentum=0.9", "weight_decay=5e-5",
             "learning_rate=0.1", "grad_accum_steps=2",
             "exchange_dtype=bf16", "exchange_error_feedback=true",
             "exchange_buckets=4", "n_epochs=2")
+#: phase 18: the zoo's per-card batch (VGG16 and GoogLeNet recipes), steps
+#: of its long and its short sessions, and the gradient check's limits.
+#: The f32 card step against the f32 CPU step: the loss, the whole
+#: gradient and the farthest parameter's gradient in relative L2 (on an
+#: H100 they read 6.9e-8 / 0, 6.0e-4 / 1.8e-4 and 4.3e-3 / 8.2e-3 for
+#: VGG16 / GoogLeNet, the first layers farthest; a gradient that a kernel
+#: drops reads 1).  Then the bf16 card step, the recipe's, against both
+#: CPU steps within bf16 rounding (VGG16's CPU bf16 step alone reads
+#: 0.097 from f32).
+ZOO_BATCH, ZOO_STEPS, ZOO_SHORT_STEPS = 64, 16, 8
+ZOO_GRAD_LIMITS = {"f32_loss_rel": 1e-5, "f32_grad_vs_f32": 2e-3,
+                   "f32_worst_tensor": 0.05, "loss_rel": 1e-2,
+                   "grad_vs_f32": 0.1, "grad_vs_cpu_bf16": 0.1}
+
+
+def _launches(**per_step) -> dict:
+    return {**{k: 0 for k in TRAIN_LAUNCHES}, **per_step}
+
+
+#: launches per training step and per validation batch of the zoo: VGG16
+#: 13 BiasAct; GoogLeNet 3 stem + 9 x 6 inception + 1 per aux head
+#: BiasAct (57 without the aux heads) and 2 LRN; Cifar10 2 LRN; BN AlexNet
+#: 5 BatchNormAct and 2 LRN; ResNet-101 1 + 2 per block + 4 projections
+#: (71) and 1 per block (33) of K1, and the stem pool
+VGG_TRAIN_LAUNCHES = _launches(scale_bias_act=13, scale_bias_act_bwd=13)
+VGG_VAL_LAUNCHES = _launches(scale_bias_act=13)
+GOOGLENET_TRAIN_LAUNCHES = _launches(scale_bias_act=59,
+                                     scale_bias_act_bwd=59, lrn=2, lrn_bwd=2)
+GOOGLENET_VAL_LAUNCHES = _launches(scale_bias_act=57, lrn=2)
+CIFAR_TRAIN_LAUNCHES = _launches(lrn=2, lrn_bwd=2)
+CIFAR_VAL_LAUNCHES = _launches(lrn=2)
+ALEX_BN_TRAIN_LAUNCHES = _launches(scale_bias_act=5, scale_bias_act_bwd=5,
+                                   lrn=2, lrn_bwd=2)
+ALEX_BN_VAL_LAUNCHES = _launches(scale_bias_act=5, lrn=2)
+RESNET101_TRAIN_LAUNCHES = _launches(
+    scale_bias_act=71, scale_bias_act_res=33, scale_bias_act_bwd=71,
+    scale_bias_act_res_bwd=33, maxpool3x3s2_argmax=1, maxpool3x3s2_bwd=1)
+RESNET101_VAL_LAUNCHES = _launches(scale_bias_act=71, scale_bias_act_res=33,
+                                   maxpool3x3s2=1)
 #: kernel names in a torch.profiler trace -> the kernel table's ids:
 #: demangled (``<__nv_bfloat16, true, true>``) or mangled (``Lb1E``),
 #: the first bool template argument being RES
@@ -419,10 +491,11 @@ def same_bits(torch, a, b) -> bool:
 
 # -- phase 3: kernels against their plain versions --------------------------
 
-def k1_cases(torch, module, x):
+def k1_cases(torch, module, x, train: bool = False):
     """(rows, C, residual?, act) -> launches per forward, recorded with
-    forward hooks on every BatchNormAct of one forward."""
-    from theanompi_tpu_torch.models.layers import BatchNormAct
+    forward hooks on every BatchNormAct and BiasAct of one forward (with
+    ``train``, of the training forward: GoogLeNet's aux heads run)."""
+    from theanompi_tpu_torch.models.layers import BatchNormAct, BiasAct
 
     cases: dict[tuple, int] = {}
 
@@ -433,15 +506,25 @@ def k1_cases(torch, module, x):
         cases[key] = cases.get(key, 0) + 1
 
     hooks = [m.register_forward_hook(hook, with_kwargs=True)
-             for m in module.modules() if isinstance(m, BatchNormAct)]
+             for m in module.modules()
+             if isinstance(m, (BatchNormAct, BiasAct))]
     with torch.inference_mode():
-        module(x)
+        if train:
+            module.train()(x, train=True,
+                           rng=torch.Generator(x.device).manual_seed(0))
+            module.eval()
+        else:
+            module(x)
     for h in hooks:
         h.remove()
     return cases
 
 
-def check_k1(torch, cases) -> dict:
+def check_k1(torch, cases, unit_scale: bool = False) -> dict:
+    """K1a/K1b at every (rows, C) of ``cases`` (bf16) plus a ragged f32
+    case, against the plain version (at most 1 ulp) and timed; with
+    ``unit_scale`` the scale is the constant 1 of ``layers.BiasAct``
+    (``x * 1`` is exact, so 0 ulp) and the ragged case is left out."""
     from theanompi_tpu_torch.ops import fused_bn
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -450,7 +533,9 @@ def check_k1(torch, cases) -> dict:
     fwd = {"scale_bias_act": [0.0, 0.0, 0.0, 0.0],
            "scale_bias_act_res": [0.0, 0.0, 0.0, 0.0]}
     all_cases = [(k, n, torch.bfloat16) for k, n in sorted(cases.items())]
-    all_cases.append(((1000 * 3 + 7, 64, True, "relu"), 0, torch.float32))
+    if not unit_scale:
+        all_cases.append(((1000 * 3 + 7, 64, True, "relu"), 0,
+                          torch.float32))
     for (rows, c, has_res, act), per_fwd, dtype in all_cases:
         name = "scale_bias_act_res" if has_res else "scale_bias_act"
         elt = torch.tensor([], dtype=dtype).element_size()
@@ -460,14 +545,15 @@ def check_k1(torch, cases) -> dict:
               for _ in range(n)]
         rs = [torch.randn(rows, c, generator=gen, device="cuda").to(dtype)
               if has_res else None for _ in range(n)]
-        s = torch.rand(c, generator=gen, device="cuda") + 0.5
+        s = (torch.ones(c, device="cuda") if unit_scale else
+             torch.rand(c, generator=gen, device="cuda") + 0.5)
         b = torch.randn(c, generator=gen, device="cuda") * 0.1
         y = fused_bn.scale_bias_act(xs[0], s, b, rs[0], act, dtype)
         ref = fused_bn.scale_bias_act_plain(xs[0], s, b, rs[0], act, dtype)
         torch.cuda.synchronize()
         ulp = ulp_distance(torch, y, ref)
         err = float((y.float() - ref.float()).abs().max().item())
-        if ulp > 1:
+        if ulp > (0 if unit_scale else 1):
             raise AssertionError(f"K1 {name} ({rows}, {c}) {dtype}: kernel "
                                  f"is {ulp} ulp from its plain version")
         worst[name] = max(worst[name], err)
@@ -549,9 +635,10 @@ def check_k2(torch) -> dict:
 
 # -- phase 5: the training kernels against their plain versions -------------
 
-def check_k1_bwd(torch, cases) -> dict:
+def check_k1_bwd(torch, cases, unit_scale: bool = False) -> dict:
     """K1c/K1d at every (rows, C) of a batch-128 step (bf16) and a ragged
-    f32 case: dx/dres 0 ulp, ds/db within 1e-5 of sum|g*x| / sum|g|."""
+    f32 case: dx/dres 0 ulp, ds/db within 1e-5 of sum|g*x| / sum|g|;
+    ``unit_scale`` as :func:`check_k1`."""
     from theanompi_tpu_torch.ops import fused_bn
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -560,7 +647,9 @@ def check_k1_bwd(torch, cases) -> dict:
     worst = {n: 0.0 for n in names.values()}
     step = {n: [0.0, 0.0, 0.0, 0.0] for n in names.values()}
     all_cases = [(k, n, torch.bfloat16) for k, n in sorted(cases.items())]
-    all_cases.append(((1000 * 3 + 7, 64, True, "relu"), 0, torch.float32))
+    if not unit_scale:
+        all_cases.append(((1000 * 3 + 7, 64, True, "relu"), 0,
+                          torch.float32))
     for (rows, c, has_res, act), per_step, dtype in all_cases:
         name = names[has_res]
         relu = act == "relu"
@@ -576,7 +665,8 @@ def check_k1_bwd(torch, cases) -> dict:
         xs = [rand() for _ in range(n)]
         gs = [rand() for _ in range(n)]
         rs = [rand() if has_res else None for _ in range(n)]
-        s = torch.rand(c, generator=gen, device="cuda") + 0.5
+        s = (torch.ones(c, device="cuda") if unit_scale else
+             torch.rand(c, generator=gen, device="cuda") + 0.5)
         b = torch.randn(c, generator=gen, device="cuda") * 0.1
         got = fused_bn.scale_bias_act_bwd(xs[0], s, b, gs[0], rs[0], relu)
         want = fused_bn._bwd_plain(xs[0], s, b, rs[0], gs[0], relu)
@@ -933,12 +1023,14 @@ def check_k3(torch, ptxas: str) -> dict:
             "instances": instances}
 
 
-def time_k3(torch, F, lrn, x, g, n) -> dict:
-    """Device times of K3a and K3b at one shape, of their plain
-    versions, and of ``F.local_response_norm`` on the NCHW view: its
-    forward (K3a's library time), and its forward + backward through
-    autograd less that forward (K3b's: no single PyTorch call computes
-    the backward alone)."""
+def time_k3(torch, F, lrn, x, g, n, k: float = 2.0,
+            alpha: float = 1e-4) -> dict:
+    """Device times of K3a and K3b at one shape (window ``n``, ``k``,
+    ``alpha``, beta 0.75), of their plain versions, and of
+    ``F.local_response_norm`` on the NCHW view: its forward (K3a's
+    library time), and its forward + backward through autograd less
+    that forward (K3b's: no single PyTorch call computes the backward
+    alone)."""
     elt = x.element_size()
     numel = x.numel()
     nb = {"lrn": 2 * numel * elt, "lrn_bwd": 3 * numel * elt}
@@ -946,39 +1038,41 @@ def time_k3(torch, F, lrn, x, g, n) -> dict:
     # plus t (2 mul), the first term (2 mul), n-1 adjoint adds, 2 mul
     # and the subtraction (K3b)
     ops = {"lrn": numel * (2 * n + 3), "lrn_bwd": numel * (3 * n + 9)}
-    k = copies_for(nb["lrn_bwd"])
-    xs = [x] + [x.clone() for _ in range(k - 1)]
-    gs = [g] + [g.clone() for _ in range(k - 1)]
-    reps = max(2, 20 // k)
+    copies = copies_for(nb["lrn_bwd"])
+    xs = [x] + [x.clone() for _ in range(copies - 1)]
+    gs = [g] + [g.clone() for _ in range(copies - 1)]
+    reps = max(2, 20 // copies)
 
     def lib_fwd(i):
         return F.local_response_norm(xs[i].permute(0, 3, 1, 2), n,
-                                     alpha=1e-4, beta=0.75, k=2.0)
+                                     alpha=alpha, beta=0.75, k=k)
 
     xr = [t.detach().clone().requires_grad_() for t in xs]
 
     def lib_fwd_bwd(i):
-        y = F.local_response_norm(xr[i].permute(0, 3, 1, 2), n, alpha=1e-4,
-                                  beta=0.75, k=2.0)
+        y = F.local_response_norm(xr[i].permute(0, 3, 1, 2), n,
+                                  alpha=alpha, beta=0.75, k=k)
         return torch.autograd.grad(y, xr[i], gs[i].permute(0, 3, 1, 2))
 
     out = {}
     times = {
-        "lrn": (graph_ms(torch, [(lambda i=i: lrn.lrn_fwd(xs[i], n))
-                                 for i in range(k)], reps),
-                graph_ms(torch, [(lambda i=i: lrn.lrn_plain(xs[i], n))
-                                 for i in range(k)], max(2, reps // 2)),
+        "lrn": (graph_ms(torch, [(lambda i=i: lrn.lrn_fwd(xs[i], n, k,
+                                                          alpha))
+                                 for i in range(copies)], reps),
+                graph_ms(torch, [(lambda i=i: lrn.lrn_plain(xs[i], n, k,
+                                                            alpha))
+                                 for i in range(copies)], max(2, reps // 2)),
                 graph_ms(torch, [(lambda i=i: lib_fwd(i))
-                                 for i in range(k)], reps)),
-        "lrn_bwd": (graph_ms(torch, [(lambda i=i: lrn.lrn_bwd(xs[i], gs[i],
-                                                              n))
-                                     for i in range(k)], reps),
+                                 for i in range(copies)], reps)),
+        "lrn_bwd": (graph_ms(torch, [(lambda i=i: lrn.lrn_bwd(
+                        xs[i], gs[i], n, k, alpha))
+                        for i in range(copies)], reps),
                     graph_ms(torch, [(lambda i=i: lrn.lrn_bwd_plain(
-                        xs[i], gs[i], n)) for i in range(k)],
-                        max(2, reps // 2)),
+                        xs[i], gs[i], n, k, alpha))
+                        for i in range(copies)], max(2, reps // 2)),
                     None)}
     fwd_bwd = graph_ms(torch, [(lambda i=i: lib_fwd_bwd(i))
-                               for i in range(k)], reps)
+                               for i in range(copies)], reps)
     times["lrn_bwd"] = times["lrn_bwd"][:2] + (fwd_bwd - times["lrn"][2],)
     for name, (k_ms, p_ms, l_ms) in times.items():
         out[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
@@ -1610,19 +1704,37 @@ def alexnet_grad_check(torch) -> dict:
 def launcher_session(torch, workdir: str) -> dict:
     """The AlexNet slice's main path as a user starts it: ``python -m
     theanompi_tpu_torch.launcher BSP -D 1 -m
-    theanompi_tpu_torch.models.alex_net -c AlexNet`` in a subprocess (one
-    worker on this card, a one-rank NCCL group), the default recipe at
-    batch 128 on the default synthetic pool, ``ALEX_EPOCHS`` epochs.
-    The worker is a fresh process, so its launch counts start at 0; its
-    epoch records carry the launches of each epoch's training steps and
-    of its validation pass.  Every loss finite: the records hold each
-    epoch's mean training loss, which is finite only if every step's
-    loss (a cross-entropy, never negative) is."""
+    theanompi_tpu_torch.models.alex_net -c AlexNet`` (one worker on this
+    card, a one-rank NCCL group), the default recipe at batch 128 on the
+    default synthetic pool, ``ALEX_EPOCHS`` epochs (:func:`launcher_run`)."""
+    return launcher_run(torch, workdir, "theanompi_tpu_torch.models.alex_net",
+                        "AlexNet", ALEX_EPOCHS, TRAIN_BATCH,
+                        ALEX_TRAIN_LAUNCHES, ALEX_VAL_LAUNCHES,
+                        ("print_freq=16",))
+
+
+def launcher_run(torch, workdir: str, modelfile: str, modelclass: str,
+                 epochs: int, batch: int, want_train: dict, want_val: dict,
+                 sets=()) -> dict:
+    """``python -m theanompi_tpu_torch.launcher BSP -D 1 -m <modelfile>
+    -c <modelclass> --epochs <epochs>`` with ``--set`` each of ``sets``,
+    in a subprocess (one worker on this card, a one-rank NCCL group),
+    the model's default recipe and data.  The worker is a fresh process,
+    so its launch counts start at 0; its epoch records carry the
+    launches of each epoch's training steps and of its validation pass,
+    held to ``want_train`` per step and ``want_val`` per validation
+    batch (kernels the worker never imported count 0).  Every loss
+    finite: the records hold each epoch's mean training loss, which is
+    finite only if every step's loss (a cross-entropy, never negative)
+    is.  Times: the last epoch's ms per step and images/s at the
+    per-card ``batch``."""
     out_json = os.path.join(workdir, "result.json")
     cmd = [sys.executable, "-m", "theanompi_tpu_torch.launcher", "BSP",
-           "-D", "1", "-m", "theanompi_tpu_torch.models.alex_net", "-c",
-           "AlexNet", "--epochs", str(ALEX_EPOCHS), "--snapshot-dir",
-           workdir, "--set", "print_freq=16", "--result-json", out_json]
+           "-D", "1", "-m", modelfile, "-c", modelclass, "--epochs",
+           str(epochs), "--snapshot-dir", workdir, "--result-json",
+           out_json]
+    for kv in sets:
+        cmd += ["--set", kv]
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     wall = time.monotonic() - t0
@@ -1634,16 +1746,14 @@ def launcher_session(torch, workdir: str) -> dict:
     with open(out_json) as f:
         res = json.load(f)
     recs = res["records"]
-    if len(recs) != ALEX_EPOCHS or res["world_size"] != 1:
+    if len(recs) != epochs or res["world_size"] != 1:
         raise AssertionError(f"launcher result: {len(recs)} epochs, world "
                              f"{res['world_size']}")
     totals: dict[str, int] = {}
     for rec in recs:
         steps, n_val = rec["train_steps"], rec["val_batches"]
-        want_t = {k: v * steps for k, v in ALEX_TRAIN_LAUNCHES.items()}
-        want_v = {k: v * n_val for k, v in ALEX_VAL_LAUNCHES.items()}
-        # the worker registers only the kernels of the modules it
-        # imported (no K2 module on AlexNet's path): absent means 0
+        want_t = {k: v * steps for k, v in want_train.items()}
+        want_v = {k: v * n_val for k, v in want_val.items()}
         got_t, got_v = ({k: rec["launches"][part].get(k, 0) for k in want}
                         for part, want in (("train", want_t),
                                            ("val", want_v)))
@@ -1663,21 +1773,24 @@ def launcher_session(torch, workdir: str) -> dict:
     ms = last["train_s"] * 1e3 / last["train_steps"]
     out = {"cmd": " ".join(cmd[1:]), "wall_s": wall, "records": recs,
            "val": res["val"], "launches": totals,
-           "ms_per_step": ms, "images_per_s": TRAIN_BATCH * 1e3 / ms,
+           "ms_per_step": ms, "images_per_s": batch * 1e3 / ms,
            "first_epoch_ms_per_step": recs[0]["train_s"] * 1e3
            / recs[0]["train_steps"]}
-    log(f"  {len(recs)} epochs of {last['train_steps']} steps + "
+    per_step = {KERNEL_IDS[k]: v for k, v in want_train.items() if v}
+    per_val = {KERNEL_IDS[k]: v for k, v in want_val.items() if v}
+    log(f"  {len(recs)} epoch(s) of {last['train_steps']} steps + "
         f"{last['val_batches']} validation batches in {wall:.1f} s; "
-        f"launches per step {ALEX_TRAIN_LAUNCHES['lrn']} K3a + "
-        f"{ALEX_TRAIN_LAUNCHES['lrn_bwd']} K3b, per validation batch "
-        f"{ALEX_VAL_LAUNCHES['lrn']} K3a, none of K1/K2 (totals {totals})")
+        f"launches per step {per_step or 'none'}, per validation batch "
+        f"{per_val or 'none'} (totals {totals})")
     log(f"  epoch {last['epoch']}: {ms:.2f} ms/step, "
         f"{out['images_per_s']:.0f} images/s per card (epoch 0, first "
         f"steps included: {out['first_epoch_ms_per_step']:.2f} ms/step); "
         f"train loss {[r['train_loss'] for r in recs]}, val {res['val']}")
-    out["overlap"] = overlap_ms(last)
-    log(f"  epoch {last['epoch']} by the part of epoch {last['epoch'] - 1}'s "
-        f"save running in the background: {overlap_line(out['overlap'])}")
+    if len(recs) > 1:
+        out["overlap"] = overlap_ms(last)
+        log(f"  epoch {last['epoch']} by the part of epoch "
+            f"{last['epoch'] - 1}'s save running in the background: "
+            f"{overlap_line(out['overlap'])}")
     return out
 
 
@@ -2664,6 +2777,368 @@ def rest_of_bsp_phase(torch, workdir: str, data_dir: str) -> dict:
             "times": times, "hook_enqueue_ms": hooks, "launcher": launched}
 
 
+# -- phase 18: the classifier zoo --------------------------------------------
+
+def zoo_step(torch, model, batch, crops, crop: int = 224) -> dict:
+    """One BSP step of ``model`` through its own ``loss_fn`` (GoogLeNet:
+    the aux-weighted loss) on uint8 ``batch``, the crops and flips given
+    explicitly (a fixed device transform in place of the dataset's
+    random one); its loss and flattened gradient (f32, on the CPU)."""
+    from theanompi_tpu_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
+    from theanompi_tpu_torch.models import layers as L
+    from theanompi_tpu_torch.ops.augment import crop_flip_normalize
+
+    dev = model.device
+    ys, xs, flips = (t.to(dev) for t in crops)
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)
+    std = torch.tensor(IMAGENET_STD, device=dev)
+    model.data.device_transform = (
+        lambda x, rng, train: crop_flip_normalize(x, ys, xs, flips, crop,
+                                                  mean, std))
+    for m in model.module.modules():
+        if isinstance(m, L.Dropout):
+            m.rate = 0.0
+    model.compile_iter_fns()
+    t0 = time.monotonic()
+    metrics = model.train_step(model.state,
+                               tuple(t.to(dev) for t in batch), None)
+    named = list(model.module.named_parameters())
+    out = {"loss": float(metrics["loss"]),
+           "grads": torch.cat([p.grad.float().reshape(-1).cpu()
+                               for _, p in named]),
+           "names": [n for n, _ in named],
+           "sizes": [p.numel() for _, p in named],
+           "s": time.monotonic() - t0}
+    model.module.eval()
+    return out
+
+
+def worst_tensors(torch, got: dict, want: dict, k: int = 3) -> list:
+    """The ``k`` parameters whose gradients in ``got`` are farthest from
+    ``want``'s in relative L2, as (distance, name), farthest first."""
+    pairs = zip(got["names"], got["grads"].split(got["sizes"]),
+                want["grads"].split(want["sizes"]))
+    return sorted(((rel_l2(torch, a, b), n) for n, a, b in pairs),
+                  reverse=True)[:k]
+
+
+def fmt_worst(worst: list) -> str:
+    return ", ".join(f"{n} {d:.4g}" for d, n in worst)
+
+
+def zoo_grad_check(torch) -> dict:
+    """Phase 18 (a): one BSP step of seeded full-width VGG16 and
+    GoogLeNet (each recipe's own inits from seed 42, its SGD; dropout
+    off) in bf16 and in f32 on the card and in f32 and bf16 on the CPU
+    (plain versions), on the same 8 uint8 256x256 images with the same
+    explicit 224 crops and flips.  GoogLeNet's loss includes both aux
+    terms.  Both card steps run K1 (and GoogLeNet's K3) the counts of a
+    training step.  Limits (:data:`ZOO_GRAD_LIMITS`): the f32 card step
+    against the f32 CPU step tightly, as a whole and parameter by
+    parameter (only the order of sums differs, TF32 off); the bf16 card
+    step, the recipe's, within bf16 rounding of both CPU steps."""
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    from theanompi_tpu_torch.models.vgg16 import VGG16
+    from theanompi_tpu_torch.ops import _kernels
+
+    rng = np.random.default_rng(18)
+    n = GRAD_CHECK_IMAGES
+    batch = (torch.from_numpy(rng.integers(0, 256, (n, 256, 256, 3),
+                                           dtype=np.uint8)),
+             torch.from_numpy(rng.integers(0, 1000, n).astype(np.int64)))
+    crops = (torch.from_numpy(rng.integers(0, 33, n)),
+             torch.from_numpy(rng.integers(0, 33, n)),
+             torch.from_numpy(rng.random(n) < 0.5))
+    out = {"images": n, "limits": ZOO_GRAD_LIMITS}
+    f32_cfg = {"compute_dtype": "float32"}
+    for cls, want in ((VGG16, VGG_TRAIN_LAUNCHES),
+                      (GoogLeNet, GOOGLENET_TRAIN_LAUNCHES)):
+        f32 = cls(device="cpu", config=dataclasses.replace(
+            cls.default_config(), **f32_cfg))
+        steps, launched = {}, {}
+        for name, build in (
+                ("card", lambda: cls(device="cuda")),
+                ("card_f32", lambda: cls(device="cuda", config=dataclasses.
+                                         replace(cls.default_config(),
+                                                 **f32_cfg))),
+                ("cpu_bf16", lambda: cls(device="cpu")),
+                ("cpu_f32", lambda: f32)):
+            model = build()
+            if model is not f32:
+                model.module.load_state_dict(f32.module.state_dict())
+            _kernels.reset_launch_counts()
+            steps[name] = zoo_step(torch, model, batch, crops)
+            launched[name] = {k: _kernels.launch_counts().get(k, 0)
+                              for k in want}
+            del model
+        del f32
+        for name in ("card", "card_f32"):
+            if launched[name] != want:
+                raise AssertionError(f"{cls.name} {name} step launched "
+                                     f"{launched[name]}, not {want}")
+        card, ref, bf = steps["card"], steps["cpu_f32"], steps["cpu_bf16"]
+        c32 = steps["card_f32"]
+        worst32 = worst_tensors(torch, c32, ref)
+        r = {"loss_card": card["loss"], "loss_cpu_f32": ref["loss"],
+             "loss_card_f32": c32["loss"],
+             "loss_rel": abs(card["loss"] - ref["loss"]) / abs(ref["loss"]),
+             "f32_loss_rel": abs(c32["loss"] - ref["loss"]) / abs(
+                 ref["loss"]),
+             "f32_grad_vs_f32": rel_l2(torch, c32["grads"], ref["grads"]),
+             "f32_worst": worst32, "f32_worst_tensor": worst32[0][0],
+             "bf16_worst": worst_tensors(torch, card, bf),
+             "grad_vs_f32": rel_l2(torch, card["grads"], ref["grads"]),
+             "grad_vs_cpu_bf16": rel_l2(torch, card["grads"], bf["grads"]),
+             "cpu_bf16_vs_f32": rel_l2(torch, bf["grads"], ref["grads"]),
+             "finite": bool(torch.isfinite(card["grads"]).all()
+                            and torch.isfinite(c32["grads"]).all()),
+             "card_launches": {KERNEL_IDS[k]: v for k, v in
+                               launched["card"].items() if v},
+             "cpu_f32_s": ref["s"], "cpu_bf16_s": bf["s"]}
+        out[cls.name] = r
+        log(f"  {cls.name}: f32 card vs cpu: loss {r['loss_card_f32']:.6f} "
+            f"vs {r['loss_cpu_f32']:.6f} (rel {r['f32_loss_rel']:.3g}), "
+            f"gradient rel L2 {r['f32_grad_vs_f32']:.4g} (farthest "
+            f"tensors {fmt_worst(r['f32_worst'])}); bf16 card: loss "
+            f"{r['loss_card']:.6f} (rel {r['loss_rel']:.3g}); gradient "
+            f"rel L2 bf16 card vs f32 {r['grad_vs_f32']:.4g}, bf16 card vs "
+            f"cpu bf16 {r['grad_vs_cpu_bf16']:.4g}, cpu bf16 vs f32 "
+            f"{r['cpu_bf16_vs_f32']:.4g} (farthest from cpu bf16 "
+            f"{fmt_worst(r['bf16_worst'])}); launches per card step "
+            f"{r['card_launches']} (cpu steps f32 {r['cpu_f32_s']:.1f} s, "
+            f"bf16 {r['cpu_bf16_s']:.1f} s)")
+        over = {k: r[k] for k, lim in ZOO_GRAD_LIMITS.items()
+                if not r[k] <= lim}
+        if over or not r["finite"]:
+            raise AssertionError(f"{cls.name} card step off the CPU "
+                                 f"references: {over} over "
+                                 f"{ZOO_GRAD_LIMITS}, finite {r['finite']}")
+        del steps
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_models(torch, workdir: str):
+    """Phase 18 (b)'s runs: (label, a function building the model, its
+    per-card batch, launches per training step, per validation batch)."""
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.models.cifar10 import Cifar10_model
+    from theanompi_tpu_torch.models.googlenet import GoogLeNet
+    from theanompi_tpu_torch.models.model_zoo import (
+        ResNet50_LargeBatch,
+        ResNet101,
+    )
+    from theanompi_tpu_torch.models.vgg16 import VGG16
+
+    def imagenet(cls, steps, batch, **cfg):
+        def build():
+            crop = 227 if cls is AlexNet else 224
+            data = ImageNet_data(crop=crop, seed=0,
+                                 synthetic_n=steps * batch,
+                                 synthetic_pool=64, synthetic_store=256,
+                                 augment_on_device=True)
+            config = dataclasses.replace(
+                cls.default_config(), batch_size=batch, n_epochs=1,
+                print_freq=4, snapshot_dir=workdir, **cfg)
+            return cls(config=config, device="cuda", crop=crop, data=data)
+        return build
+
+    def cifar10():
+        return Cifar10_model(config=dataclasses.replace(
+            Cifar10_model.default_config(), n_epochs=1, print_freq=8,
+            snapshot_dir=workdir), device="cuda")
+
+    return [
+        ("vgg16", imagenet(VGG16, ZOO_STEPS, ZOO_BATCH), ZOO_BATCH,
+         VGG_TRAIN_LAUNCHES, VGG_VAL_LAUNCHES),
+        ("googlenet", imagenet(GoogLeNet, ZOO_STEPS, ZOO_BATCH), ZOO_BATCH,
+         GOOGLENET_TRAIN_LAUNCHES, GOOGLENET_VAL_LAUNCHES),
+        ("cifar10", cifar10, 128, CIFAR_TRAIN_LAUNCHES, CIFAR_VAL_LAUNCHES),
+        ("vgg16_bn", imagenet(VGG16, ZOO_SHORT_STEPS, ZOO_BATCH,
+                              batch_norm=True), ZOO_BATCH,
+         VGG_TRAIN_LAUNCHES, VGG_VAL_LAUNCHES),
+        ("alexnet_bn", imagenet(AlexNet, ZOO_SHORT_STEPS, TRAIN_BATCH,
+                                batch_norm=True), TRAIN_BATCH,
+         ALEX_BN_TRAIN_LAUNCHES, ALEX_BN_VAL_LAUNCHES),
+        ("resnet101", imagenet(ResNet101, ZOO_SHORT_STEPS, TRAIN_BATCH),
+         TRAIN_BATCH, RESNET101_TRAIN_LAUNCHES, RESNET101_VAL_LAUNCHES),
+        ("resnet50_large", imagenet(ResNet50_LargeBatch, ZOO_SHORT_STEPS,
+                                    TRAIN_BATCH), TRAIN_BATCH,
+         TRAIN_LAUNCHES, RESNET_VAL_LAUNCHES)]
+
+
+def zoo_session(torch, label: str, model, batch: int, want_train: dict,
+                want_val: dict) -> dict:
+    """Phase 18 (b): ``run_bsp_session`` of one zoo model with the counts
+    set to 0 just before and read just after (:func:`counted_session`):
+    exact launches per training step and per validation batch, every
+    loss finite; ms per step and images/s per card."""
+    run = counted_session(torch, model)
+    losses, launches, val_counts = (run["losses"], run["launches"],
+                                    run["val_counts"])
+    steps, n_val = len(losses), model.val_batches_run
+    train_counts = {k: launches.get(k, 0) - val_counts.get(k, 0)
+                    for k in want_train}
+    got_val = {k: val_counts.get(k, 0) for k in want_val}
+    want_t = {k: v * steps for k, v in want_train.items()}
+    want_v = {k: v * n_val for k, v in want_val.items()}
+    if train_counts != want_t or got_val != want_v or not steps:
+        raise AssertionError(f"{label}: train launches {train_counts} != "
+                             f"{want_t} ({steps} steps), validation "
+                             f"{got_val} != {want_v} ({n_val} batches)")
+    val = run["result"]["val"]
+    if not all(math.isfinite(v) for v in losses) or not math.isfinite(
+            val["loss"]):
+        raise AssertionError(f"{label}: non-finite loss: {losses} {val}")
+    ms = run["ms_per_step"]
+    out = {"steps": steps, "val_batches": n_val, "batch": batch,
+           "launches": launches, "train_launches": train_counts,
+           "val_launches": got_val, "losses": losses, "val": val,
+           "ms_per_step": ms, "images_per_s": batch * 1e3 / ms,
+           "timed_steps": run["timed_steps"], "wall_s": run["wall_s"]}
+    per_step = {KERNEL_IDS[k]: v for k, v in want_train.items() if v}
+    per_val = {KERNEL_IDS[k]: v for k, v in want_val.items() if v}
+    log(f"  {label}: {steps} steps of {batch} + {n_val} validation batches "
+        f"in {run['wall_s']:.1f} s; launches per step {per_step}, per "
+        f"validation batch {per_val}; {ms:.2f} ms/step, "
+        f"{out['images_per_s']:.0f} images/s per card; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, val loss {val['loss']:.4f}")
+    return out
+
+
+def zoo_k1(torch, label: str, module, batch: int) -> dict:
+    """Phase 18 (d), K1: the (rows, C) of every BiasAct of one training
+    forward of ``module`` at ``batch`` (bf16), each checked against the
+    plain versions (y and dx exact) and timed at unit scale;
+    K1a and K1c summed per step beside their bounds and plain times."""
+    x = torch.zeros((batch, 224, 224, 3), device="cuda")
+    cases = k1_cases(torch, module, x, train=True)
+    del x
+    log(f"  {label}: {sum(cases.values())} BiasAct launches per training "
+        f"forward, {len(cases)} shapes")
+    fwd = check_k1(torch, cases, unit_scale=True)
+    bwd = check_k1_bwd(torch, cases, unit_scale=True)
+    torch.cuda.empty_cache()
+    return {"K1a": fwd["per_forward"]["scale_bias_act"],
+            "K1c": bwd["per_step"]["scale_bias_act_bwd"],
+            "cases": {"fwd": fwd["cases"], "bwd": bwd["cases"]},
+            "max_abs_err": {"K1a": fwd["max_abs_err"]["scale_bias_act"],
+                            "K1c": bwd["max_abs_err"]["scale_bias_act_bwd"]}}
+
+
+def zoo_k3(torch, label: str, shapes, n: int, k: float, alpha: float,
+           dtype) -> dict:
+    """Phase 18 (d), K3: K3a/K3b at each of ``shapes`` (one training
+    step's two LRNs) with the model's n, k and alpha, 0 ulp against the
+    plain versions, then timed (:func:`time_k3`) and summed per step."""
+    import torch.nn.functional as F
+
+    from theanompi_tpu_torch.ops import lrn
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    per_step = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                       "nbytes": 0, "ops": 0} for name in ("lrn", "lrn_bwd")}
+    worst = {"lrn": 0.0, "lrn_bwd": 0.0}
+    for shape in shapes:
+        x = (torch.randn(shape, generator=gen, device="cuda")
+             * LRN_SCALE).to(dtype)
+        g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        got = (lrn.lrn_fwd(x, n, k, alpha), lrn.lrn_bwd(x, g, n, k, alpha))
+        want = (lrn.lrn_plain(x, n, k, alpha),
+                lrn.lrn_bwd_plain(x, g, n, k, alpha))
+        for name, a, b in zip(("lrn", "lrn_bwd"), got, want):
+            ulp = ulp_distance(torch, a, b)
+            if ulp:
+                raise AssertionError(f"{label} K3 {name} {shape} {dtype}: "
+                                     f"{ulp} ulp from its plain version")
+            worst[name] = max(worst[name],
+                              float((a.float() - b.float()).abs().max()))
+        t = time_k3(torch, F, lrn, x, g, n, k, alpha)
+        for name in per_step:
+            for key in per_step[name]:
+                per_step[name][key] += t[name][key]
+        log(f"  {label} K3 {shape} {str(dtype)[6:]} n={n}: 0 ulp; K3a "
+            f"{t['lrn']['ms'] * 1e3:.2f} us (bound "
+            f"{t['lrn']['bound_ms'] * 1e3:.2f}), K3b "
+            f"{t['lrn_bwd']['ms'] * 1e3:.2f} us (bound "
+            f"{t['lrn_bwd']['bound_ms'] * 1e3:.2f})")
+        del x, g, got, want
+    out = {}
+    for name, v in per_step.items():
+        out[KERNEL_IDS[name]] = {
+            "ms": v["ms"], "plain_ms": v["plain_ms"],
+            "library_ms": v["library_ms"],
+            "bound_ms": bound_ms(v["nbytes"], v["ops"]),
+            "bound_by": bound_by(v["nbytes"], v["ops"]),
+            "max_abs_err": worst[name]}
+    return out
+
+
+def zoo_phase(torch, workdir: str) -> dict:
+    """Phase 18 (module docstring)."""
+    import torch.distributed as dist
+
+    from theanompi_tpu_torch.models.googlenet import GoogLeNetCNN
+    from theanompi_tpu_torch.models.vgg16 import VGGCNN
+
+    log("  (a) VGG16 and GoogLeNet: one step on the card against the CPU "
+        "references")
+    checked = zoo_grad_check(torch)
+    log(f"  (b) run_bsp_session on a one-rank NCCL group ({card_line()})")
+    sessions = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        for label, build, batch, want_t, want_v in zoo_models(torch,
+                                                             workdir):
+            model = build()
+            sessions[label] = zoo_session(torch, label, model, batch,
+                                          want_t, want_v)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    log("  (c) the launcher: GoogLeNet and Cifar10, one worker on this card")
+    launched = {}
+    for label, modelfile, cls, batch, want_t, want_v in (
+            ("googlenet", "theanompi_tpu_torch.models.googlenet",
+             "GoogLeNet", ZOO_BATCH, GOOGLENET_TRAIN_LAUNCHES,
+             GOOGLENET_VAL_LAUNCHES),
+            ("cifar10", "theanompi_tpu_torch.models.cifar10",
+             "Cifar10_model", 128, CIFAR_TRAIN_LAUNCHES,
+             CIFAR_VAL_LAUNCHES)):
+        sub = os.path.join(workdir, f"launcher_{label}")
+        os.makedirs(sub)
+        launched[label] = launcher_run(torch, sub, modelfile, cls, 1, batch,
+                                       want_t, want_v)
+    log(f"  (d) K1 and K3 at the zoo's shapes ({card_line()})")
+    times = {}
+    for label, build in (("vgg16", lambda: VGGCNN(dtype=torch.bfloat16)),
+                         ("googlenet", lambda: GoogLeNetCNN(
+                             dtype=torch.bfloat16))):
+        with torch.device("cuda"):
+            module = build()     # shapes only: the weights stay unset
+        times[label] = zoo_k1(torch, label, module, ZOO_BATCH)
+        del module
+    times["googlenet"].update(zoo_k3(
+        torch, "googlenet", [(ZOO_BATCH, 56, 56, 64),
+                             (ZOO_BATCH, 56, 56, 192)],
+        5, 2.0, 1e-4, torch.bfloat16))
+    times["cifar10"] = zoo_k3(torch, "cifar10", [(128, 15, 15, 32),
+                                                 (128, 7, 7, 32)],
+                              3, 1.0, 5e-5, torch.float32)
+    for label, t in times.items():
+        log(f"  {label} per training step: " + "; ".join(
+            f"{kid} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f}, plain "
+            f"{v['plain_ms']:.4f})" for kid, v in t.items()
+            if kid.startswith("K")))
+    return {"grad_check": checked, "sessions": sessions,
+            "launcher": launched, "kernel_times": times}
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -2824,6 +3299,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         log("phase 17: the rest of the BSP step on the card")
         rest = rest_of_bsp_phase(torch, tmp, os.path.join(tmp, "data"))
+    torch.cuda.empty_cache()
+
+    log("phase 18: the classifier zoo")
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo = zoo_phase(torch, tmp)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -2861,11 +3341,21 @@ def main() -> int:
     for k in kernels:
         src, replaces = KERNEL_SOURCES[k["name"]]
         runs, per_step = paths[k["launches_path"]]
-        k.update(id=KERNEL_IDS[k["name"]], route="cuda", source=src,
+        kid = KERNEL_IDS[k["name"]]
+        k.update(id=kid, route="cuda", source=src,
                  replaces=replaces,
                  launches=runs["launches"][k["name"]],
                  train_launches_per_step=per_step[k["name"]],
-                 train_session_launches=session["launches"][k["name"]])
+                 train_session_launches=session["launches"][k["name"]],
+                 zoo_launches={label: run["launches"][k["name"]]
+                               for label, run in zoo["sessions"].items()
+                               if run["launches"].get(k["name"])})
+        per_zoo_step = {label: {key: t[kid][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            if key in t[kid]}
+            for label, t in zoo["kernel_times"].items() if kid in t}
+        if per_zoo_step:
+            k["zoo_per_step"] = per_zoo_step
     os.makedirs("build", exist_ok=True)
     with open(os.path.join("build", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "k1_cases": k1["cases"],
@@ -2879,7 +3369,7 @@ def main() -> int:
                    "alexnet_step_trace": alex_trace, "k4": k4,
                    "lm_grad_check": lm_checked, "lm_session": lm_run,
                    "lm_step_trace": lm_trace, "checkpoint": ckpt,
-                   "rest_of_bsp": rest,
+                   "rest_of_bsp": rest, "zoo": zoo,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "
@@ -2900,7 +3390,12 @@ def main() -> int:
                            "library_ms (SDPA's backward: forward+backward "
                            "less forward) are the whole backward's, to "
                            "read beside its backward_ms (both passes) and "
-                           "backward_bound_ms"},
+                           "backward_bound_ms.  zoo_launches: each phase-18 "
+                           "session's launches (steps + validation); "
+                           "zoo_per_step: phase 18 (d)'s times summed per "
+                           "training step of each zoo model (K1a/K1c at "
+                           "unit scale, batch 64; K3 at GoogLeNet's batch-64 "
+                           "and Cifar10's batch-128 shapes)"},
                   f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(card)

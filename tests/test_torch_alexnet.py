@@ -3,7 +3,7 @@
 The tiny AlexNet of the JAX zoo tests (full layer widths, 67-pixel
 crops: 67 -> 15 -> 7 -> 3 -> 1 through conv1 and the three pools) with
 10 classes, f32, the same numpy weights on both sides (carried across by
-``alexnet_state_dict_from_flax``):
+``zoo_state_dict_from_flax``):
 
 * the eval forward;
 * one BSP step (loss, every gradient, every parameter after SGD with
@@ -35,7 +35,7 @@ from theanompi_tpu_torch.data.imagenet import ImageNet_data
 from theanompi_tpu_torch.models import layers as L
 from theanompi_tpu_torch.models.alex_net import AlexNet, AlexNetCNN
 from theanompi_tpu_torch.models.base import ModelConfig
-from theanompi_tpu_torch.models.bridge import alexnet_state_dict_from_flax
+from theanompi_tpu_torch.models.bridge import zoo_state_dict_from_flax
 from theanompi_tpu_torch.ops import _kernels
 from theanompi_tpu_torch.serving import (
     BatchPolicy,
@@ -44,6 +44,14 @@ from theanompi_tpu_torch.serving import (
 )
 
 CROP, CLASSES = 67, 10
+
+
+def bridged(params, n_classes: int = CLASSES, crop: int = CROP):
+    """The port's AlexNet ``state_dict`` from a flax ``params``-shaped
+    tree, through the zoo's mechanical bridge."""
+    with torch.device("meta"):
+        module = AlexNetCNN(n_classes=n_classes, crop=crop)
+    return zoo_state_dict_from_flax(module, params)
 
 
 def random_params(seed: int, n_classes: int = CLASSES, crop: int = CROP):
@@ -82,7 +90,7 @@ def test_eval_forward_matches_jax():
     want = np.asarray(JaxAlexNet(n_classes=CLASSES).apply(
         {"params": params}, jnp.asarray(x)))
     module = AlexNetCNN(n_classes=CLASSES, crop=CROP).eval()
-    module.load_state_dict(alexnet_state_dict_from_flax(params))
+    module.load_state_dict(bridged(params))
     with torch.no_grad():
         got = module(torch.from_numpy(x))
     assert got.dtype == torch.float32
@@ -118,14 +126,14 @@ def test_bsp_step_matches_jax_and_optax(monkeypatch):
     # the port: the TorchModel's own loss and BSP step, host-side data
     # (no device transform) so both sides see the same x
     model = tiny_model(lr=lr, augment_on_device=False)
-    model.module.load_state_dict(alexnet_state_dict_from_flax(params))
+    model.module.load_state_dict(bridged(params))
     model.compile_iter_fns()
     metrics = model.train_step(
         model.state, (torch.from_numpy(x), torch.from_numpy(y).long()),
         torch.Generator().manual_seed(0))
     assert_close(float(metrics["loss"]), float(loss), msg="loss")
-    want_g = alexnet_state_dict_from_flax(jax.tree.map(np.asarray, grads))
-    want_p = alexnet_state_dict_from_flax(jax.tree.map(np.asarray,
+    want_g = bridged(jax.tree.map(np.asarray, grads))
+    want_p = bridged(jax.tree.map(np.asarray,
                                                        new_params))
     named = dict(model.module.named_parameters())
     assert set(named) == set(want_g) == set(want_p)
@@ -139,7 +147,7 @@ def test_bsp_step_matches_jax_and_optax(monkeypatch):
 def test_dropout_draws_replay_from_the_step_generator():
     """With dropout on, the step's generator decides the masks: the same
     seed gives the same gradients, another seed others."""
-    params = alexnet_state_dict_from_flax(random_params(seed=5))
+    params = bridged(random_params(seed=5))
     rng = np.random.default_rng(6)
     batch = (torch.from_numpy(rng.standard_normal(
         (4, CROP, CROP, 3)).astype(np.float32)),
@@ -199,7 +207,7 @@ def test_bridge_maps_every_leaf_of_the_full_width_alexnet():
                             jnp.zeros((1, 227, 227, 3)))["params"]
     zeros = jax.tree.map(lambda s: np.broadcast_to(np.float32(0), s.shape),
                          dict(shapes))
-    got = alexnet_state_dict_from_flax(zeros)
+    got = bridged(zeros, 1000, 227)
     with torch.device("meta"):
         module = AlexNetCNN()
     want = {k: tuple(v.shape) for k, v in module.state_dict().items()}
@@ -214,17 +222,17 @@ def test_bridge_refuses_missing_and_leftover_leaves():
     missing = jax.tree.map(lambda v: v, params)
     del missing["Dense_2"]["Dense_0"]["bias"]
     with pytest.raises(KeyError, match="missing"):
-        alexnet_state_dict_from_flax(missing)
+        bridged(missing)
     extra = jax.tree.map(lambda v: v, params)
     extra["Dense_3"] = {"Dense_0": {"bias": np.zeros(3, np.float32)}}
     with pytest.raises(KeyError, match="left unmapped"):
-        alexnet_state_dict_from_flax(extra)
+        bridged(extra)
 
 
 def test_export_served_by_inference_server_equals_module_eval(tmp_path):
     model = tiny_model()
     model.module.load_state_dict(
-        alexnet_state_dict_from_flax(random_params(seed=9)))
+        bridged(random_params(seed=9)))
     export_model(model, str(tmp_path), version=0)
     rows = np.random.default_rng(10).integers(0, 256, (6, CROP, CROP, 3),
                                               dtype=np.uint8)
@@ -280,8 +288,11 @@ def test_data_at_crop_227_matches_jax():
 
 
 def test_refusals_and_recipe():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        AlexNet(config=ModelConfig(batch_norm=True), device="cpu")
+    # the BN variant is ported (tests/test_torch_zoo.py holds it to JAX's)
+    bn = AlexNet(config=ModelConfig(batch_norm=True), device="cpu",
+                 n_classes=CLASSES, crop=CROP, data=tiny_model().data)
+    assert bn.uses_batchnorm and bn.module.Conv_0.bias is None
+    assert isinstance(bn.module.BatchNorm_4, L.BatchNormAct)
     cfg = AlexNet.default_config()
     assert (cfg.batch_size, cfg.learning_rate, cfg.momentum,
             cfg.weight_decay, cfg.lr_decay_epochs, cfg.compute_dtype,

@@ -116,6 +116,55 @@ def test_scale_bias_act_autograd_runs_the_backward_kernel(cuda):
     assert x.grad.dtype == torch.bfloat16 and scale.grad is not None
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 14, 14, 64), (3, 7, 7, 528)])
+def test_bias_act_runs_k1a_and_k1c_at_unit_scale(cuda, dtype, shape):
+    """The BN-free zoo's conv epilogue (``layers.BiasAct``): K1a forward
+    and K1c backward with the constant unit scale, bit-exact against the
+    plain versions (dx too; db within 1e-5 of the sum of |g|), and the
+    scale receives no gradient."""
+    from theanompi_tpu_torch.models.layers import BiasAct
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    layer = BiasAct(shape[-1]).to(cuda)
+    with torch.no_grad():
+        layer.bias.normal_(0.0, 0.5, generator=gen)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    xr = x.clone().requires_grad_()
+    before = (fused_bn.K_FWD.launches, fused_bn.K_BWD.launches)
+    y = layer(xr)
+    y.backward(g)
+    torch.cuda.synchronize()
+    assert (fused_bn.K_FWD.launches, fused_bn.K_BWD.launches) == (
+        before[0] + 1, before[1] + 1)
+    ones = layer.ones()
+    assert ones.device == x.device and ones.grad is None
+    assert torch.equal(y, fused_bn.scale_bias_act_plain(x, ones, layer.bias))
+    dx, _, _, db = fused_bn._bwd_plain(x, ones, layer.bias.detach(), None,
+                                        g, True)
+    assert torch.equal(xr.grad, dx)
+    z = x.float() + layer.bias.detach()
+    gm = torch.where(z > 0, g.float(), 0).reshape(-1, shape[-1])
+    assert ((layer.bias.grad - db).abs() <= 1e-5 * gm.abs().sum(0)).all()
+
+
+@pytest.mark.parametrize("shape,n,k,alpha,dtype", [
+    ((64, 56, 56, 64), 5, 2.0, 1e-4, torch.bfloat16),    # GoogLeNet stem
+    ((64, 56, 56, 192), 5, 2.0, 1e-4, torch.bfloat16),
+    ((128, 15, 15, 32), 3, 1.0, 5e-5, torch.float32),    # Cifar10
+    ((128, 7, 7, 32), 3, 1.0, 5e-5, torch.float32)])
+def test_lrn_kernels_match_plain_at_the_zoo_shapes(cuda, shape, n, k, alpha,
+                                                   dtype):
+    """K3a/K3b at GoogLeNet's batch-64 and Cifar10's batch-128 shapes,
+    with each model's n, k and alpha: 0 ulp from the plain versions."""
+    x, g = _lrn_inputs(cuda, shape, dtype)
+    y = lrn.lrn_fwd(x, n, k, alpha)
+    dx = lrn.lrn_bwd(x, g, n, k, alpha)
+    assert torch.equal(y, lrn.lrn_plain(x, n, k, alpha))
+    assert torch.equal(dx, lrn.lrn_bwd_plain(x, g, n, k, alpha))
+
+
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 

@@ -181,14 +181,14 @@ def test_lars_norms_pair_one_jax_leaf_per_parameter(net):
         from theanompi_tpu.models.alex_net import AlexNetCNN as JaxNet
         from theanompi_tpu_torch.models.alex_net import AlexNetCNN
         from theanompi_tpu_torch.models.bridge import (
-            alexnet_state_dict_from_flax,
+            zoo_state_dict_from_flax,
         )
 
         module = AlexNetCNN(n_classes=10, crop=67)
         shapes = jax.eval_shape(JaxNet(n_classes=10).init, jax.random.key(0),
                                 jnp.zeros((1, 67, 67, 3)))
         n, ids = _leaf_ids(shapes["params"])
-        got = alexnet_state_dict_from_flax(ids)
+        got = zoo_state_dict_from_flax(module, ids)
     names = [name for name, _ in module.named_parameters()]
     assert sorted(got) == sorted(names) and len(names) == n
     if net == "resnet50":

@@ -1,9 +1,10 @@
 """Host-side augmentation: random crop + horizontal mirror + normalize.
 
-Counterpart of the numpy path of ``theanompi_tpu/data/utils.py`` for the
-ImageNet stream (no padding, mirror on): the JAX package also has a
-native C++ path with identical randomness and results.  Used when a
-dataset augments on the host (``augment_on_device=False``).
+Counterpart of the numpy path of ``theanompi_tpu/data/utils.py`` (the
+JAX package also has a native C++ path with identical randomness and
+results): reflect ``pad`` (CIFAR's 4 pixels), a random crop, a mirror of
+half the images, then ``(x/255 - mean)/std``.  Used when a dataset
+augments on the host (``augment_on_device=False``).
 """
 
 from __future__ import annotations
@@ -18,16 +19,21 @@ def _normalize(images: np.ndarray, mean, std) -> np.ndarray:
 
 
 def augment_normalize(images: np.ndarray, crop_h: int, crop_w: int,
-                      rng: np.random.Generator, *, mean,
-                      std) -> np.ndarray:
-    """Random crop + mirror-half + ``(x/255 - mean)/std``; the random
-    draws come in the JAX package's order (ys, xs, flips)."""
+                      rng: np.random.Generator, *, mean, std,
+                      pad: int = 0) -> np.ndarray:
+    """Reflect-pad + random crop + mirror-half + ``(x/255 - mean)/std``;
+    the random draws come in the JAX package's order (ys, xs, flips)."""
     n, h, w, _ = images.shape
-    if h < crop_h or w < crop_w:
-        raise ValueError(f"images {h}x{w} smaller than crop {crop_h}x{crop_w}")
-    ys = rng.integers(0, h - crop_h + 1, size=n)
-    xs = rng.integers(0, w - crop_w + 1, size=n)
+    ph, pw = h + 2 * pad, w + 2 * pad
+    if ph < crop_h or pw < crop_w:
+        raise ValueError(
+            f"images {ph}x{pw} smaller than crop {crop_h}x{crop_w}")
+    ys = rng.integers(0, ph - crop_h + 1, size=n)
+    xs = rng.integers(0, pw - crop_w + 1, size=n)
     flips = rng.random(n) < 0.5
+    if pad:
+        images = np.pad(images, ((0, 0), (pad, pad), (pad, pad), (0, 0)),
+                        mode="reflect")
     rows = ys[:, None, None] + np.arange(crop_h)[None, :, None]
     cols = xs[:, None, None] + np.arange(crop_w)[None, None, :]
     out = images[np.arange(n)[:, None, None], rows, cols]

@@ -8,9 +8,13 @@ head; compute in ``dtype`` (bf16 under the recipe) on f32 master
 weights, f32 logits.  Convolutions and matmuls are ``F.conv2d`` and
 ``F.linear``, as the JAX package leaves them to XLA.
 
+The BN variant (``ModelConfig.batch_norm``) drops the conv biases and
+runs each conv's epilogue as ``BatchNormAct(relu)`` (the K1a/K1c kernels
+on the card, with the folded affine); the LRNs stay, as in JAX.
+
 Module attribute names follow the flax scopes (``Conv_0`` .. ``Conv_4``,
-``Dense_0`` .. ``Dense_2``) so the weight bridge (models/bridge.py) is
-mechanical.  The BN variant (``ModelConfig.batch_norm``) is not ported.
+``BatchNorm_0`` .. ``BatchNorm_4`` in the BN variant, ``Dense_0`` ..
+``Dense_2``) so the weight bridge (models/bridge.py) is mechanical.
 """
 
 from __future__ import annotations
@@ -43,18 +47,25 @@ def flat_features(crop: int) -> int:
 
 
 class AlexNetCNN(nn.Module):
-    """One-column AlexNet with channel grouping (NHWC in, f32 logits)."""
+    """One-column AlexNet with channel grouping (NHWC in, f32 logits);
+    ``batch_norm`` selects the BN variant."""
 
     def __init__(self, n_classes: int = 1000, crop: int = 227,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 batch_norm: bool = False):
         super().__init__()
         self.dtype = dtype
-        for name, cin, cout, kern, stride, pad, groups, std, b in CONVS:
+        self.batch_norm = batch_norm
+        for i, (name, cin, cout, kern, stride, pad, groups, std,
+                b) in enumerate(CONVS):
             setattr(self, name, L.Conv(
                 cin, cout, (kern, kern), (stride, stride), padding=pad,
-                dtype=dtype, groups=groups, bias=True,
+                dtype=dtype, groups=groups, bias=not batch_norm,
                 kernel_init=L.gaussian_init(std),
                 bias_init=L.constant_init(b)))
+            if batch_norm:
+                setattr(self, f"BatchNorm_{i}",
+                        L.BatchNormAct(cout, dtype=dtype, act="relu"))
         self.lrn = L.LRN(n=5, k=2.0, alpha=1e-4, beta=0.75)
         self.Dense_0 = L.Dense(flat_features(crop), 4096, dtype,
                                L.gaussian_init(0.005), L.constant_init(0.1))
@@ -64,20 +75,28 @@ class AlexNetCNN(nn.Module):
                                L.constant_init(0.0))
         self.drop = L.Dropout(0.5)
 
+    def _conv(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Conv ``i`` and its epilogue: relu, or the BN variant's
+        ``BatchNormAct(relu)``."""
+        x = getattr(self, f"Conv_{i}")(x)
+        if self.batch_norm:
+            return getattr(self, f"BatchNorm_{i}")(x)
+        return torch.relu(x)
+
     def forward(self, x: torch.Tensor, train: bool = False,
                 rng: torch.Generator | None = None) -> torch.Tensor:
         """Logits of NHWC ``x``.  ``train`` must agree with the module's
-        mode; in train mode the two dropouts draw from ``rng``."""
+        mode (the BN variant reads it); in train mode the two dropouts
+        draw from ``rng``."""
         if train != self.training:
             raise ValueError(f"forward(train={train}) on a module in "
                              f"{'train' if self.training else 'eval'} "
                              "mode; call .train() or .eval() first")
         x = x.to(self.dtype)
-        x = L.max_pool(self.lrn(torch.relu(self.Conv_0(x))), 3, 2)
-        x = L.max_pool(self.lrn(torch.relu(self.Conv_1(x))), 3, 2)
-        x = torch.relu(self.Conv_2(x))
-        x = torch.relu(self.Conv_3(x))
-        x = L.max_pool(torch.relu(self.Conv_4(x)), 3, 2)
+        x = L.max_pool(self.lrn(self._conv(0, x)), 3, 2)
+        x = L.max_pool(self.lrn(self._conv(1, x)), 3, 2)
+        x = self._conv(3, self._conv(2, x))
+        x = L.max_pool(self._conv(4, x), 3, 2)
         # NHWC flattened in (H, W, C) order, as the JAX reshape
         x = x.reshape(x.shape[0], -1)
         x = self.drop(torch.relu(self.Dense_0(x)), train, rng)
@@ -99,11 +118,11 @@ class AlexNet(TorchModel):
                  device: str | torch.device = "cuda", n_classes: int = 1000,
                  crop: int = 227, data: ImageNet_data | None = None):
         self._net_cfg = {"n_classes": int(n_classes), "crop": int(crop)}
-        if (config or self.default_config()).batch_norm:
-            raise NotImplementedError(
-                "AlexNet's BN variant (ModelConfig.batch_norm=True) is not "
-                "ported yet (ROADMAP.md section A, item 12)")
         super().__init__(config, device, data=data)
+
+    @property
+    def uses_batchnorm(self) -> bool:
+        return self.config.batch_norm
 
     @classmethod
     def default_config(cls) -> ModelConfig:
@@ -118,7 +137,8 @@ class AlexNet(TorchModel):
     def build_module(self) -> AlexNetCNN:
         return AlexNetCNN(n_classes=self.data.n_classes,
                           crop=self._net_cfg["crop"],
-                          dtype=self._compute_dtype())
+                          dtype=self._compute_dtype(),
+                          batch_norm=self.config.batch_norm)
 
     def build_data(self) -> ImageNet_data:
         cfg = self.config
@@ -128,7 +148,8 @@ class AlexNet(TorchModel):
                              n_classes=self._net_cfg["n_classes"])
 
     def init_weights(self, module: AlexNetCNN, gen: torch.Generator) -> None:
-        """The JAX recipe's Gaussian weights and constant biases."""
+        """The JAX recipe's Gaussian weights and constant biases (BN:
+        scale 1, bias 0)."""
         L.init_params(module, gen)
 
 

@@ -147,7 +147,9 @@ class TorchModel:
 
     name = "model"
     _net_cfg: dict | None = None
-    #: True for networks with BatchNorm (enables the small-batch warning)
+    #: True for networks with BatchNorm (enables the small-batch warning);
+    #: the zoo members with a BN variant make it a property that follows
+    #: ``config.batch_norm``
     uses_batchnorm: bool = False
     #: trained FLOPs per sample (forward + backward), for the recorder
     train_flops_per_sample: float | None = None
@@ -307,13 +309,24 @@ class TorchModel:
         the dataset's ``device_transform`` crops, mirrors and normalizes
         raw uint8 batches on the device first.  ``rng`` (the epoch's
         generator, :meth:`_epoch_rng`) feeds the augment draws and then
-        the module's own (dropout masks), so a run replays both."""
+        the module's own (dropout masks), so a run replays both.  A
+        module with auxiliary heads (GoogLeNet) returns ``(main, (aux,
+        weight), ...)`` in training: the loss is ``CE(main) + sum(weight
+        * CE(aux))``, each smoothed, and the metrics are ``main``'s."""
         x, y = batch
         transform = getattr(self.data, "device_transform", None)
         if transform is not None:
             x = transform(x, rng, train=True)
         logits = module(x, train=True, rng=rng)
-        loss = softmax_cross_entropy(logits, y, self.config.label_smoothing)
+        smooth = self.config.label_smoothing
+        if isinstance(logits, tuple):
+            logits, *aux = logits
+            loss = softmax_cross_entropy(logits, y, smooth)
+            for aux_logits, weight in aux:
+                loss = loss + weight * softmax_cross_entropy(aux_logits, y,
+                                                             smooth)
+        else:
+            loss = softmax_cross_entropy(logits, y, smooth)
         logits = logits.detach()
         metrics = {"loss": loss.detach(), "error": error_rate(logits, y)}
         if self.config.track_top5:
@@ -326,6 +339,8 @@ class TorchModel:
         if transform is not None:
             x = transform(x, None, train=False)  # center crop, no mirror
         logits = module(x, train=False)
+        if isinstance(logits, tuple):
+            logits = logits[0]
         metrics = {"loss": softmax_cross_entropy(logits, y),
                    "error": error_rate(logits, y)}
         if self.config.track_top5:

@@ -1,12 +1,5 @@
 """Weights across the two packages: flax trees -> the port's state_dict.
 
-A JAX AlexNet's ``params`` map onto :class:`~theanompi_tpu_torch.models.
-alex_net.AlexNetCNN` (:func:`alexnet_state_dict_from_flax`): the conv
-kernels ``Conv_{i}/Conv_0/kernel`` go HWIO ``(kh, kw, in/groups, out)``
--> OIHW ``(out, in/groups, kh, kw)``, the dense kernels
-``Dense_{i}/Dense_0/kernel`` go (in, out) -> (out, in), and the biases
-map as they are.
-
 A JAX TransformerLM's ``params`` map onto :class:`~theanompi_tpu_torch.
 models.transformer.TransformerLMNet` (:func:`transformer_state_dict_from_
 flax`): ``Embed_0/embedding`` and ``pos_emb`` as they are, each
@@ -27,6 +20,22 @@ resnet50.ResNet`:
   order, so with a projection ``BatchNorm_0`` is the projection's BN
   and the main BNs are ``BatchNorm_1..3``.
 
+The networks whose port modules carry the flax scope names (AlexNet,
+Cifar10, VGG16/19, GoogLeNet with its aux towers, and the BN variants
+of AlexNet, VGG and GoogLeNet) map mechanically
+(:func:`zoo_state_dict_from_flax`): a port module at ``a.b`` is the
+flax scope ``a/b``; a :class:`~theanompi_tpu_torch.models.layers.Conv`
+or ``Dense`` nests flax's own layer as ``Conv_0``/``Dense_0`` (kernel
+HWIO ``(kh, kw, in/groups, out)`` -> OIHW ``(out, in/groups, kh, kw)``,
+(in, out) -> (out, in)); a ``BatchNormAct`` named
+``BatchNorm_k`` is the JAX ``layers.BatchNorm`` wrapper, whose
+variables sit one scope deeper in ``BatchNorm_0`` (``scale``/``bias`` in
+``params``, ``mean``/``var`` in ``batch_stats``).  A ``BiasAct_k``
+takes its bias from ``BiasAct_k/bias`` in a tree built with
+``bn_act_impl='pallas'``, or from the conv before it,
+``Conv_k/Conv_0/bias``, in one built with ``'xla'`` (the tree holds no
+``BiasAct`` scope then).
+
 Every leaf must be used exactly once: a missing or a leftover leaf
 raises ``KeyError``.  :func:`params_from_flax` maps a ``params``-shaped
 tree alone (weights, or their gradients, or weights after an update)
@@ -41,6 +50,9 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from torch import nn
+
+from theanompi_tpu_torch.models import layers as L
 from theanompi_tpu_torch.models.resnet50 import ResNet
 
 
@@ -120,24 +132,6 @@ def _to_torch(pool: dict, out: dict) -> dict[str, torch.Tensor]:
             for k, v in out.items()}
 
 
-def alexnet_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
-    """The port's AlexNet ``state_dict`` (f32 tensors) from a flax
-    AlexNet's ``params``-shaped tree (weights, their gradients, or
-    weights after an update)."""
-    from theanompi_tpu_torch.models.alex_net import CONVS
-
-    pool = {("params", k): v for k, v in _flatten(params).items()}
-    out: dict[str, np.ndarray] = {}
-    scopes = ([(c[0], "Conv_0", (3, 2, 0, 1)) for c in CONVS]
-              + [(f"Dense_{i}", "Dense_0", (1, 0)) for i in range(3)])
-    for scope, inner, perm in scopes:
-        out[f"{scope}.weight"] = _pop_leaf(
-            pool, "params", f"{scope}/{inner}/kernel").transpose(perm)
-        out[f"{scope}.bias"] = _pop_leaf(pool, "params",
-                                         f"{scope}/{inner}/bias")
-    return _to_torch(pool, out)
-
-
 def transformer_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
     """The port's TransformerLMNet ``state_dict`` (f32 tensors) from a
     flax TransformerLMNet's ``params``-shaped tree (weights, their
@@ -206,3 +200,63 @@ def _from_flax(module: ResNet, params, batch_stats) -> dict:
                 "params", f"{scope}/Dense_0/kernel").T
             out[f"{prefix}.bias"] = take("params", f"{scope}/Dense_0/bias")
     return _to_torch(pool, out)
+
+
+def zoo_arrays_from_flax(module: nn.Module, params=None,
+                         batch_stats=None) -> dict[str, np.ndarray]:
+    """``{port state_dict name: numpy array}`` for ``module`` (a zoo
+    network named by the flax scopes, module docstring) from a flax
+    ``params``-shaped tree (weights or their gradients) and/or its
+    ``batch_stats``: every parameter when ``params`` is given, every BN
+    running statistic when ``batch_stats`` is.  The arrays are views
+    (transposed kernels), not copies."""
+    pool = {}
+    if params is not None:
+        pool.update({("params", k): v for k, v in _flatten(params).items()})
+    if batch_stats is not None:
+        pool.update({("batch_stats", k): v
+                     for k, v in _flatten(batch_stats).items()})
+    fused = any("BiasAct_" in path for _, path in pool)
+    out: dict[str, np.ndarray] = {}
+    for name, m in module.named_modules():
+        scope = name.replace(".", "/")
+        if isinstance(m, (L.Conv, L.Dense)) and params is not None:
+            inner, perm = (("Conv_0", (3, 2, 0, 1)) if isinstance(m, L.Conv)
+                           else ("Dense_0", (1, 0)))
+            out[f"{name}.weight"] = _pop_leaf(
+                pool, "params", f"{scope}/{inner}/kernel").transpose(perm)
+            if m.bias is not None:
+                out[f"{name}.bias"] = _pop_leaf(pool, "params",
+                                                f"{scope}/{inner}/bias")
+        elif isinstance(m, L.BiasAct) and params is not None:
+            parent, _, leaf = scope.rpartition("/")
+            conv = f"{parent}/Conv_{leaf.split('_')[-1]}".lstrip("/")
+            out[f"{name}.bias"] = _pop_leaf(
+                pool, "params",
+                f"{scope}/bias" if fused else f"{conv}/Conv_0/bias")
+        elif isinstance(m, L.BatchNormAct):
+            for coll, names in (("params", ("scale", "bias")),
+                                ("batch_stats", ("mean", "var"))):
+                if (params if coll == "params" else batch_stats) is None:
+                    continue
+                for leaf in names:
+                    out[f"{name}.{leaf}"] = _pop_leaf(
+                        pool, coll, f"{scope}/BatchNorm_0/{leaf}")
+    if pool:
+        left = sorted(f"{c}/{p}" for c, p in pool)
+        raise KeyError(f"{len(left)} flax leaves left unmapped: {left[:8]}")
+    params_names = {n for n, _ in module.named_parameters()}
+    expected = {n for n in module.state_dict()
+                if (n in params_names and params is not None)
+                or (n not in params_names and batch_stats is not None)}
+    if set(out) != expected:
+        raise KeyError("bridge keys differ from the module's state: "
+                       f"{sorted(set(out) ^ expected)[:8]}")
+    return out
+
+
+def zoo_state_dict_from_flax(module: nn.Module, params=None,
+                             batch_stats=None) -> dict[str, torch.Tensor]:
+    """:func:`zoo_arrays_from_flax` as f32 tensors: with both trees, the
+    module's whole ``state_dict``."""
+    return _to_torch({}, zoo_arrays_from_flax(module, params, batch_stats))

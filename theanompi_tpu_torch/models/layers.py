@@ -6,10 +6,13 @@ at every public boundary, as in the JAX package.  A convolution runs
 channels-last weight, so its output permutes back to a contiguous NHWC
 tensor without a copy, and the fused BN epilogue (ops/fused_bn.py) and
 the LRN kernels (ops/lrn.py) read that ``(N*H*W, C)`` view in place.
-Pooling is ``F.max_pool2d``/``F.avg_pool2d`` on the same view, as the
-JAX package leaves it to XLA's ``reduce_window``.  The transformer's
-layers (:class:`LayerNorm`, :class:`Embed`, :func:`gelu`, bias-free
-:class:`Dense`) follow flax's defaults, which differ from PyTorch's.
+Pooling (VALID, or flax's SAME) is ``F.max_pool2d``/``F.avg_pool2d``
+on the same view, as the JAX package leaves it to XLA's
+``reduce_window``; the max-pool kernels serve ResNet's stem alone.
+:class:`BiasAct` is the BN-free zoo's conv epilogue through the fused
+BN kernels at unit scale.  The transformer's layers (:class:`LayerNorm`,
+:class:`Embed`, :func:`gelu`, bias-free :class:`Dense`) follow flax's
+defaults, which differ from PyTorch's.
 """
 
 from __future__ import annotations
@@ -44,11 +47,18 @@ def constant_init(v: float = 0.0) -> Init:
     return init
 
 
+def _fans(t: torch.Tensor) -> tuple[int, int]:
+    """(fan_in, fan_out) of an (out, in) dense or (out, in, kh, kw) conv
+    weight, as flax counts them (the receptive field multiplies both)."""
+    receptive = t[0, 0].numel()
+    return t.shape[1] * receptive, t.shape[0] * receptive
+
+
 def xavier_uniform() -> Init:
     """flax's ``xavier_uniform``: U(-a, a), a = sqrt(6 / (fan_in +
-    fan_out)), for a (out, in) weight."""
+    fan_out)), for a dense or conv weight."""
     def init(t: torch.Tensor, gen: torch.Generator) -> None:
-        fan_out, fan_in = t.shape
+        fan_in, fan_out = _fans(t)
         a = math.sqrt(6.0 / (fan_in + fan_out))
         t.uniform_(-a, a, generator=gen)
     return init
@@ -57,18 +67,18 @@ def xavier_uniform() -> Init:
 def he_normal() -> Init:
     """flax's ``he_normal``: a normal of variance 2 / fan_in TRUNCATED at
     two standard deviations (the std rescaled by 1/0.8796 so the
-    truncated draw keeps that variance), for an (out, in) weight."""
+    truncated draw keeps that variance), for a dense or conv weight."""
     def init(t: torch.Tensor, gen: torch.Generator) -> None:
-        std = math.sqrt(2.0 / t.shape[1]) / 0.87962566103423978
+        std = math.sqrt(2.0 / _fans(t)[0]) / 0.87962566103423978
         nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                               generator=gen)
     return init
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> None:
-    """Apply every :class:`Conv`/:class:`Dense`/:class:`Embed` layer's
-    own inits, in module order (layers built without inits are left as
-    they are)."""
+    """Apply every :class:`Conv`/:class:`Dense`/:class:`BiasAct`/
+    :class:`Embed` layer's own inits, in module order (layers built
+    without inits are left as they are)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (Conv, Dense)):
@@ -76,6 +86,8 @@ def init_params(module: nn.Module, gen: torch.Generator) -> None:
                                 (m.bias_init, m.bias)):
                     if init is not None and t is not None:
                         init(t, gen)
+            elif isinstance(m, BiasAct) and m.bias_init is not None:
+                m.bias_init(m.bias, gen)
             elif isinstance(m, Embed):
                 m.embedding.normal_(0.0, EMBED_STD, generator=gen)
 
@@ -230,6 +242,48 @@ class BatchNormAct(nn.Module):
                               act=self.act, out_dtype=self.dtype)
 
 
+class BiasAct(nn.Module):
+    """Per-channel bias + activation, the conv epilogue of the BN-free
+    zoo members (VGG, GoogLeNet): the JAX ``BiasAct``'s fused route,
+    ``scale_bias_act(x, 1, bias)`` (K1a forward and K1c backward on the
+    card): f32 math, ``x``'s dtype out.  The bias is an f32 parameter;
+    the unit scale is a constant kept per device, outside the module's
+    state and the autograd graph, so the ``sum(g * x)`` K1c computes for
+    it reaches no parameter.  (JAX's ``'xla'`` route adds a bf16 bias in
+    bf16 instead: the two agree bit for bit in f32 and within bf16
+    rounding in bf16.)"""
+
+    def __init__(self, features: int, bias_init: Init | None = None,
+                 act: str | None = "relu"):
+        super().__init__()
+        self.act = act
+        self.bias_init = bias_init
+        self.bias = nn.Parameter(torch.zeros(features))
+        self._ones: torch.Tensor | None = None
+
+    def ones(self) -> torch.Tensor:
+        """The unit scale on the bias's device."""
+        if self._ones is None or self._ones.device != self.bias.device:
+            self._ones = torch.ones_like(self.bias, requires_grad=False)
+        return self._ones
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return scale_bias_act(x, self.ones(), self.bias, act=self.act,
+                              out_dtype=x.dtype)
+
+
+def conv_epilogue(features: int, dtype: torch.dtype, batch_norm: bool,
+                  bias_init: Init | None = None) -> tuple[str, nn.Module]:
+    """The epilogue after a bias-free conv of a zoo member, with the flax
+    scope prefix it takes: ``("BatchNorm", BatchNormAct(relu))`` for the
+    BN variants (``ModelConfig.batch_norm``; the JAX ``layers.BatchNorm``
+    with ``act='relu'``, which nests its variables one scope deeper), else
+    ``("BiasAct", BiasAct(relu))``."""
+    if batch_norm:
+        return "BatchNorm", BatchNormAct(features, dtype=dtype, act="relu")
+    return "BiasAct", BiasAct(features, bias_init=bias_init, act="relu")
+
+
 class Dense(nn.Module):
     """Fully connected layer computed in ``dtype``: f32 by default (the
     JAX ``L.Dense`` default, which the ResNet head keeps under bf16
@@ -302,17 +356,41 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def max_pool(x: torch.Tensor, window: int = 3,
-             stride: int = 2) -> torch.Tensor:
-    """flax ``nn.max_pool`` over NHWC ``x`` with VALID windows (output
-    ``(H - window) // stride + 1``)."""
-    return to_nhwc(F.max_pool2d(x.permute(0, 3, 1, 2), window, stride))
+def _pool_input(x: torch.Tensor, window: int, stride: int, padding: str,
+                value: float) -> tuple[torch.Tensor, tuple[int, int]]:
+    """NCHW view of NHWC ``x`` and the symmetric pads left for the pool,
+    for ``padding`` ``"VALID"`` or ``"SAME"`` (flax's pads,
+    :func:`same_pads`): symmetric pads go to the pool, which pads max
+    with -inf and counts avg's zeros as flax does; asymmetric ones are
+    written by ``F.pad`` with ``value``, as :class:`Conv` does."""
+    if padding == "VALID":
+        return x.permute(0, 3, 1, 2), (0, 0)
+    if padding != "SAME":
+        raise ValueError(f"padding {padding!r} (want 'VALID'|'SAME')")
+    (pt, pb), (pl, pr) = (same_pads(x.shape[1], window, stride),
+                          same_pads(x.shape[2], window, stride))
+    if pt == pb and pl == pr:
+        return x.permute(0, 3, 1, 2), (pt, pl)
+    x = F.pad(x, (0, 0, pl, pr, pt, pb), value=value)
+    return x.permute(0, 3, 1, 2), (0, 0)
 
 
-def avg_pool(x: torch.Tensor, window: int = 3,
-             stride: int = 2) -> torch.Tensor:
-    """flax ``nn.avg_pool`` over NHWC ``x`` with VALID windows."""
-    return to_nhwc(F.avg_pool2d(x.permute(0, 3, 1, 2), window, stride))
+def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
+             padding: str = "VALID") -> torch.Tensor:
+    """flax ``nn.max_pool`` over NHWC ``x``: ``"VALID"`` windows (output
+    ``(H - window) // stride + 1``) or ``"SAME"`` (output ``ceil(H /
+    stride)``, padded with -inf, an odd pad at the end)."""
+    xp, pads = _pool_input(x, window, stride, padding, float("-inf"))
+    return to_nhwc(F.max_pool2d(xp, window, stride, pads))
+
+
+def avg_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
+             padding: str = "VALID") -> torch.Tensor:
+    """flax ``nn.avg_pool`` over NHWC ``x``, ``"VALID"`` or ``"SAME"``
+    (zero pads counted in the mean: flax's ``count_include_pad``)."""
+    xp, pads = _pool_input(x, window, stride, padding, 0.0)
+    return to_nhwc(F.avg_pool2d(xp, window, stride, pads,
+                                count_include_pad=True))
 
 
 class LRN(nn.Module):

@@ -125,21 +125,26 @@ class ResNet(nn.Module):
 
 class ResNet50(TorchModel):
     """ResNet-50, served or trained (BSP): full width by default;
-    ``stage_sizes``, ``width``, ``n_classes`` and ``crop`` (the crop of
+    ``stage_sizes`` (default: the class's, as the JAX zoo's deeper
+    ResNets set it), ``width``, ``n_classes`` and ``crop`` (the crop of
     the uint8 store images) are recorded as an export's net dims.
     ``data`` passes a ready ``ImageNet_data`` (e.g. a smaller synthetic
     pool) instead of the one built from the config."""
 
     name = "resnet50"
     uses_batchnorm = True
+    #: blocks per stage; the zoo's ResNet-101/152 override it
+    stage_sizes: Sequence[int] = (3, 4, 6, 3)
     #: 2 x MACs of the forward at 224 (8.2 GFLOP), x3 for fwd + bwd
     train_flops_per_sample = 24.6e9
 
     def __init__(self, config: ModelConfig | None = None,
                  device: str | torch.device = "cuda",
-                 stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 stage_sizes: Sequence[int] | None = None, width: int = 64,
                  n_classes: int = 1000, crop: int = 224,
                  data: ImageNet_data | None = None):
+        if stage_sizes is None:
+            stage_sizes = self.stage_sizes
         self._net_cfg = {"stage_sizes": [int(s) for s in stage_sizes],
                          "width": int(width), "n_classes": int(n_classes),
                          "crop": int(crop)}
