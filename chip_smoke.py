@@ -126,6 +126,9 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    ResNet-50 at batch 128, bf16 on f32 master weights, on shard files of
    8 training and 2 validation batches cut from the synthetic pool
    (``--set data_dir=...``), ``n_epochs=3``, a checkpoint per epoch.
+   The port's ``prepare_imagenet_shards`` writes that tree, first as npz
+   and again as npy pairs: no npz shard may be left, and the manifest's
+   counts must be the arrays'.
    (a) Unbroken, twice; the first with ``THEANOMPI_TPU_PROFILE`` over 3
    steps.  (b) ``--epochs 2`` with a fault plan that truncates epoch 1's
    checkpoint after its manifest is written, then ``--resume --epochs
@@ -207,11 +210,31 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    step beside the byte bound, the plain versions and (K3)
    ``F.local_response_norm``.
 
+19. The WGAN, the npz snapshots and ``sync_bn``, on one card.  (a) One
+   round of a seeded full-width WGAN (width 64, batch 64 a critic slice,
+   n_critic 5, f32) on the card and on the CPU (and in f64 there) from
+   the same weights, real rows and noise: both losses within relative
+   1e-5, each network's update within ``WGAN_LIMITS`` in relative L2,
+   every critic weight within 0.01, none of the 11 kernels launched;
+   then ms per round on the card (median of timed rounds).  (b)
+   ``python -m theanompi_tpu_torch.launcher BSP -D 1 -m
+   theanompi_tpu_torch.models.wasserstein_gan -c Wasserstein_GAN
+   --epochs 1`` on the synthetic CIFAR pool: finite losses, no kernel
+   launched, the clip held in its checkpoint, ms per round and images/s;
+   that model's ``save``, ``load`` into a fresh one and ``generate(8,
+   seed=1)`` bit for bit, the npz holding the flax paths and shapes of
+   ``WGAN_NPZ``.  (c) On a one-rank NCCL group: ResNet-50 at batch 128,
+   bf16, ``SYNC_BN_STEPS`` steps with ``sync_bn`` bit-identical to the
+   same steps without it and with phase 6's launches per step, then ms
+   per step both ways; and 8 steps of VGG16 with ``batch_norm`` and
+   ``sync_bn`` through ``run_bsp_session`` with phase 18's launches.
+
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
 their own); 16 runs after it, then 17 on a one-rank group of its own
 (its launcher runs after that group ends), then 18 (18a before its own
-one-rank group, 18c's launchers after it).  Phase 9 checkpoints each
+one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
+its own one-rank group, (c) on it).  Phase 9 checkpoints each
 epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
 checkpoints.
 
@@ -372,6 +395,47 @@ ZOO_BATCH, ZOO_STEPS, ZOO_SHORT_STEPS = 64, 16, 8
 ZOO_GRAD_LIMITS = {"f32_loss_rel": 1e-5, "f32_grad_vs_f32": 2e-3,
                    "f32_worst_tensor": 0.05, "loss_rel": 1e-2,
                    "grad_vs_f32": 0.1, "grad_vs_cpu_bf16": 0.1}
+#: phase 19 (a): one seeded full-width WGAN round (width 64, batch 64 a
+#: critic slice, n_critic 5, f32, TF32 off) on the card and on the CPU
+#: from the same weights, real rows and noise.  The two losses within
+#: relative 1e-5.  Each network's update over the round (parameters
+#: after less before; the parameters themselves move by far less than
+#: their norm) in relative L2: the generator's within 2e-2 and the
+#: critic's within 1e-3.  Reason: f32 itself lies 2.1e-3 (generator)
+#: and 4.2e-5 (critic) from an f64 round of the same inputs on the CPU
+#: (measured before this phase first ran; the phase reads it again);
+#: the generator's gradient reaches it through a critic clipped to
+#: 0.01, so it is small and cancels, and RMSprop's update carries at
+#: most the gradient's relative error; the card sums in other orders,
+#: so 10x (generator) and about 25x (critic) that distance.
+WGAN_WIDTH, WGAN_BATCH, WGAN_N_CRITIC = 64, 64, 5
+WGAN_WARMUP_ROUNDS, WGAN_TIMED_ROUNDS = 3, 10
+WGAN_LIMITS = {"loss_rel": 1e-5, "generator_update": 2e-2,
+               "critic_update": 1e-3}
+#: the WGAN's npz snapshot at width 64 (both networks at 128): flax's
+#: paths in its flattening order, and their shapes (HWIO convs, flax's
+#: (kh, kw, in, out) transposed-conv kernels, (in, out) dense kernels)
+WGAN_NPZ = {
+    "critic/Conv_0/Conv_0/bias": (64,),
+    "critic/Conv_0/Conv_0/kernel": (4, 4, 3, 64),
+    "critic/Conv_1/Conv_0/bias": (128,),
+    "critic/Conv_1/Conv_0/kernel": (4, 4, 64, 128),
+    "critic/Conv_2/Conv_0/bias": (256,),
+    "critic/Conv_2/Conv_0/kernel": (4, 4, 128, 256),
+    "critic/Dense_0/Dense_0/bias": (1,),
+    "critic/Dense_0/Dense_0/kernel": (4096, 1),
+    "generator/ConvTranspose_0/bias": (256,),
+    "generator/ConvTranspose_0/kernel": (4, 4, 256, 256),
+    "generator/ConvTranspose_1/bias": (128,),
+    "generator/ConvTranspose_1/kernel": (4, 4, 256, 128),
+    "generator/ConvTranspose_2/bias": (3,),
+    "generator/ConvTranspose_2/kernel": (4, 4, 128, 3),
+    "generator/Dense_0/Dense_0/bias": (4096,),
+    "generator/Dense_0/Dense_0/kernel": (100, 4096)}
+#: phase 19 (c): ResNet-50 steps with and without sync_bn on staged
+#: batches (bit-identical at one rank), then timed rounds of one step
+#: each
+SYNC_BN_STEPS, SYNC_BN_ROUNDS = 4, 8
 
 
 def _launches(**per_step) -> dict:
@@ -2226,19 +2290,40 @@ def __getattr__(name: str):
 def ckpt_shards(root: str) -> str:
     """A shard tree of ``CKPT_STEPS`` training batches and
     ``CKPT_VAL_BATCHES`` validation batches of 128 uint8 256x256 images
-    drawn from the port's synthetic pool (64 images, seed 0); returns its
+    drawn from the port's synthetic pool (64 images, seed 0), one shard
+    each, written by the port's ``prepare_imagenet_shards``: first as
+    npz, then again as npy pairs, which must remove every npz shard and
+    leave a manifest whose counts are the arrays'; returns its
     directory."""
-    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.data.imagenet import (
+        ImageNet_data,
+        _load_shard,
+        prepare_imagenet_shards,
+    )
 
     pool = ImageNet_data(seed=0, synthetic_n=CKPT_STEPS * TRAIN_BATCH,
                          synthetic_pool=64)
-    os.makedirs(root, exist_ok=True)
-    for part, batches in (
-            ("train", pool.train_batches(0, CKPT_STEPS * TRAIN_BATCH)),
-            ("val", pool.train_batches(1, CKPT_VAL_BATCHES * TRAIN_BATCH))):
-        x, y = next(iter(batches))
-        np.save(os.path.join(root, f"{part}_0.x.npy"), x)
-        np.save(os.path.join(root, f"{part}_0.y.npy"), y)
+    parts = {part: next(iter(batches)) for part, batches in (
+        ("train", pool.train_batches(0, CKPT_STEPS * TRAIN_BATCH)),
+        ("val", pool.train_batches(1, CKPT_VAL_BATCHES * TRAIN_BATCH)))}
+    for shard_format in ("npz", "npy"):
+        for part, (x, y) in parts.items():
+            prepare_imagenet_shards(x, y, root, part, shard_size=len(y),
+                                    shard_format=shard_format)
+    with open(os.path.join(root, "manifest.json")) as f:
+        manifest = json.load(f)
+    names = sorted(os.listdir(root))
+    want = ["manifest.json", "train_0000.x.npy", "train_0000.y.npy",
+            "val_0000.x.npy", "val_0000.y.npy"]
+    counts = {name: len(_load_shard(os.path.join(root, name))[1])
+              for name in manifest}
+    if names != want or manifest != counts or manifest != {
+            "train_0000.x.npy": CKPT_STEPS * TRAIN_BATCH,
+            "val_0000.x.npy": CKPT_VAL_BATCHES * TRAIN_BATCH}:
+        raise AssertionError(f"shard tree {names}, manifest {manifest}, "
+                             f"shards hold {counts}")
+    log(f"  shard tree by prepare_imagenet_shards (npz, then npy): {names}, "
+        f"manifest {manifest}")
     return root
 
 
@@ -2919,10 +3004,28 @@ def zoo_grad_check(torch) -> dict:
     return out
 
 
+def zoo_builder(cls, steps: int, batch: int, workdir: str, **cfg):
+    """A function building one ImageNet zoo model of the JAX recipe at
+    ``batch`` with ``cfg`` on the synthetic pool (on-device augment) for
+    one epoch of ``steps`` steps."""
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+
+    def build():
+        crop = 227 if cls is AlexNet else 224
+        data = ImageNet_data(crop=crop, seed=0, synthetic_n=steps * batch,
+                             synthetic_pool=64, synthetic_store=256,
+                             augment_on_device=True)
+        config = dataclasses.replace(
+            cls.default_config(), batch_size=batch, n_epochs=1,
+            print_freq=4, snapshot_dir=workdir, **cfg)
+        return cls(config=config, device="cuda", crop=crop, data=data)
+    return build
+
+
 def zoo_models(torch, workdir: str):
     """Phase 18 (b)'s runs: (label, a function building the model, its
     per-card batch, launches per training step, per validation batch)."""
-    from theanompi_tpu_torch.data.imagenet import ImageNet_data
     from theanompi_tpu_torch.models.alex_net import AlexNet
     from theanompi_tpu_torch.models.cifar10 import Cifar10_model
     from theanompi_tpu_torch.models.googlenet import GoogLeNet
@@ -2933,17 +3036,7 @@ def zoo_models(torch, workdir: str):
     from theanompi_tpu_torch.models.vgg16 import VGG16
 
     def imagenet(cls, steps, batch, **cfg):
-        def build():
-            crop = 227 if cls is AlexNet else 224
-            data = ImageNet_data(crop=crop, seed=0,
-                                 synthetic_n=steps * batch,
-                                 synthetic_pool=64, synthetic_store=256,
-                                 augment_on_device=True)
-            config = dataclasses.replace(
-                cls.default_config(), batch_size=batch, n_epochs=1,
-                print_freq=4, snapshot_dir=workdir, **cfg)
-            return cls(config=config, device="cuda", crop=crop, data=data)
-        return build
+        return zoo_builder(cls, steps, batch, workdir, **cfg)
 
     def cifar10():
         return Cifar10_model(config=dataclasses.replace(
@@ -3139,6 +3232,246 @@ def zoo_phase(torch, workdir: str) -> dict:
             "launcher": launched, "kernel_times": times}
 
 
+# -- phase 19: the WGAN, npz snapshots, sync_bn -----------------------------
+
+def _flat_update(torch, module, before: dict, prefix: str):
+    """The f64 update of the parameters under ``prefix`` (after less
+    ``before``), flattened."""
+    return torch.cat([(p.detach().double().cpu() - before[n]).reshape(-1)
+                      for n, p in module.named_parameters()
+                      if n.startswith(prefix)])
+
+
+def wgan_round_check(torch) -> dict:
+    """Phase 19 (a): one seeded full-width WGAN round on the card against
+    the same round on the CPU in f32 (and in f64, f32's own distance),
+    from the same weights, real rows and noise (``WGAN_LIMITS``); every
+    critic weight within the clip; no kernel of the port launched."""
+    from theanompi_tpu_torch.models.wasserstein_gan import Wasserstein_GAN
+    from theanompi_tpu_torch.ops import _kernels
+
+    config = dataclasses.replace(Wasserstein_GAN.default_config(),
+                                 batch_size=WGAN_BATCH)
+    models = {dev: Wasserstein_GAN(config=config, device=dev,
+                                   width=WGAN_WIDTH)
+              for dev in ("cuda", "cpu")}
+    models["f64"] = Wasserstein_GAN(config=config, device="cpu",
+                                    width=WGAN_WIDTH)
+    for m in models["f64"].module.modules():   # every layer computes in f64
+        if hasattr(m, "dtype"):
+            m.dtype = torch.float64
+    models["f64"].module.double()
+    for m in models.values():
+        m.module.load_state_dict(models["cuda"].module.state_dict())
+        m.compile_iter_fns()
+    before = {n: p.detach().double().cpu()
+              for n, p in models["cpu"].module.named_parameters()}
+    x, y = next(iter(models["cpu"].data.train_batches(
+        0, WGAN_BATCH * WGAN_N_CRITIC)))
+    z = torch.randn((WGAN_N_CRITIC + 1, WGAN_BATCH, 100),
+                    generator=torch.Generator().manual_seed(0))
+    out, updates = {}, {}
+    for dev, m in models.items():
+        dt = torch.float64 if dev == "f64" else torch.float32
+        to = "cuda" if dev == "cuda" else "cpu"
+        batch = (torch.from_numpy(x).to(to, dt), torch.from_numpy(y).to(to))
+        noise = (z[:WGAN_N_CRITIC].to(to, dt), z[WGAN_N_CRITIC].to(to, dt))
+        _kernels.reset_launch_counts()
+        metrics = m.round(m.state, batch, None, noise=noise)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = _kernels.launch_counts()
+        out[dev] = {k: float(v) for k, v in metrics.items()}
+        updates[dev] = {net: _flat_update(torch, m.module, before, net)
+                        for net in ("generator", "critic")}
+    def loss_rel_of(a, b):
+        return {k: abs(out[a][k] - out[b][k]) / abs(out[b][k])
+                for k in ("loss", "error")}
+
+    loss_rel, f32_loss_rel = loss_rel_of("cuda", "cpu"), loss_rel_of("cpu",
+                                                                     "f64")
+
+    def rel(a, b):
+        return {net: float((updates[a][net] - updates[b][net]).norm()
+                           / updates[b][net].norm())
+                for net in ("generator", "critic")}
+
+    card_vs_cpu, f32_vs_f64 = rel("cuda", "cpu"), rel("cpu", "f64")
+    clip = max(float(p.detach().abs().max())
+               for p in models["cuda"].module["critic"].parameters())
+    res = {"losses": out, "loss_rel": loss_rel,
+           "f32_vs_f64_loss": f32_loss_rel,
+           "update_rel_l2": card_vs_cpu, "f32_vs_f64_update": f32_vs_f64,
+           "critic_max_abs": clip, "launches": launched,
+           "limits": WGAN_LIMITS}
+    log(f"  (a) losses card {out['cuda']}, CPU {out['cpu']}: relative "
+        f"{loss_rel} (CPU f32 vs f64 {f32_loss_rel}); update relative L2 "
+        f"card vs CPU {card_vs_cpu} (CPU f32 vs f64 {f32_vs_f64}); critic "
+        f"max |w| {clip:.6f}; launches "
+        f"{ {k: v for k, v in launched.items() if v} or 'none'}")
+    if (max(loss_rel.values()) > WGAN_LIMITS["loss_rel"]
+            or card_vs_cpu["generator"] > WGAN_LIMITS["generator_update"]
+            or card_vs_cpu["critic"] > WGAN_LIMITS["critic_update"]
+            or clip > 0.01 or any(launched.values())):
+        raise AssertionError(f"WGAN round check failed: {res}")
+    # the steady round: the same staged rows, fresh noise each round
+    card, batch = models["cuda"], (torch.from_numpy(x).cuda(),
+                                   torch.from_numpy(y).cuda())
+    gen = card._epoch_rng(0)
+    ms = []
+    for i in range(WGAN_WARMUP_ROUNDS + WGAN_TIMED_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.round(card.state, batch, gen)
+        torch.cuda.synchronize()
+        if i >= WGAN_WARMUP_ROUNDS:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    med = sorted(ms)[len(ms) // 2]
+    images = WGAN_BATCH * WGAN_N_CRITIC
+    res.update(round_ms=ms, round_ms_median=med,
+               images_per_s=images * 1e3 / med)
+    log(f"  (a) {card_line()}: {med:.2f} ms per round (median of "
+        f"{len(ms)}, {min(ms):.2f}-{max(ms):.2f}; host wall, synchronised), "
+        f"{res['images_per_s']:.0f} images/s ({images} real images a round)")
+    return res
+
+
+def wgan_launcher(torch, workdir: str) -> dict:
+    """Phase 19 (b): ``python -m theanompi_tpu_torch.launcher BSP -D 1 -m
+    theanompi_tpu_torch.models.wasserstein_gan -c Wasserstein_GAN
+    --epochs 1`` (the default recipe and synthetic pool; no kernel
+    launched); every loss finite, the clip held in the epoch's
+    checkpoint, ms per round and images/s; then the checkpointed model's
+    ``save``, ``load`` into a fresh model and ``generate(8, seed=1)`` bit
+    for bit, with the npz holding ``WGAN_NPZ``."""
+    from theanompi_tpu_torch.models.wasserstein_gan import Wasserstein_GAN
+    from theanompi_tpu_torch.utils.checkpoint import Checkpointer
+
+    run = launcher_run(torch, workdir,
+                       "theanompi_tpu_torch.models.wasserstein_gan",
+                       "Wasserstein_GAN", 1, WGAN_BATCH * WGAN_N_CRITIC,
+                       _launches(), _launches(), ("print_freq=4",))
+    ck = Checkpointer(os.path.join(workdir, "wgan"), read_only=True)
+    payload = ck.restore(0)
+    ck.close()
+    clip = max(float(v.abs().max())
+               for v in payload["critic_params"].values())
+    if clip > 0.01 or payload["step"] != run["records"][0]["train_steps"]:
+        raise AssertionError(f"checkpoint: critic max |w| {clip}, step "
+                             f"{payload['step']}")
+    trained = Wasserstein_GAN(device="cuda", width=WGAN_WIDTH)
+    trained.adopt_restored_state(payload)
+    path = trained.save(os.path.join(workdir, "wgan_params.npz"))
+    fresh = Wasserstein_GAN(device="cuda", width=WGAN_WIDTH)
+    # cuDNN's transposed-conv forward (a conv's data gradient) may sum
+    # with atomics: generate with its deterministic algorithms
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        untrained = fresh.generate(8, seed=1)
+        fresh.load(path)
+        want, got = trained.generate(8, seed=1), fresh.generate(8, seed=1)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same_params = all(
+        torch.equal(p, q) for p, q in zip(trained.module.parameters(),
+                                          fresh.module.parameters()))
+    with np.load(path) as z:
+        keys = {k: z[k].shape for k in z.files}
+        order = list(z.files)
+    if (not same_params or not np.array_equal(got, want)
+            or np.array_equal(untrained, want) or keys != WGAN_NPZ
+            or order != list(WGAN_NPZ)):
+        raise AssertionError(f"save/load: parameters equal {same_params}, "
+                             f"generate equal {np.array_equal(got, want)}, "
+                             f"npz {keys}")
+    ms = run["ms_per_step"]
+    log(f"  (b) {card_line()}: WGAN launcher epoch {ms:.2f} ms per round "
+        f"(first rounds included), {run['images_per_s']:.0f} images/s "
+        f"({WGAN_BATCH * WGAN_N_CRITIC} real images a round); critic max "
+        f"|w| {clip:.6f}; save -> load -> generate(8, seed=1) bit for bit; "
+        f"npz {len(keys)} flax paths")
+    return {**run, "critic_max_abs": clip, "npz_keys": order}
+
+
+def sync_bn_resnet(torch) -> dict:
+    """Phase 19 (c), ResNet-50: ``SYNC_BN_STEPS`` steps with sync_bn on
+    the one-rank group bit-identical to the same steps without it, with
+    phase 6's launches per step; then ``SYNC_BN_ROUNDS`` timed rounds of
+    one step each, each model in turn."""
+    from theanompi_tpu_torch.models.layers import BatchNormAct
+    from theanompi_tpu_torch.ops import _kernels
+
+    data, batches = p17_batches(torch, SYNC_BN_STEPS)
+    runs = {"off": P17Run(data, single_step(batches)),
+            "on": P17Run(data, single_step(batches), sync_bn=True)}
+    counts = {}
+    for name, run in runs.items():
+        _kernels.reset_launch_counts()
+        for _ in range(SYNC_BN_STEPS):
+            run.step()
+        torch.cuda.synchronize()
+        counts[name] = {k: _kernels.launch_counts().get(k, 0)
+                        for k in TRAIN_LAUNCHES}
+        run.finite(torch)
+    want = {k: v * SYNC_BN_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    states = [r.model.module.state_dict() for r in runs.values()]
+    same = all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    ms: dict[str, list] = {name: [] for name in runs}
+    for _ in range(SYNC_BN_ROUNDS):
+        for name, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run.step()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    med = {name: sorted(v)[len(v) // 2] for name, v in ms.items()}
+    n_bn = sum(isinstance(m, BatchNormAct)
+               for m in runs["on"].model.module.modules())
+    log(f"  (c) ResNet-50 at batch {TRAIN_BATCH}, {SYNC_BN_STEPS} steps: "
+        f"sync_bn bit-identical to per-rank BN: {same}; launches with "
+        f"sync_bn {counts['on']}; {card_line()}: median ms per step "
+        f"(host wall, synchronised) off {med['off']:.2f}, on "
+        f"{med['on']:.2f} (+{med['on'] - med['off']:.2f} for {2 * n_bn} "
+        "statistics all-reduces a step)")
+    if not same or counts["on"] != want or counts["off"] != want:
+        raise AssertionError(f"sync_bn: bit-identical {same}, launches "
+                             f"{counts} (want {want} each)")
+    return {"bit_identical": same, "launches": counts["on"],
+            "ms_per_step": med, "ms_rounds": ms}
+
+
+def sync_bn_phase(torch, workdir: str) -> dict:
+    """Phase 19 (module docstring)."""
+    import torch.distributed as dist
+
+    out = {"wgan_round": wgan_round_check(torch)}
+    gc.collect()
+    sub = os.path.join(workdir, "wgan")
+    os.makedirs(sub)
+    out["wgan_launcher"] = wgan_launcher(torch, sub)
+    torch.cuda.empty_cache()
+    from theanompi_tpu_torch.models.vgg16 import VGG16
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        out["resnet50"] = sync_bn_resnet(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = zoo_builder(VGG16, ZOO_SHORT_STEPS, ZOO_BATCH, workdir,
+                            batch_norm=True, sync_bn=True)()
+        out["vgg16_bn"] = zoo_session(torch, "vgg16_bn with sync_bn", model,
+                                      ZOO_BATCH, VGG_TRAIN_LAUNCHES,
+                                      VGG_VAL_LAUNCHES)
+        del model
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -3304,6 +3637,11 @@ def main() -> int:
     log("phase 18: the classifier zoo")
     with tempfile.TemporaryDirectory() as tmp:
         zoo = zoo_phase(torch, tmp)
+    torch.cuda.empty_cache()
+
+    log("phase 19: the WGAN, npz snapshots and sync_bn")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase19 = sync_bn_phase(torch, tmp)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -3369,7 +3707,7 @@ def main() -> int:
                    "alexnet_step_trace": alex_trace, "k4": k4,
                    "lm_grad_check": lm_checked, "lm_session": lm_run,
                    "lm_step_trace": lm_trace, "checkpoint": ckpt,
-                   "rest_of_bsp": rest, "zoo": zoo,
+                   "rest_of_bsp": rest, "zoo": zoo, "phase19": phase19,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "

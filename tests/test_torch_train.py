@@ -446,12 +446,15 @@ def test_bsp_rule_and_refusals(tmp_path):
     for cfg in (dict(zero_sharding=True), dict(fsdp_sharding=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_bsp_session(_tiny_model(tmp_path, **cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _tiny_model(tmp_path, sync_bn=True).compile_iter_fns()
-    # the bf16 wire (by dtype and by the reference's strategy name) and
-    # the two cadences compile and take a step
+    # sync_bn with FSDP is refused as JAX refuses it
+    with pytest.raises(ValueError, match="sync_bn needs a shard_map"):
+        _tiny_model(tmp_path, sync_bn=True,
+                    fsdp_sharding=True).compile_iter_fns()
+    # the bf16 wire (by dtype and by the reference's strategy name), the
+    # two cadences and sync_bn (ported) compile and take a step
     for cfg in (dict(exchange_dtype="bf16"), dict(steps_per_call=2),
-                dict(grad_accum_steps=2), dict(exchange_strategy="nccl16")):
+                dict(grad_accum_steps=2), dict(exchange_strategy="nccl16"),
+                dict(sync_bn=True)):
         model = _tiny_model(tmp_path, **cfg)
         model.compile_iter_fns()
         model.begin_epoch(0)

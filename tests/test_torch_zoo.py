@@ -494,8 +494,7 @@ def test_resnet50_large_step_matches_jax_and_optax(tmp_path):
 
 def test_model_zoo_lists_every_ported_classifier():
     assert set(MODEL_ZOO) == set(JAX_ZOO) - {
-        "wgan", "transformer_lm_tp", "transformer_lm_pp",
-        "transformer_lm_moe"}
+        "transformer_lm_tp", "transformer_lm_pp", "transformer_lm_moe"}
     for key, (modelfile, classname) in MODEL_ZOO.items():
         assert modelfile.startswith("theanompi_tpu_torch.models.")
         assert modelfile.split(".")[-1] == JAX_ZOO[key][0].split(".")[-1]

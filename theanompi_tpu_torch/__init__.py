@@ -8,13 +8,15 @@ Pallas TPU kernel on a ported path is a CUDA C++ kernel written for
 ``sm_90a`` (``csrc/``), built with ``nvcc`` at first use and checked
 against a plain PyTorch version of the same function.
 
-Ported so far: ResNet-50 image-classification serving
-(``serving.InferenceServer`` over ``models.resnet50.ResNet50``) and
-ResNet-50 BSP training (``rules.bsp.BSP`` / ``run_bsp_session`` over
-``TorchModel.train_iter``, one process per card, ``torch.distributed``
-for the exchange), with the fused BN epilogue (forward and backward)
-and the stem max-pool (value and argmax forward, gather backward) as
-kernels.  Entry points take ``device=`` and default to ``"cuda"``.
+Ported so far (ROADMAP.md section A): ResNet-50 image-classification
+serving (``serving.InferenceServer``); BSP training (``rules.bsp.BSP`` /
+``run_bsp_session``, the launcher, one process per card,
+``torch.distributed`` for the exchange) of the classifier zoo, the
+TransformerLM and the WGAN, with every exchange mode, optimizer and
+cadence, ``sync_bn``, checkpoints and resume; the model contract's npz
+snapshots; shard preparation (``data.imagenet``,
+``tools.prepare_imagenet``).  Entry points take ``device=`` and default
+to ``"cuda"``.
 """
 
 __version__ = "0.1.0"

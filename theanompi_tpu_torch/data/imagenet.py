@@ -15,15 +15,30 @@ With ``augment_on_device`` (the default here) the host yields raw uint8
 store images and ``device_transform`` crops, mirrors and normalizes them
 on the device (ops/augment.py); a served request goes through its eval
 branch.  Otherwise the host augments (data/utils.py).
+
+Shard trees are written by :func:`prepare_imagenet_shards` (uint8 arrays
+in) and :func:`prepare_imagenet_from_images` (an ImageFolder tree of
+images, decoded with Pillow), the JAX package's byte for byte: shards
+``<prefix>_NNNN`` as ``.x.npy``/``.y.npy`` pairs (default) or ``.npz``,
+``manifest.json`` (samples per shard) and, from images, ``classes.json``.
+A rerun replaces the prefix's shards in either format, removing the
+leftovers only once the new set is complete; a failed run removes the
+new files it wrote, so a run in the other format leaves the earlier set
+whole (one in the same format has overwritten the shards it reached, as
+in JAX).  :func:`shard_tree_signature` is a tree's identity (seed, sizes
+and names of its training shards).
 """
 
 from __future__ import annotations
 
 import glob
+import hashlib
 import json
 import os
 import queue
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterator, Sequence
 
 import numpy as np
@@ -135,6 +150,21 @@ def shuffle_rng(seed: int, epoch: int, rank: int) -> np.random.Generator:
 def augment_rng(seed: int, epoch: int, rank: int) -> np.random.Generator:
     """The host-augmentation stream (constructed either way)."""
     return np.random.default_rng(seed + 5000 + 7919 * epoch + rank)
+
+
+def shard_tree_signature(train_files: Sequence[str],
+                         sizes: dict[str, int], seed: int) -> dict:
+    """Identity of a (shard set, seed) pair: the seed, the training
+    samples and files, and the sha256 of ``name:samples;`` per file in
+    order (what a trainer and a remote reader must agree on for their
+    streams to be byte-identical)."""
+    sig = hashlib.sha256()
+    for f in train_files:
+        sig.update(f"{os.path.basename(f)}:{sizes[f]};".encode())
+    return {"seed": int(seed),
+            "n_train": int(sum(sizes[f] for f in train_files)),
+            "n_files": len(train_files),
+            "files_sha256": sig.hexdigest()}
 
 
 def _synthetic_pool(n_images: int, n_classes: int, hw: int, seed: int):
@@ -306,3 +336,214 @@ class ImageNet_data(Dataset):
         files = epoch_file_order(self.train_files, self.seed, epoch, rank,
                                  size)
         return sum(self._file_sizes[f] for f in files) // global_batch
+
+
+# -- shard preparation -------------------------------------------------------
+
+
+def _update_manifest(out_dir: str, entries: dict[str, int]) -> None:
+    """Merge ``{shard basename: samples}`` into ``manifest.json``."""
+    manifest_path = os.path.join(out_dir, "manifest.json")
+    manifest = {}
+    if os.path.exists(manifest_path):
+        with open(manifest_path) as fh:
+            manifest = json.load(fh)
+    manifest.update(entries)
+    with open(manifest_path, "w") as fh:
+        json.dump(manifest, fh)
+
+
+def _write_shard(out_dir: str, prefix: str, index: int,
+                 x: np.ndarray, y: np.ndarray, shard_format: str) -> str:
+    """One shard in ``shard_format`` ('npy' pair or 'npz'); returns the
+    path training discovers (an npy pair's ``.x.npy``)."""
+    base = os.path.join(out_dir, f"{prefix}_{index:04d}")
+    if shard_format == "npy":
+        np.save(base + ".x.npy", x)
+        np.save(base + ".y.npy", y)
+        return base + ".x.npy"
+    if shard_format == "npz":
+        np.savez(base + ".npz", x=x, y=y)
+        return base + ".npz"
+    raise ValueError(f"unknown shard_format {shard_format!r} "
+                     "(expected 'npy' or 'npz')")
+
+
+def _unlink_shard(path: str) -> None:
+    os.unlink(path)
+    if path.endswith(".x.npy"):
+        sibling = path[: -len(".x.npy")] + ".y.npy"
+        if os.path.exists(sibling):
+            os.unlink(sibling)
+
+
+def _remove_shards(out_dir: str, paths, manifest: bool = True) -> None:
+    """Delete shard files (an npy pair's sibling too) and, with
+    ``manifest``, their manifest entries."""
+    paths = sorted(paths)
+    if not paths:
+        return
+    if manifest:
+        manifest_path = os.path.join(out_dir, "manifest.json")
+        if os.path.exists(manifest_path):
+            with open(manifest_path) as fh:
+                m = json.load(fh)
+            for p in paths:
+                m.pop(os.path.basename(p), None)
+            with open(manifest_path, "w") as fh:
+                json.dump(m, fh)
+    for p in paths:
+        if os.path.exists(p):
+            _unlink_shard(p)
+
+
+def prepare_imagenet_shards(src_images: np.ndarray, src_labels: np.ndarray,
+                            out_dir: str, prefix: str = "train",
+                            shard_size: int = 1024,
+                            shard_format: str = "npy") -> list[str]:
+    """Pack (N, H, W, 3) uint8 images and their labels into shards of
+    ``shard_size`` under ``out_dir`` (module docstring); returns the
+    shard paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    preexisting = set(_shard_glob(out_dir, prefix))
+    paths: list[str] = []
+    try:
+        for i in range(0, len(src_labels), shard_size):
+            paths.append(_write_shard(out_dir, prefix, i // shard_size,
+                                      src_images[i:i + shard_size],
+                                      src_labels[i:i + shard_size],
+                                      shard_format))
+    except BaseException:
+        _remove_shards(out_dir, set(paths) - preexisting, manifest=False)
+        raise
+    _remove_shards(out_dir, preexisting - set(paths))
+    _update_manifest(out_dir, {
+        os.path.basename(p): int(min(shard_size,
+                                     len(src_labels) - k * shard_size))
+        for k, p in enumerate(paths)})
+    return paths
+
+
+IMAGE_EXTENSIONS = (".jpeg", ".jpg", ".png", ".bmp", ".webp")
+
+
+def list_image_dir(src_dir: str,
+                   class_to_idx: dict[str, int] | None = None,
+                   extensions: Sequence[str] = IMAGE_EXTENSIONS,
+                   ) -> tuple[list[tuple[str, int]], dict[str, int]]:
+    """(path, label) pairs of an ImageFolder tree (one subdirectory per
+    class), labels from ``class_to_idx`` or the sorted subdirectory
+    names, and that mapping."""
+    classes = sorted(d for d in os.listdir(src_dir)
+                     if os.path.isdir(os.path.join(src_dir, d)))
+    if not classes:
+        raise FileNotFoundError(
+            f"{src_dir!r} has no class subdirectories (expected "
+            "<src_dir>/<class>/<image>.jpeg, the ImageFolder layout)")
+    if class_to_idx is None:
+        class_to_idx = {c: i for i, c in enumerate(classes)}
+    pairs = []
+    for c in classes:
+        if c not in class_to_idx:
+            raise KeyError(f"directory {c!r} missing from class_to_idx")
+        cdir = os.path.join(src_dir, c)
+        for f in sorted(os.listdir(cdir)):
+            if f.lower().endswith(tuple(extensions)):
+                pairs.append((os.path.join(cdir, f), class_to_idx[c]))
+    return pairs, class_to_idx
+
+
+def decode_image(path: str, store: int) -> np.ndarray:
+    """An image file -> uint8 (store, store, 3): RGB, the shorter side
+    resized to ``store`` (bilinear), center crop.  Needs Pillow."""
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im = im.convert("RGB")
+        w, h = im.size
+        scale = store / min(w, h)
+        im = im.resize((max(store, round(w * scale)),
+                        max(store, round(h * scale))), Image.BILINEAR)
+        left = (im.width - store) // 2
+        top = (im.height - store) // 2
+        im = im.crop((left, top, left + store, top + store))
+        return np.asarray(im, np.uint8)
+
+
+def _bounded_thread_map(fn: Callable, items: Sequence, workers: int,
+                        window: int) -> Iterator:
+    """``fn`` over ``items`` in a thread pool, in order, with at most
+    ``window`` results in flight (a slow consumer bounds the memory)."""
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        pending: deque = deque()
+        for item in items:
+            pending.append(pool.submit(fn, item))
+            if len(pending) >= window:
+                yield pending.popleft().result()
+        while pending:
+            yield pending.popleft().result()
+
+
+def prepare_imagenet_from_images(src_dir: str, out_dir: str,
+                                 prefix: str = "train", store: int = 256,
+                                 shard_size: int = 1024,
+                                 class_to_idx: dict[str, int] | None = None,
+                                 workers: int = 8,
+                                 shuffle_seed: int | None = 0,
+                                 shard_format: str = "npy") -> list[str]:
+    """An ImageFolder tree -> ``store``-sized uint8 shards, the manifest
+    and ``classes.json`` (module docstring), decoded in ``workers``
+    threads and streamed shard by shard.  ``shuffle_seed`` shuffles the
+    file order once (None keeps directory order, whose classes are
+    contiguous).  Needs Pillow; :func:`prepare_imagenet_shards` takes
+    decoded arrays instead."""
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            "raw-image preparation needs Pillow; pre-decode with "
+            "prepare_imagenet_shards(images, labels, ...) instead") from e
+
+    pairs, class_to_idx = list_image_dir(src_dir, class_to_idx)
+    if shuffle_seed is not None:
+        order = np.random.default_rng(shuffle_seed).permutation(len(pairs))
+        pairs = [pairs[i] for i in order]
+    os.makedirs(out_dir, exist_ok=True)
+    # the earlier run's shards go only once the new set is complete
+    preexisting = set(_shard_glob(out_dir, prefix))
+    with open(os.path.join(out_dir, "classes.json"), "w") as fh:
+        json.dump(class_to_idx, fh)
+
+    paths: list[str] = []
+    counts: dict[str, int] = {}
+    buf_x = np.empty((shard_size, store, store, 3), np.uint8)
+    buf_y = np.empty(shard_size, np.int32)
+    fill = 0
+
+    def flush():
+        nonlocal fill
+        p = _write_shard(out_dir, prefix, len(paths), buf_x[:fill],
+                         buf_y[:fill], shard_format)
+        paths.append(p)
+        counts[os.path.basename(p)] = fill
+        fill = 0
+
+    decoded = _bounded_thread_map(
+        lambda pl: (decode_image(pl[0], store), pl[1]), pairs,
+        workers=workers, window=workers * 4)
+    try:
+        for img, label in decoded:
+            buf_x[fill] = img
+            buf_y[fill] = label
+            fill += 1
+            if fill == shard_size:
+                flush()
+        if fill:
+            flush()
+    except BaseException:
+        # a failed run leaves the earlier set: remove this run's new files
+        _remove_shards(out_dir, set(paths) - preexisting, manifest=False)
+        raise
+    _remove_shards(out_dir, preexisting - set(paths))
+    _update_manifest(out_dir, counts)
+    return paths

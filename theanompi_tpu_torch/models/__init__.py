@@ -1,9 +1,9 @@
 """See the package docstring; module names follow ``theanompi_tpu``.
 
-``MODEL_ZOO`` lists every ported classifier under its JAX key, as
+``MODEL_ZOO`` lists every ported model under its JAX key, as
 ``theanompi_tpu.models.MODEL_ZOO`` does: (module path, class name), for
-``-m``/``-c`` of the launcher.  The port has no WGAN yet, and its
-transformer runs pure data parallel only (no TP/PP/MoE entries).
+``-m``/``-c`` of the launcher.  The port's transformer runs pure data
+parallel only (no TP/PP/MoE entries).
 """
 
 MODEL_ZOO = {
@@ -19,6 +19,8 @@ MODEL_ZOO = {
     "resnet152": ("theanompi_tpu_torch.models.model_zoo", "ResNet152"),
     "resnet50_large": ("theanompi_tpu_torch.models.model_zoo",
                        "ResNet50_LargeBatch"),
+    "wgan": ("theanompi_tpu_torch.models.wasserstein_gan",
+             "Wasserstein_GAN"),
 }
 
 __all__ = ["MODEL_ZOO"]

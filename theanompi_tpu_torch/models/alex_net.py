@@ -52,7 +52,7 @@ class AlexNetCNN(nn.Module):
 
     def __init__(self, n_classes: int = 1000, crop: int = 227,
                  dtype: torch.dtype = torch.float32,
-                 batch_norm: bool = False):
+                 batch_norm: bool = False, sync_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.batch_norm = batch_norm
@@ -65,7 +65,8 @@ class AlexNetCNN(nn.Module):
                 bias_init=L.constant_init(b)))
             if batch_norm:
                 setattr(self, f"BatchNorm_{i}",
-                        L.BatchNormAct(cout, dtype=dtype, act="relu"))
+                        L.BatchNormAct(cout, dtype=dtype, act="relu",
+                                       sync=sync_bn))
         self.lrn = L.LRN(n=5, k=2.0, alpha=1e-4, beta=0.75)
         self.Dense_0 = L.Dense(flat_features(crop), 4096, dtype,
                                L.gaussian_init(0.005), L.constant_init(0.1))
@@ -138,7 +139,8 @@ class AlexNet(TorchModel):
         return AlexNetCNN(n_classes=self.data.n_classes,
                           crop=self._net_cfg["crop"],
                           dtype=self._compute_dtype(),
-                          batch_norm=self.config.batch_norm)
+                          batch_norm=self.config.batch_norm,
+                          sync_bn=self.config.sync_bn)
 
     def build_data(self) -> ImageNet_data:
         cfg = self.config

@@ -10,13 +10,17 @@ round-trips between the two.
 until training starts), its dataset, its device and compute dtype, and
 the reference contract the rules drive: ``compile_iter_fns``,
 ``begin_epoch``, ``train_iter``, ``val_iter``/``val_epoch``,
-``adjust_hyperp`` and ``cleanup``, and the checkpoint hooks
-``checkpoint_payload`` / ``adopt_restored_state``.  Every exchange mode,
-optimizer and cadence of the JAX BSP step is taken (``steps_per_call``:
-k steps per ``train_iter``; ``grad_accum_steps``: one update from ``a``
-microbatches), apart from ZeRO, FSDP and ``sync_bn``.  ``begin_epoch``'s
-random stream and the data streams are pure functions of (seed, epoch,
-rank), so a run resumed at an epoch boundary replays the unbroken one.
+``adjust_hyperp`` and ``cleanup``, the checkpoint hooks
+``checkpoint_payload`` / ``adopt_restored_state``, the npz parameter
+snapshots (``params``, ``save``, ``load``: the JAX package's files, flax
+names and layouts through models/bridge.py), ``compile_grad_fn`` and
+``optimizer_hyperparams``.  Every exchange mode, optimizer and cadence of
+the JAX BSP step is taken (``steps_per_call``: k steps per
+``train_iter``; ``grad_accum_steps``: one update from ``a``
+microbatches), and ``sync_bn``, apart from ZeRO and FSDP.
+``begin_epoch``'s random stream and the data streams are pure functions
+of (seed, epoch, rank), so a run resumed at an epoch boundary replays
+the unbroken one.
 One process trains on one card; the rank and worker count come from
 ``torch.distributed``.
 """
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import warnings
 from typing import Iterator
 
@@ -41,15 +46,21 @@ from theanompi_tpu_torch.models.layers import (
 )
 from theanompi_tpu_torch.parallel.bsp import (
     TrainState,
+    grad_and_metrics,
     init_exchange_residual,
     make_bsp_accum_step,
     make_bsp_eval_step,
     make_bsp_multi_step,
     make_bsp_train_step,
 )
-from theanompi_tpu_torch.parallel.exchanger import BSP_Exchanger
+from theanompi_tpu_torch.parallel.exchanger import (
+    BSP_Exchanger,
+    zero_missing_grads,
+)
 from theanompi_tpu_torch.utils.helper_funcs import (
     build_optimizer,
+    load_params_npz,
+    save_params_npz,
     scale_lr,
     set_learning_rate,
 )
@@ -222,6 +233,12 @@ class TorchModel:
                 "eps": cfg.adam_eps, "rmsprop_decay": cfg.rmsprop_decay,
                 "lars_trust_coefficient": cfg.lars_trust_coefficient}
 
+    def optimizer_hyperparams(self) -> dict:
+        """The optimizer as plain values: ``learning_rate`` (the base LR,
+        worker-scaled) and ``build_optimizer``'s keyword arguments (the
+        JAX ``optimizer_hyperparams``)."""
+        return {"learning_rate": self._base_lr, **self._optimizer_kwargs()}
+
     def _ensure_state(self) -> TrainState:
         """The training state, made at first use: a model that only
         serves never builds an optimizer."""
@@ -304,6 +321,82 @@ class TorchModel:
                 r.copy_(rows[self.rank])
         return state
 
+    # -- npz parameter snapshots ---------------------------------------------
+
+    @property
+    def params(self) -> dict:
+        """The parameters as the JAX model's flax ``params`` tree: nested
+        dicts of f32 numpy arrays, flax names and layouts (models/bridge.py;
+        a BN-free zoo member's conv biases where ``config.bn_act_impl``
+        puts them)."""
+        from theanompi_tpu_torch.models.bridge import flax_params
+
+        return flax_params(self.module,
+                           fused=self.config.bn_act_impl == "pallas")
+
+    def save(self, path: str | None = None) -> str:
+        """Write :attr:`params` as the JAX package's npz snapshot (default
+        ``<snapshot_dir>/<name>_params.npz``); returns the path."""
+        path = path or os.path.join(self.config.snapshot_dir,
+                                    f"{self.name}_params.npz")
+        save_params_npz(path, self.params)
+        return path
+
+    def load(self, path: str) -> None:
+        """Replace the parameters in place from an npz snapshot of either
+        package (shapes checked, cast to f32): the BN running statistics
+        and the optimizer state stay as they are, as JAX's
+        ``state.replace(params=...)`` leaves them."""
+        self._load_params(self.module,
+                          load_params_npz(path, self.params))
+
+    @staticmethod
+    def _load_params(module: nn.Module, params: dict) -> None:
+        """Copy a flax ``params`` tree into ``module``'s parameters."""
+        from theanompi_tpu_torch.models.bridge import module_params_from_flax
+
+        tensors = module_params_from_flax(module, params)
+        res = module.load_state_dict(tensors, strict=False)
+        names = {n for n, _ in module.named_parameters()}
+        if res.unexpected_keys or names & set(res.missing_keys):
+            raise KeyError(f"snapshot does not cover the parameters: "
+                           f"{res.unexpected_keys or res.missing_keys}")
+
+    def compile_grad_fn(self):
+        """``fn(state, batch, rng) -> (grads, new_model_state, metrics)``:
+        one train-mode forward and backward with no update (the JAX
+        ``compile_grad_fn`` for parameter-server rules).  ``grads`` and
+        ``new_model_state`` map parameter and buffer names to new tensors;
+        the live state is left as it was (its running statistics and
+        gradients restored, the module's mode too)."""
+        loss_fn = self.loss_fn
+
+        def gstep(state, batch, rng):
+            module = state.module
+            params = list(module.parameters())
+            buffers = dict(module.named_buffers())
+            saved = {n: b.clone() for n, b in buffers.items()}
+            grads_before = [p.grad for p in params]
+            was_training = module.training
+            for p in params:
+                p.grad = None
+            module.train()
+            try:
+                metrics = grad_and_metrics(loss_fn, module, batch, rng)
+                zero_missing_grads(params)
+                grads = {n: p.grad for n, p in module.named_parameters()}
+                new_ms = {n: b.clone() for n, b in buffers.items()}
+            finally:
+                with torch.no_grad():
+                    for n, b in buffers.items():
+                        b.copy_(saved[n])
+                for p, g in zip(params, grads_before):
+                    p.grad = g
+                module.train(was_training)
+            return grads, new_ms, metrics
+
+        return gstep
+
     def loss_fn(self, module: nn.Module, batch, rng):
         """Softmax CE (with the config's label smoothing) + top-1 error;
         the dataset's ``device_transform`` crops, mirrors and normalizes
@@ -353,10 +446,17 @@ class TorchModel:
         """Build the BSP train and eval steps (``sync_type`` 'avg'
         averages the exchanged gradients, 'cdd' sums them), the stacked
         cadence's step when one is set, and put the module in train mode.
-        Raises on the configuration knobs the port has not taken over
-        yet (ZeRO, FSDP, ``sync_bn``)."""
+        ``sync_bn`` was threaded into the BNs when the module was built;
+        with it off, a per-rank batch under 16 on a BN network warns (JAX's
+        rule).  Raises on the knobs the port has not taken over yet (ZeRO,
+        FSDP), and on ``sync_bn`` with FSDP, as JAX does."""
         cfg = self.config
-        for knob in ("zero_sharding", "fsdp_sharding", "sync_bn"):
+        if cfg.fsdp_sharding and cfg.sync_bn:
+            raise ValueError(
+                "sync_bn needs a shard_map step with a named 'data' "
+                "axis; the FSDP step is GSPMD-jitted with no named "
+                "axes — use per-shard BN (sync_bn=False) with FSDP")
+        for knob in ("zero_sharding", "fsdp_sharding"):
             if getattr(cfg, knob):
                 raise NotImplementedError(
                     f"ModelConfig.{knob} is not ported yet (ROADMAP.md "
@@ -366,11 +466,13 @@ class TorchModel:
                 "steps_per_call and grad_accum_steps are both stacked-"
                 "batch cadences; combining them by nesting is not "
                 "supported — set one of them to 1")
-        if self.uses_batchnorm and self.batch_size < 16:
+        if self.uses_batchnorm and not cfg.sync_bn and self.batch_size < 16:
             warnings.warn(
                 f"{type(self).__name__}: per-rank batch {self.batch_size} "
-                "gives BatchNorm running statistics too noisy to serve "
-                "eval; raise batch_size", stacklevel=2)
+                "with sync_bn=False gives BatchNorm running statistics "
+                "too noisy to serve eval; set ModelConfig.sync_bn=True "
+                "(cross-rank statistics) or raise batch_size",
+                stacklevel=2)
         exchanger = BSP_Exchanger(
             strategy=cfg.exchange_strategy, avg=(sync_type != "cdd"),
             exchange_what=cfg.exchange_what,

@@ -36,11 +36,27 @@ takes its bias from ``BiasAct_k/bias`` in a tree built with
 ``Conv_k/Conv_0/bias``, in one built with ``'xla'`` (the tree holds no
 ``BiasAct`` scope then).
 
+A :class:`~theanompi_tpu_torch.models.layers.ConvTranspose` at ``a.b``
+is flax's ``nn.ConvTranspose`` at ``a/b`` itself (no inner scope): its
+``(kh, kw, in, out)`` kernel is flipped on (kh, kw) and permuted to the
+port's ``(in, out, kh, kw)`` weight, and its bias is taken as it is.  So
+the WGAN's ``nn.ModuleDict`` of ``generator`` and ``critic`` maps onto
+JAX's ``{"generator": ..., "critic": ...}`` parameter tree.
+
 Every leaf must be used exactly once: a missing or a leftover leaf
 raises ``KeyError``.  :func:`params_from_flax` maps a ``params``-shaped
 tree alone (weights, or their gradients, or weights after an update)
 onto the port's parameter names, and :func:`batch_stats_from_flax` the
 ``batch_stats`` alone onto its buffer names.
+
+The other way, :func:`flax_params` turns any port network's parameters
+into the flax-named ``params`` tree of numpy f32 arrays that the JAX
+model of the same configuration holds (kernels back in HWIO, ``(in,
+out)`` and flax's transposed-conv layouts), and :func:`module_params_
+from_flax` takes such a tree back to ``{parameter name: tensor}``; both
+pick the ResNet, TransformerLM or scope-named mapping by the module's
+class.  Parameters only, as the JAX contract's npz snapshots hold them
+(never ``batch_stats``), and each refuses a missing or leftover name.
 """
 
 from __future__ import annotations
@@ -54,6 +70,7 @@ from torch import nn
 
 from theanompi_tpu_torch.models import layers as L
 from theanompi_tpu_torch.models.resnet50 import ResNet
+from theanompi_tpu_torch.utils.helper_funcs import nest_paths
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -65,6 +82,22 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
         else:
             out[path] = np.asarray(v)
     return out
+
+
+#: flax layout -> port layout of each kind of leaf (numpy views)
+_FROM_FLAX = {
+    "conv": lambda a: a.transpose(3, 2, 0, 1),          # HWIO -> OIHW
+    "dense": lambda a: a.transpose(1, 0),               # (in, out) -> OI
+    "conv_t": lambda a: np.flip(a, (0, 1)).transpose(2, 3, 0, 1),
+    "same": lambda a: a,
+}
+#: port layout -> flax layout, the inverse of each
+_TO_FLAX = {
+    "conv": lambda a: a.transpose(2, 3, 1, 0),
+    "dense": lambda a: a.transpose(1, 0),
+    "conv_t": lambda a: np.flip(a.transpose(2, 3, 0, 1), (0, 1)),
+    "same": lambda a: a,
+}
 
 
 def resnet_layers(module: ResNet) -> Iterator[tuple[str, str, str]]:
@@ -132,6 +165,33 @@ def _to_torch(pool: dict, out: dict) -> dict[str, torch.Tensor]:
             for k, v in out.items()}
 
 
+def _transformer_param_leaves(n_layers: int):
+    """``(port parameter name, flax params path, layout)`` of every
+    parameter of an ``n_layers`` TransformerLMNet (module docstring)."""
+    yield "Embed_0.embedding", "Embed_0/embedding", "same"
+    yield "pos_emb", "pos_emb", "same"
+
+    def dense(port: str, scope: str, bias: bool):
+        yield f"{port}.weight", f"{scope}/kernel", "dense"
+        if bias:
+            yield f"{port}.bias", f"{scope}/bias", "same"
+
+    def norm(port: str, scope: str):
+        for name in ("scale", "bias"):
+            yield f"{port}.{name}", f"{scope}/{name}", "same"
+
+    for i in range(n_layers):
+        scope, port = f"Block_{i}", f"blocks.{i}"
+        yield from norm(f"{port}.LayerNorm_0", f"{scope}/LayerNorm_0")
+        yield from norm(f"{port}.LayerNorm_1", f"{scope}/LayerNorm_1")
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            yield from dense(f"{port}.{name}", f"{scope}/{name}", False)
+        for name in ("mlp_up", "mlp_down"):
+            yield from dense(f"{port}.{name}", f"{scope}/{name}", True)
+    yield from norm("LayerNorm_0", "LayerNorm_0")
+    yield from dense("Dense_0", "Dense_0", True)
+
+
 def transformer_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
     """The port's TransformerLMNet ``state_dict`` (f32 tensors) from a
     flax TransformerLMNet's ``params``-shaped tree (weights, their
@@ -139,32 +199,23 @@ def transformer_state_dict_from_flax(params) -> dict[str, torch.Tensor]:
     pool = {("params", k): v for k, v in _flatten(params).items()}
     n_layers = len({k.split("/")[0] for _, k in pool
                     if k.startswith("Block_")})
-    out: dict[str, np.ndarray] = {
-        "Embed_0.embedding": _pop_leaf(pool, "params", "Embed_0/embedding"),
-        "pos_emb": _pop_leaf(pool, "params", "pos_emb")}
+    return _to_torch(pool, {
+        port: _FROM_FLAX[layout](_pop_leaf(pool, "params", path))
+        for port, path, layout in _transformer_param_leaves(n_layers)})
 
-    def dense(port: str, scope: str, bias: bool) -> None:
-        out[f"{port}.weight"] = _pop_leaf(pool, "params",
-                                          f"{scope}/kernel").T
-        if bias:
-            out[f"{port}.bias"] = _pop_leaf(pool, "params", f"{scope}/bias")
 
-    def norm(port: str, scope: str) -> None:
-        for name in ("scale", "bias"):
-            out[f"{port}.{name}"] = _pop_leaf(pool, "params",
-                                              f"{scope}/{name}")
-
-    for i in range(n_layers):
-        scope, port = f"Block_{i}", f"blocks.{i}"
-        norm(f"{port}.LayerNorm_0", f"{scope}/LayerNorm_0")
-        norm(f"{port}.LayerNorm_1", f"{scope}/LayerNorm_1")
-        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            dense(f"{port}.{name}", f"{scope}/{name}", bias=False)
-        for name in ("mlp_up", "mlp_down"):
-            dense(f"{port}.{name}", f"{scope}/{name}", bias=True)
-    norm("LayerNorm_0", "LayerNorm_0")
-    dense("Dense_0", "Dense_0", bias=True)
-    return _to_torch(pool, out)
+def _resnet_param_leaves(module: ResNet):
+    """``(port parameter name, flax params path, layout)`` of every
+    parameter of a ResNet (module docstring)."""
+    for prefix, scope, kind in resnet_layers(module):
+        if kind == "conv":
+            yield f"{prefix}.weight", f"{scope}/Conv_0/kernel", "conv"
+        elif kind == "bn":
+            for name in ("scale", "bias"):
+                yield f"{prefix}.{name}", f"{scope}/{name}", "same"
+        else:
+            yield f"{prefix}.weight", f"{scope}/Dense_0/kernel", "dense"
+            yield f"{prefix}.bias", f"{scope}/Dense_0/bias", "same"
 
 
 def _from_flax(module: ResNet, params, batch_stats) -> dict:
@@ -174,31 +225,16 @@ def _from_flax(module: ResNet, params, batch_stats) -> dict:
     if batch_stats is not None:
         pool.update({("batch_stats", k): v
                      for k, v in _flatten(batch_stats).items()})
-
-    def take(coll: str, path: str) -> np.ndarray:
-        return _pop_leaf(pool, coll, path)
-
     out: dict[str, np.ndarray] = {}
-    for prefix, scope, kind in resnet_layers(module):
-        if params is None:
+    if params is not None:
+        for port, path, layout in _resnet_param_leaves(module):
+            out[port] = _FROM_FLAX[layout](_pop_leaf(pool, "params", path))
+    if batch_stats is not None:
+        for prefix, scope, kind in resnet_layers(module):
             if kind == "bn":
                 for name in ("mean", "var"):
-                    out[f"{prefix}.{name}"] = take("batch_stats",
-                                                   f"{scope}/{name}")
-        elif kind == "conv":
-            out[f"{prefix}.weight"] = take(
-                "params", f"{scope}/Conv_0/kernel").transpose(3, 2, 0, 1)
-        elif kind == "bn":
-            for name in ("scale", "bias"):
-                out[f"{prefix}.{name}"] = take("params", f"{scope}/{name}")
-            if batch_stats is not None:
-                for name in ("mean", "var"):
-                    out[f"{prefix}.{name}"] = take("batch_stats",
-                                                   f"{scope}/{name}")
-        else:
-            out[f"{prefix}.weight"] = take(
-                "params", f"{scope}/Dense_0/kernel").T
-            out[f"{prefix}.bias"] = take("params", f"{scope}/Dense_0/bias")
+                    out[f"{prefix}.{name}"] = _pop_leaf(
+                        pool, "batch_stats", f"{scope}/{name}")
     return _to_torch(pool, out)
 
 
@@ -220,28 +256,14 @@ def zoo_arrays_from_flax(module: nn.Module, params=None,
     out: dict[str, np.ndarray] = {}
     for name, m in module.named_modules():
         scope = name.replace(".", "/")
-        if isinstance(m, (L.Conv, L.Dense)) and params is not None:
-            inner, perm = (("Conv_0", (3, 2, 0, 1)) if isinstance(m, L.Conv)
-                           else ("Dense_0", (1, 0)))
-            out[f"{name}.weight"] = _pop_leaf(
-                pool, "params", f"{scope}/{inner}/kernel").transpose(perm)
-            if m.bias is not None:
-                out[f"{name}.bias"] = _pop_leaf(pool, "params",
-                                                f"{scope}/{inner}/bias")
-        elif isinstance(m, L.BiasAct) and params is not None:
-            parent, _, leaf = scope.rpartition("/")
-            conv = f"{parent}/Conv_{leaf.split('_')[-1]}".lstrip("/")
-            out[f"{name}.bias"] = _pop_leaf(
-                pool, "params",
-                f"{scope}/bias" if fused else f"{conv}/Conv_0/bias")
-        elif isinstance(m, L.BatchNormAct):
-            for coll, names in (("params", ("scale", "bias")),
-                                ("batch_stats", ("mean", "var"))):
-                if (params if coll == "params" else batch_stats) is None:
-                    continue
-                for leaf in names:
-                    out[f"{name}.{leaf}"] = _pop_leaf(
-                        pool, coll, f"{scope}/BatchNorm_0/{leaf}")
+        if params is not None:
+            for port, path, layout in _zoo_param_leaves(name, m, fused):
+                out[port] = _FROM_FLAX[layout](
+                    _pop_leaf(pool, "params", path))
+        if isinstance(m, L.BatchNormAct) and batch_stats is not None:
+            for leaf in ("mean", "var"):
+                out[f"{name}.{leaf}"] = _pop_leaf(
+                    pool, "batch_stats", f"{scope}/BatchNorm_0/{leaf}")
     if pool:
         left = sorted(f"{c}/{p}" for c, p in pool)
         raise KeyError(f"{len(left)} flax leaves left unmapped: {left[:8]}")
@@ -260,3 +282,84 @@ def zoo_state_dict_from_flax(module: nn.Module, params=None,
     """:func:`zoo_arrays_from_flax` as f32 tensors: with both trees, the
     module's whole ``state_dict``."""
     return _to_torch({}, zoo_arrays_from_flax(module, params, batch_stats))
+
+
+def _zoo_param_leaves(name: str, m: nn.Module, fused: bool):
+    """``(port parameter name, flax params path, layout)`` of the
+    parameters that module ``m`` at ``name`` owns itself (module
+    docstring's scope rules); ``fused``: the flax tree was built with
+    ``bn_act_impl='pallas'`` (``BiasAct`` scopes of its own)."""
+    scope = name.replace(".", "/")
+    if isinstance(m, (L.Conv, L.Dense)):
+        inner, layout = (("Conv_0", "conv") if isinstance(m, L.Conv)
+                         else ("Dense_0", "dense"))
+        yield f"{name}.weight", f"{scope}/{inner}/kernel", layout
+        if m.bias is not None:
+            yield f"{name}.bias", f"{scope}/{inner}/bias", "same"
+    elif isinstance(m, L.ConvTranspose):
+        yield f"{name}.weight", f"{scope}/kernel", "conv_t"
+        if m.bias is not None:
+            yield f"{name}.bias", f"{scope}/bias", "same"
+    elif isinstance(m, L.BiasAct):
+        parent, _, leaf = scope.rpartition("/")
+        conv = f"{parent}/Conv_{leaf.split('_')[-1]}".lstrip("/")
+        yield (f"{name}.bias",
+               f"{scope}/bias" if fused else f"{conv}/Conv_0/bias", "same")
+    elif isinstance(m, L.BatchNormAct):
+        for leaf in ("scale", "bias"):
+            yield f"{name}.{leaf}", f"{scope}/BatchNorm_0/{leaf}", "same"
+
+
+def _is_transformer(module: nn.Module) -> bool:
+    from theanompi_tpu_torch.models.transformer import TransformerLMNet
+
+    return isinstance(module, TransformerLMNet)
+
+
+def _param_leaves(module: nn.Module, fused: bool):
+    """``(port parameter name, flax params path, layout)`` of every
+    parameter of ``module``, by its family (module docstring)."""
+    if isinstance(module, ResNet):
+        return _resnet_param_leaves(module)
+    if _is_transformer(module):
+        return _transformer_param_leaves(len(module.blocks))
+    return (leaf for name, m in module.named_modules()
+            for leaf in _zoo_param_leaves(name, m, fused))
+
+
+def flax_params(module: nn.Module, fused: bool = False) -> dict:
+    """``module``'s parameters as the JAX model's flax ``params`` tree:
+    nested dicts of f32 numpy arrays in flax's layouts; ``fused`` places
+    a BN-free zoo member's conv biases as a tree built with
+    ``bn_act_impl='pallas'`` holds them (``BiasAct_k/bias``), else in the
+    conv before each.  Every parameter is used once."""
+    pool = {n: p.detach().float().cpu().numpy()
+            for n, p in module.named_parameters()}
+    leaves = []
+    for port, path, layout in _param_leaves(module, fused):
+        try:
+            leaf = pool.pop(port)
+        except KeyError:
+            raise KeyError(f"port parameter {port} is missing") from None
+        leaves.append((path, np.ascontiguousarray(_TO_FLAX[layout](leaf))))
+    if pool:
+        raise KeyError(f"{len(pool)} port parameters left unmapped: "
+                       f"{sorted(pool)[:8]}")
+    return nest_paths(leaves)
+
+
+def module_params_from_flax(module: nn.Module,
+                            params) -> dict[str, torch.Tensor]:
+    """``{parameter name: f32 tensor}`` of ``module`` from a flax
+    ``params`` tree (:func:`flax_params` inverted; a zoo tree of either
+    ``bn_act_impl``).  Every leaf must be used once and every parameter
+    covered."""
+    pool = {("params", k): v for k, v in _flatten(params).items()}
+    fused = any("BiasAct_" in path for _, path in pool)
+    out = {port: _FROM_FLAX[layout](_pop_leaf(pool, "params", path))
+           for port, path, layout in _param_leaves(module, fused)}
+    names = {n for n, _ in module.named_parameters()}
+    if set(out) != names:
+        raise KeyError("bridge keys differ from the module's parameters: "
+                       f"{sorted(set(out) ^ names)[:8]}")
+    return _to_torch(pool, out)

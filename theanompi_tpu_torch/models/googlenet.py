@@ -58,12 +58,12 @@ class ConvRelu(nn.Module):
                  kernel: tuple[int, int] = (1, 1),
                  strides: tuple[int, int] = (1, 1),
                  dtype: torch.dtype = torch.float32,
-                 batch_norm: bool = False):
+                 batch_norm: bool = False, sync_bn: bool = False):
         super().__init__()
         self.Conv_0 = L.Conv(in_features, features, kernel, strides,
                              dtype=dtype, kernel_init=L.xavier_uniform())
         kind, epi = L.conv_epilogue(features, dtype, batch_norm,
-                                    L.constant_init(0.2))
+                                    L.constant_init(0.2), sync_bn)
         self.epilogue = f"{kind}_0"
         setattr(self, self.epilogue, epi)
 
@@ -78,14 +78,14 @@ class Inception(nn.Module):
     def __init__(self, in_features: int, b1: int, b3r: int, b3: int,
                  b5r: int, b5: int, bp: int,
                  dtype: torch.dtype = torch.float32,
-                 batch_norm: bool = False):
+                 batch_norm: bool = False, sync_bn: bool = False):
         super().__init__()
         specs = ((in_features, b1, 1), (in_features, b3r, 1), (b3r, b3, 3),
                  (in_features, b5r, 1), (b5r, b5, 5), (in_features, bp, 1))
         for i, (cin, cout, k) in enumerate(specs):
             setattr(self, f"ConvRelu_{i}",
                     ConvRelu(cin, cout, (k, k), dtype=dtype,
-                             batch_norm=batch_norm))
+                             batch_norm=batch_norm, sync_bn=sync_bn))
         self.features = b1 + b3 + b5 + bp
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -102,13 +102,13 @@ class AuxHead(nn.Module):
 
     def __init__(self, in_features: int, hw: int, n_classes: int,
                  dtype: torch.dtype = torch.float32,
-                 batch_norm: bool = False):
+                 batch_norm: bool = False, sync_bn: bool = False):
         super().__init__()
         pooled = (hw - 5) // 3 + 1
         if pooled < 1:
             raise ValueError(f"aux head needs >= 5x5 input, got {hw}x{hw}")
         self.ConvRelu_0 = ConvRelu(in_features, 128, dtype=dtype,
-                                   batch_norm=batch_norm)
+                                   batch_norm=batch_norm, sync_bn=sync_bn)
         self.Dense_0 = L.Dense(pooled * pooled * 128, 1024, dtype,
                                L.gaussian_init(0.01), L.constant_init(0.1))
         self.Dense_1 = L.Dense(1024, n_classes, dtype, L.gaussian_init(0.01),
@@ -137,12 +137,13 @@ class GoogLeNetCNN(nn.Module):
 
     def __init__(self, n_classes: int = 1000, crop: int = 224,
                  aux_weight: float = 0.3, dtype: torch.dtype = torch.float32,
-                 width_mult: float = 1.0, batch_norm: bool = False):
+                 width_mult: float = 1.0, batch_norm: bool = False,
+                 sync_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.aux_weight = aux_weight
         stem, incs = widths(width_mult)
-        kw = dict(dtype=dtype, batch_norm=batch_norm)
+        kw = dict(dtype=dtype, batch_norm=batch_norm, sync_bn=sync_bn)
         self.ConvRelu_0 = ConvRelu(3, stem[0], (7, 7), (2, 2), **kw)
         self.ConvRelu_1 = ConvRelu(stem[0], stem[1], **kw)
         self.ConvRelu_2 = ConvRelu(stem[1], stem[2], (3, 3), **kw)
@@ -226,7 +227,8 @@ class GoogLeNet(TorchModel):
         return GoogLeNetCNN(n_classes=self.data.n_classes, crop=net["crop"],
                             dtype=self._compute_dtype(),
                             width_mult=net["width_mult"],
-                            batch_norm=self.config.batch_norm)
+                            batch_norm=self.config.batch_norm,
+                            sync_bn=self.config.sync_bn)
 
     def build_data(self) -> ImageNet_data:
         cfg = self.config

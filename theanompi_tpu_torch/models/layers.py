@@ -6,9 +6,13 @@ at every public boundary, as in the JAX package.  A convolution runs
 channels-last weight, so its output permutes back to a contiguous NHWC
 tensor without a copy, and the fused BN epilogue (ops/fused_bn.py) and
 the LRN kernels (ops/lrn.py) read that ``(N*H*W, C)`` view in place.
-Pooling (VALID, or flax's SAME) is ``F.max_pool2d``/``F.avg_pool2d``
-on the same view, as the JAX package leaves it to XLA's
-``reduce_window``; the max-pool kernels serve ResNet's stem alone.
+:class:`ConvTranspose` is flax's ``nn.ConvTranspose`` (the WGAN
+generator) on ``F.conv_transpose2d``.  With ``sync`` a
+:class:`BatchNormAct` takes its batch statistics over every rank
+(``ModelConfig.sync_bn``).  Pooling (VALID, or flax's SAME) is
+``F.max_pool2d``/``F.avg_pool2d`` on the same view, as the JAX package
+leaves it to XLA's ``reduce_window``; the max-pool kernels serve
+ResNet's stem alone.
 :class:`BiasAct` is the BN-free zoo's conv epilogue through the fused
 BN kernels at unit scale.  The transformer's layers (:class:`LayerNorm`,
 :class:`Embed`, :func:`gelu`, bias-free :class:`Dense`) follow flax's
@@ -21,6 +25,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -76,12 +81,12 @@ def he_normal() -> Init:
 
 
 def init_params(module: nn.Module, gen: torch.Generator) -> None:
-    """Apply every :class:`Conv`/:class:`Dense`/:class:`BiasAct`/
-    :class:`Embed` layer's own inits, in module order (layers built
-    without inits are left as they are)."""
+    """Apply every :class:`Conv`/:class:`ConvTranspose`/:class:`Dense`/
+    :class:`BiasAct`/:class:`Embed` layer's own inits, in module order
+    (layers built without inits are left as they are)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (Conv, Dense)):
+            if isinstance(m, (Conv, ConvTranspose, Dense)):
                 for init, t in ((m.kernel_init, m.weight),
                                 (m.bias_init, m.bias)):
                     if init is not None and t is not None:
@@ -161,6 +166,94 @@ class Conv(nn.Module):
         return to_nhwc(y)
 
 
+def conv_transpose_pads(kernel: int, stride: int,
+                        padding: str) -> tuple[int, int]:
+    """lax's ``conv_transpose`` pads ``(pad_a, pad_b)`` of one spatial
+    dim: the stride-dilated input is padded so and correlated with the
+    kernel.  ``"SAME"``: ``pad_len = k + s - 2``, ``pad_a = k - 1`` when
+    ``s > k - 1``, else ``ceil(pad_len / 2)``; ``"VALID"``: ``pad_len =
+    k + s - 2 + max(k - s, 0)``, ``pad_a = k - 1``."""
+    if padding == "SAME":
+        pad_len = kernel + stride - 2
+        pad_a = (kernel - 1 if stride > kernel - 1
+                 else -(-pad_len // 2))
+    elif padding == "VALID":
+        pad_len = kernel + stride - 2 + max(kernel - stride, 0)
+        pad_a = kernel - 1
+    else:
+        raise ValueError(f"ConvTranspose padding {padding!r} (want "
+                         "'SAME'|'VALID')")
+    return pad_a, pad_len - pad_a
+
+
+class ConvTranspose(nn.Module):
+    """flax's ``nn.ConvTranspose`` (``transpose_kernel=False``) over NHWC
+    input, computed in ``dtype``, with a bias by default.  flax correlates
+    the stride-dilated, padded input with its ``(kh, kw, in, out)`` kernel
+    as it is; ``F.conv_transpose2d`` correlates with its ``(in, out, kh,
+    kw)`` weight flipped in space, so the weight stored here is flax's
+    kernel flipped on (kh, kw) and permuted (the bridge does both).  The
+    lax pads (:func:`conv_transpose_pads`) become ``padding = k - 1 -
+    pad_a`` on both sides and ``output_padding = pad_b - pad_a`` at the
+    end; where ``pad_b`` is one less than ``pad_a`` (``"SAME"`` at odd
+    ``k + s``) the last row and column are cut instead, which is exact.
+    Padding other than ``"SAME"``/``"VALID"`` raises."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel: tuple[int, int], strides: tuple[int, int] = (1, 1),
+                 padding: str = "SAME", dtype: torch.dtype = torch.float32,
+                 use_bias: bool = True, kernel_init: Init | None = None,
+                 bias_init: Init | None = None):
+        super().__init__()
+        self.kernel = tuple(kernel)
+        self.strides = tuple(strides)
+        self.dtype = dtype
+        self.kernel_init = kernel_init
+        self.bias_init = bias_init
+        pads = [conv_transpose_pads(k, s, padding)
+                for k, s in zip(self.kernel, self.strides)]
+        self.padding = tuple(k - 1 - a for k, (a, _) in zip(self.kernel,
+                                                             pads))
+        self.output_padding = tuple(max(b - a, 0) for a, b in pads)
+        self.cuts = tuple(min(b - a, 0) for a, b in pads)
+        self.weight = nn.Parameter(
+            torch.empty(in_features, features, *self.kernel))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(self.dtype)
+        b = None if self.bias is None else self.bias.to(self.dtype)
+        y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2), w, b,
+                               stride=self.strides, padding=self.padding,
+                               output_padding=self.output_padding)
+        ch, cw = self.cuts
+        return to_nhwc(y[:, :, :y.shape[2] + ch, :y.shape[3] + cw])
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean of a tensor over the ranks of the default process group
+    (one all-reduce, then a division by the world size: JAX's
+    ``lax.pmean``); its backward is the same mean of the cotangent, what
+    JAX's ``shard_map`` step differentiates ``pmean`` to.  Without a
+    process group the world is this process alone."""
+
+    @staticmethod
+    def _mean(t: torch.Tensor) -> torch.Tensor:
+        t = t.clone(memory_format=torch.contiguous_format)
+        if not dist.is_initialized():
+            return t
+        dist.all_reduce(t)
+        return t / dist.get_world_size()
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor) -> torch.Tensor:
+        return _MeanOverRanks._mean(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        return _MeanOverRanks._mean(g)
+
+
 class BatchNormAct(nn.Module):
     """BatchNorm with its fused epilogue.
 
@@ -177,17 +270,23 @@ class BatchNormAct(nn.Module):
     running statistics move ``ra = momentum * ra + (1 - momentum) *
     stat`` (biased variance, outside autograd), and the gradient reaches
     ``x`` through the statistics by autograd, as JAX differentiates them.
+    With ``sync`` (``ModelConfig.sync_bn``) the stacked ``[mean, E[x^2]]``
+    (2 x C, f32) is averaged over the ranks of the default process group
+    in one collective before the variance is formed, forward and backward
+    (:class:`_MeanOverRanks`), so every rank normalizes by the global
+    batch's statistics and moves its running statistics from them.
     Entering train mode drops an affine folded by
     :func:`prepare_inference`."""
 
     def __init__(self, features: int, dtype: torch.dtype,
                  act: str | None = None, epsilon: float = 1e-5,
-                 momentum: float = 0.9):
+                 momentum: float = 0.9, sync: bool = False):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
         self.dtype = dtype
         self.act = act
+        self.sync = sync
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -223,6 +322,9 @@ class BatchNormAct(nn.Module):
         axes = tuple(range(x.ndim - 1))
         mean = xf.mean(axes)
         mean2 = (xf * xf).mean(axes)
+        if self.sync:
+            mean, mean2 = _MeanOverRanks.apply(
+                torch.stack([mean, mean2])).unbind()
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         with torch.no_grad():
             m = self.momentum
@@ -273,14 +375,17 @@ class BiasAct(nn.Module):
 
 
 def conv_epilogue(features: int, dtype: torch.dtype, batch_norm: bool,
-                  bias_init: Init | None = None) -> tuple[str, nn.Module]:
+                  bias_init: Init | None = None,
+                  sync_bn: bool = False) -> tuple[str, nn.Module]:
     """The epilogue after a bias-free conv of a zoo member, with the flax
     scope prefix it takes: ``("BatchNorm", BatchNormAct(relu))`` for the
     BN variants (``ModelConfig.batch_norm``; the JAX ``layers.BatchNorm``
-    with ``act='relu'``, which nests its variables one scope deeper), else
-    ``("BiasAct", BiasAct(relu))``."""
+    with ``act='relu'``, which nests its variables one scope deeper;
+    ``sync_bn`` its cross-rank statistics), else ``("BiasAct",
+    BiasAct(relu))``."""
     if batch_norm:
-        return "BatchNorm", BatchNormAct(features, dtype=dtype, act="relu")
+        return "BatchNorm", BatchNormAct(features, dtype=dtype, act="relu",
+                                         sync=sync_bn)
     return "BiasAct", BiasAct(features, bias_init=bias_init, act="relu")
 
 

@@ -37,20 +37,21 @@ class BottleneckBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int,
                  strides: tuple[int, int] = (1, 1),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, sync_bn: bool = False):
         super().__init__()
         out = features * 4
+        bn = dict(dtype=dtype, sync=sync_bn)
         self.proj_conv = self.proj_bn = None
         if in_features != out or tuple(strides) != (1, 1):
             self.proj_conv = L.Conv(in_features, out, (1, 1), strides,
                                     dtype=dtype)
-            self.proj_bn = L.BatchNormAct(out, dtype=dtype)
+            self.proj_bn = L.BatchNormAct(out, **bn)
         self.conv0 = L.Conv(in_features, features, (1, 1), dtype=dtype)
-        self.bn0 = L.BatchNormAct(features, dtype=dtype, act="relu")
+        self.bn0 = L.BatchNormAct(features, act="relu", **bn)
         self.conv1 = L.Conv(features, features, (3, 3), strides, dtype=dtype)
-        self.bn1 = L.BatchNormAct(features, dtype=dtype, act="relu")
+        self.bn1 = L.BatchNormAct(features, act="relu", **bn)
         self.conv2 = L.Conv(features, out, (1, 1), dtype=dtype)
-        self.bn2 = L.BatchNormAct(out, dtype=dtype, act="relu")
+        self.bn2 = L.BatchNormAct(out, act="relu", **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         residual = x
@@ -71,11 +72,13 @@ def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
 
 
 class ResNet(nn.Module):
-    """Generic bottleneck ResNet (50 = (3, 4, 6, 3)) over NHWC input."""
+    """Generic bottleneck ResNet (50 = (3, 4, 6, 3)) over NHWC input;
+    ``sync_bn`` gives every BN the statistics of the global batch."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  width: int = 64, n_classes: int = 1000,
-                 dtype: torch.dtype = torch.float32, stem: str = "conv7"):
+                 dtype: torch.dtype = torch.float32, stem: str = "conv7",
+                 sync_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.stem = stem
@@ -87,14 +90,15 @@ class ResNet(nn.Module):
                                     padding=((3, 3), (3, 3)), dtype=dtype)
         else:
             raise ValueError(f"unknown stem {stem!r}")
-        self.stem_bn = L.BatchNormAct(width, dtype=dtype)
+        self.stem_bn = L.BatchNormAct(width, dtype=dtype, sync=sync_bn)
         blocks = []
         in_f = width
         for stage, n_blocks in enumerate(stage_sizes):
             for block in range(n_blocks):
                 strides = (2, 2) if stage > 0 and block == 0 else (1, 1)
                 feats = width * 2 ** stage
-                blocks.append(BottleneckBlock(in_f, feats, strides, dtype))
+                blocks.append(BottleneckBlock(in_f, feats, strides, dtype,
+                                              sync_bn))
                 in_f = feats * 4
         self.blocks = nn.ModuleList(blocks)
         self.head = L.Dense(in_f, n_classes)
@@ -164,7 +168,8 @@ class ResNet50(TorchModel):
         return ResNet(stage_sizes=net["stage_sizes"], width=net["width"],
                       n_classes=self.data.n_classes,
                       dtype=self._compute_dtype(),
-                      stem=self.config.resnet_stem)
+                      stem=self.config.resnet_stem,
+                      sync_bn=self.config.sync_bn)
 
     def build_data(self) -> ImageNet_data:
         cfg = self.config

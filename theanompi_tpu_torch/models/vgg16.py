@@ -36,7 +36,7 @@ class VGGCNN(nn.Module):
 
     def __init__(self, blocks=VGG16_BLOCKS, n_classes: int = 1000,
                  crop: int = 224, dtype: torch.dtype = torch.float32,
-                 batch_norm: bool = False):
+                 batch_norm: bool = False, sync_bn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.blocks = tuple(tuple(b) for b in blocks)
@@ -46,7 +46,7 @@ class VGGCNN(nn.Module):
             for _ in range(n_convs):
                 i = len(self.layers)
                 kind, epi = L.conv_epilogue(features, dtype, batch_norm,
-                                            L.constant_init(0.0))
+                                            L.constant_init(0.0), sync_bn)
                 setattr(self, f"Conv_{i}", L.Conv(
                     cin, features, (3, 3), dtype=dtype,
                     kernel_init=L.he_normal()))
@@ -123,7 +123,8 @@ class VGG16(TorchModel):
         return VGGCNN(blocks=self.blocks, n_classes=self.data.n_classes,
                       crop=self._net_cfg["crop"],
                       dtype=self._compute_dtype(),
-                      batch_norm=self.config.batch_norm)
+                      batch_norm=self.config.batch_norm,
+                      sync_bn=self.config.sync_bn)
 
     def build_data(self) -> ImageNet_data:
         cfg = self.config

@@ -16,7 +16,8 @@ The payload is the canonical tree ``{params, opt_state, model_state,
 epoch, step}`` (``TorchModel.checkpoint_payload``): the module's
 parameters and buffers by name, the optimizer's state dict and
 ``TrainState.step``; with error feedback also ``exchange_residual``,
-every rank's residual per parameter name.
+every rank's residual per parameter name.  A WGAN's payload holds its
+two networks and optimizers instead (models/wasserstein_gan.py).
 """
 
 from __future__ import annotations
@@ -39,9 +40,12 @@ from theanompi_tpu_torch.resilience.retry import RetryPolicy
 PAYLOAD_FILE = "state.pt"
 DIGEST_FILE = "state.sha256"
 #: the payload keys a state digest covers (not ``epoch``: a label);
-#: ``exchange_residual`` is there only with error feedback
+#: ``exchange_residual`` is there only with error feedback, the
+#: ``gen_*``/``critic_*`` pairs only in a WGAN's payload (JAX's
+#: ``WGANState`` fields)
 STATE_KEYS = ("params", "model_state", "opt_state", "step",
-              "exchange_residual")
+              "exchange_residual", "gen_params", "gen_opt",
+              "critic_params", "critic_opt")
 #: the parts of a save that run in the background, in their order
 BACKGROUND_PARTS = ("write", "digest", "manifest")
 

@@ -1,7 +1,11 @@
-"""Batch division, learning-rate scaling and the optimizers.
+"""Batch division, learning-rate scaling, the optimizers and the npz
+parameter snapshots.
 
 Counterpart of ``theanompi_tpu/utils/helper_funcs.py``: the five optax
-chains the JAX ``build_optimizer`` makes, step for step.
+chains the JAX ``build_optimizer`` makes, step for step, and its
+``save_params_npz``/``load_params_npz`` format (one npz member per leaf
+of a nested dict of arrays, named by its key path joined with ``/``, in
+the order ``jax.tree_util`` flattens a dict: sorted keys, depth first).
 
 * 'sgd' is ``torch.optim.SGD``: with ``weight_decay`` it adds ``wd * p``
   to each gradient before the momentum trace, exactly the optax chain
@@ -32,6 +36,9 @@ named per parameter (``square_avg``, ``momentum_buffer``), so
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 #: optimizer families the JAX package builds (all ported)
@@ -179,3 +186,58 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
 def get_learning_rate(optimizer: torch.optim.Optimizer) -> float | None:
     groups = optimizer.param_groups
     return float(groups[0]["lr"]) if groups else None
+
+
+# -- npz parameter snapshots (the JAX package's format) --
+
+
+def _flat_leaves(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """``(key path, leaf)`` of a nested dict, keys sorted at each level
+    (``jax.tree_util``'s dict order)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.extend(_flat_leaves(v, path + "/"))
+        else:
+            out.append((path, v))
+    return out
+
+
+def nest_paths(leaves) -> dict:
+    """``(key path, leaf)`` pairs, the path's keys joined with ``/``, as a
+    nested dict."""
+    tree: dict = {}
+    for path, leaf in leaves:
+        *scopes, last = path.split("/")
+        node = tree
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        node[last] = leaf
+    return tree
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """Write a nested dict of arrays as the JAX ``save_params_npz`` does:
+    one member per leaf, named by its ``/``-joined key path."""
+    flat = {k: np.asarray(v) for k, v in _flat_leaves(params)}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+
+
+def load_params_npz(path: str, like: dict) -> dict:
+    """The nested dict of numpy arrays shaped as ``like``, read from an
+    npz of :func:`save_params_npz`'s form; each leaf is cast to ``like``'s
+    dtype.  A member ``like`` lacks is ignored, a missing one raises
+    ``KeyError`` and a shape that differs ``ValueError`` (JAX's
+    ``load_params_npz``)."""
+    out = []
+    with np.load(path) as data:
+        for key, leaf in _flat_leaves(like):
+            arr = data[key]
+            if arr.shape != leaf.shape:
+                raise ValueError(f"shape mismatch for {key}: {arr.shape} "
+                                 f"vs {leaf.shape}")
+            out.append((key, arr.astype(leaf.dtype)))
+    return nest_paths(out)
