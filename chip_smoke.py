@@ -176,7 +176,8 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    lars, ``grad_accum_steps=2``, the bf16 wire, error feedback and 4
    buckets on phase 16's shard files (2 epochs of 4 updates): stopped
    after epoch 0 and resumed, it ends with the unbroken run's state
-   digests, residual included.
+   digests, residual included (the unbroken run and the first life run
+   side by side on the card).
 
 18. The classifier zoo, on one card.  (a) One BSP step of seeded
    full-width VGG16 and GoogLeNet (batch 8, their recipes' inits and
@@ -229,12 +230,33 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    per step both ways; and 8 steps of VGG16 with ``batch_norm`` and
    ``sync_bn`` through ``run_bsp_session`` with phase 18's launches.
 
+20. ZeRO-1 and FSDP, on one card and a one-rank NCCL group.  (a) The
+   ResNet-50 recipe (batch 128, bf16, seeded weights, staged batches)
+   under ``P20_RUNS``: ZeRO at 1 and 4 buckets, with the bf16 wire and
+   error feedback at 4, with adam, with ``grad_accum_steps = 2``; FSDP at
+   1 and 4 buckets, with lars, with ``steps_per_call = 2``; each
+   ``P20_STEPS`` steps beside its plain-BSP twin of ``P20_TWINS``, and
+   bit-identical to it: parameters, BN running statistics, per-parameter
+   optimizer state (ZeRO's shard gathered and cut into parameters) and
+   residual.  Launches exactly phase 6b's per step (twice per
+   accumulated update).  Each run's bytes a rank (parameters, optimizer
+   state, residual), resident memory and peak above it; then
+   ``P20_ROUNDS`` rounds of every run's next dispatch, ms per step (host
+   wall, CUDA events).  (b) ``python -m theanompi_tpu_torch.launcher BSP
+   -D 1`` on phase 16's shard files under each knob of ``P20_SETS`` (2
+   epochs of 4 updates): unbroken, and stopped after epoch 0 and
+   resumed, the two ending on the same state digests; the ZeRO
+   checkpoint resumed under ``exchange_buckets=2`` must exit non-zero on
+   the layout's shape.  Runs that need no other's checkpoint go side by
+   side on the card.
+
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
 their own); 16 runs after it, then 17 on a one-rank group of its own
 (its launcher runs after that group ends), then 18 (18a before its own
 one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
-its own one-rank group, (c) on it).  Phase 9 checkpoints each
+its own one-rank group, (c) on it), then 20 ((a) on its own one-rank
+group, (b) after it, on phase 16's shard files).  Phase 9 checkpoints each
 epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
 checkpoints.
 
@@ -436,6 +458,37 @@ WGAN_NPZ = {
 #: batches (bit-identical at one rank), then timed rounds of one step
 #: each
 SYNC_BN_STEPS, SYNC_BN_ROUNDS = 4, 8
+#: phase 20 (a): checked steps of each run, timed rounds, the settings
+#: every run shares, the plain-BSP twins and each ZeRO/FSDP run with its
+#: twin and its own settings (at one rank each is its twin bit for bit)
+P20_STEPS, P20_ROUNDS = 4, 5
+P20_BASE = dict(momentum=0.9, weight_decay=5e-5)
+P20_TWINS = {
+    "plain": {},
+    "plain-ef-b4": dict(exchange_dtype="bf16", exchange_error_feedback=True,
+                        exchange_buckets=4),
+    "plain-adam": dict(optimizer="adam", learning_rate=1e-3),
+    "plain-accum": dict(grad_accum_steps=2, batch_size=TRAIN_BATCH // 2),
+    "plain-lars": dict(optimizer="lars", learning_rate=0.1),
+    "plain-multi": dict(steps_per_call=2)}
+P20_RUNS = {
+    "zero-b1": ("plain", dict(zero_sharding=True)),
+    "zero-b4": ("plain", dict(zero_sharding=True, exchange_buckets=4)),
+    "zero-ef-b4": ("plain-ef-b4", dict(zero_sharding=True)),
+    "zero-adam": ("plain-adam", dict(zero_sharding=True)),
+    "zero-accum": ("plain-accum", dict(zero_sharding=True)),
+    "fsdp-b1": ("plain", dict(fsdp_sharding=True)),
+    "fsdp-b4": ("plain", dict(fsdp_sharding=True, exchange_buckets=4)),
+    "fsdp-lars": ("plain-lars", dict(fsdp_sharding=True)),
+    "fsdp-multi": ("plain-multi", dict(fsdp_sharding=True))}
+#: phase 20 (b): the launcher's --set under each knob on phase 16's shard
+#: files (2 epochs of 4 updates)
+P20_SETS = {
+    "zero": ("zero_sharding=true", "exchange_buckets=4",
+             "grad_accum_steps=2", "n_epochs=2"),
+    "fsdp": ("fsdp_sharding=true", "exchange_buckets=4", "optimizer=lars",
+             "momentum=0.9", "weight_decay=5e-5", "learning_rate=0.1",
+             "grad_accum_steps=2", "n_epochs=2")}
 
 
 def _launches(**per_step) -> dict:
@@ -2327,6 +2380,21 @@ def ckpt_shards(root: str) -> str:
     return root
 
 
+def launcher_cmd(out: str, snap: str, workdir: str, data_dir: str,
+                 *extra: str,
+                 model=("theanompi_tpu_torch.models.resnet50", "ResNet50")
+                 ) -> list[str]:
+    """``python -m theanompi_tpu_torch.launcher BSP -D 1`` on the shard
+    tree ``data_dir``, snapshots under ``workdir/<snap>``, the result
+    JSON at ``out``."""
+    return [sys.executable, "-m", "theanompi_tpu_torch.launcher", "BSP",
+            "-D", "1", "-m", model[0], "-c", model[1],
+            "--snapshot-dir", os.path.join(workdir, snap),
+            "--set", f"data_dir={data_dir}", "--set",
+            f"n_epochs={CKPT_EPOCHS}", "--set", "print_freq=4",
+            "--result-json", out, *extra]
+
+
 def ckpt_run(name: str, snap: str, workdir: str, data_dir: str,
              *extra: str,
              model=("theanompi_tpu_torch.models.resnet50", "ResNet50"),
@@ -2336,12 +2404,7 @@ def ckpt_run(name: str, snap: str, workdir: str, data_dir: str,
     the run's wall seconds and stderr's ``[resilience]`` lines.  Fails on
     a non-zero exit."""
     out = os.path.join(workdir, f"{name}.json")
-    cmd = [sys.executable, "-m", "theanompi_tpu_torch.launcher", "BSP",
-           "-D", "1", "-m", model[0], "-c", model[1],
-           "--snapshot-dir", os.path.join(workdir, snap),
-           "--set", f"data_dir={data_dir}", "--set",
-           f"n_epochs={CKPT_EPOCHS}", "--set", "print_freq=4",
-           "--result-json", out, *extra]
+    cmd = launcher_cmd(out, snap, workdir, data_dir, *extra, model=model)
     t0 = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
                           env={**os.environ, **(env or {})},
@@ -2756,13 +2819,14 @@ def p17_cadences(torch, data, batches) -> tuple[dict, dict]:
              "accum_launches": counts})
 
 
-def p17_rounds(torch, runs: dict, rounds: int) -> dict:
+def p17_rounds(torch, runs: dict, rounds: int,
+               steps: dict | None = None) -> dict:
     """Each run's next dispatch in turn, ``rounds`` times (so drift of the
     host hits every run alike), each one alone between synchronises:
     host enqueue (until the call returns; it also waits whenever the
     card's launch queue is full), host wall and the CUDA event span.
     Returns per run the medians in ms, per step (a ``steps_per_call``
-    call counts 4, an accumulated update 1)."""
+    call counts 4, or ``steps[name]``; an accumulated update 1)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     samples = {n: [] for n in runs}
@@ -2780,14 +2844,15 @@ def p17_rounds(torch, runs: dict, rounds: int) -> dict:
                                   start.elapsed_time(end)))
     out = {}
     for name, rows in samples.items():
-        per = 4 if name == "steps_per_call=4" else 1
+        per = (steps or {}).get(name, 4 if name == "steps_per_call=4" else 1)
         cols = [sorted(c) for c in zip(*rows)]
         med = [c[len(c) // 2] / per for c in cols]
         out[name] = {"enqueue_ms": med[0], "wall_ms": med[1],
                      "event_ms": med[2],
                      "wall_ms_range": [cols[1][0] / per, cols[1][-1] / per]}
         runs[name].finite(torch)
-        unit = "update" if name == "grad_accum_steps=2" else "step"
+        unit = ("update" if name == "grad_accum_steps=2" or "accum" in name
+                else "step")
         log(f"  ({name}) ms per {unit}, median of {rounds}: host enqueue "
             f"{med[0]:.2f}, host wall {med[1]:.2f} "
             f"({cols[1][0] / per:.2f}-{cols[1][-1] / per:.2f}), CUDA event "
@@ -2799,8 +2864,13 @@ def p17_launcher(torch, workdir: str, data_dir: str) -> dict:
     """Phase 17 (d): the launcher with the rest of the BSP step, stopped
     after epoch 0 and resumed, against the unbroken run."""
     sets = [a for kv in P17_SETS for a in ("--set", kv)]
-    unbroken = ckpt_run("p17-unbroken", "p17u", workdir, data_dir, *sets)
-    ckpt_run("p17-first", "p17r", workdir, data_dir, *sets, "--epochs", "1")
+    first = launcher_wave(workdir, data_dir, {
+        "p17-unbroken": ("p17u", sets),
+        "p17-first": ("p17r", [*sets, "--epochs", "1"])})
+    for name, o in first.items():
+        if o["rc"] != 0:
+            raise AssertionError(f"(d) {name} exited {o['rc']}: {o['err']}")
+    unbroken = first["p17-unbroken"]["res"]
     resumed = ckpt_run("p17-resumed", "p17r", workdir, data_dir, *sets,
                        "--resume", "--epochs", "1")
     for res in (unbroken, resumed):
@@ -3472,6 +3542,252 @@ def sync_bn_phase(torch, workdir: str) -> dict:
     return out
 
 
+# -- phase 20: ZeRO-1 and FSDP on the card -----------------------------------
+
+def p20_call(batches, micro, cfg: dict):
+    """A phase-20 run's i-th dispatch: a step, a ``steps_per_call`` call
+    or an accumulated update."""
+    k, a = cfg.get("steps_per_call", 1), cfg.get("grad_accum_steps", 1)
+    if k > 1:
+        return lambda run, i: run.model.train_step_multi(
+            run.model.state, [batches[(k * i + j) % len(batches)]
+                              for j in range(k)], run.gen)
+    if a > 1:
+        return lambda run, i: run.model.train_step_accum(
+            run.model.state, [micro[(a * i + j) % len(micro)]
+                              for j in range(a)], run.gen)
+    return single_step(batches)
+
+
+def p20_state(torch, model) -> dict:
+    """A model's parameters, BN running statistics, per-parameter
+    optimizer state and error-feedback residual, by parameter name and
+    index: ZeRO's shard state gathered and cut into parameters, FSDP's
+    parameters gathered."""
+    from theanompi_tpu_torch.parallel.fsdp import per_param_opt_state
+    from theanompi_tpu_torch.parallel.zero import _unravel_bucketed
+
+    st, cfg = model.state, model.config
+    with model.full_params():
+        tensors = {k: v.clone() for k, v in model.module.state_dict().items()}
+    params = list(model.module.parameters())
+    if cfg.fsdp_sharding:
+        opt = per_param_opt_state(st)["state"]
+    elif cfg.zero_sharding:
+        shard, opt = st.sharding, {}
+        for key, v in st.optimizer.state[shard.shard].items():
+            if torch.is_tensor(v) and v.shape == shard.shard.shape:
+                leaves = _unravel_bucketed(shard.gather_flat(v), shard.layout)
+                for j, t in enumerate(leaves):
+                    i = len(params) - 1 - j
+                    opt.setdefault(i, {})[key] = t.view(params[i].shape)
+            else:
+                for i in range(len(params)):
+                    opt.setdefault(i, {})[key] = v
+    else:
+        opt = {i: dict(st.optimizer.state[p]) for i, p in enumerate(params)}
+    out = {**{f"module/{k}": v for k, v in tensors.items()},
+           **{f"opt/{i}/{k}": v for i, per in opt.items()
+              for k, v in per.items()}}
+    res = st.exchange_residual
+    if isinstance(res, torch.Tensor):
+        for j, t in enumerate(_unravel_bucketed(res, st.sharding.layout)):
+            i = len(params) - 1 - j
+            out[f"residual/{i}"] = t.view(params[i].shape)
+    elif res is not None:
+        out.update({f"residual/{i}": r for i, r in enumerate(res)})
+    return out
+
+
+def p20_models(torch, data, batches) -> dict:
+    """Phase 20 (a): the plain twins and the ZeRO/FSDP runs, each
+    ``P20_STEPS`` steps with its launches counted; every run compared
+    with its twin bit for bit.  Returns the runs, the checks and each
+    run's launches, bytes and peak memory."""
+    from theanompi_tpu_torch.ops import _kernels
+
+    half = TRAIN_BATCH // 2
+    micro = [(x[i:i + half], y[i:i + half]) for x, y in batches
+             for i in (0, half)]
+    runs, info = {}, {}
+    for name, cfg in {**P20_TWINS, **{
+            n: {**P20_TWINS[twin], **extra}
+            for n, (twin, extra) in P20_RUNS.items()}}.items():
+        cfg = {**P20_BASE, **cfg}
+        per = max(cfg.get("steps_per_call", 1), cfg.get("grad_accum_steps", 1))
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        run = runs[name] = P17Run(data, p20_call(batches, micro, cfg), **cfg)
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        for _ in range(P20_STEPS // (per if "steps_per_call" in cfg else 1)):
+            run.step()
+        torch.cuda.synchronize()
+        counts = {k: _kernels.launch_counts().get(k, 0)
+                  for k in TRAIN_LAUNCHES}
+        want = {k: v * P20_STEPS * (2 if "grad_accum_steps" in cfg else 1)
+                for k, v in TRAIN_LAUNCHES.items()}
+        run.finite(torch)
+        info[name] = {
+            "launches": counts, "launches_ok": counts == want,
+            "bytes": run.model.state_bytes(),
+            "resident_bytes": torch.cuda.memory_allocated() - before,
+            "peak_bytes": torch.cuda.max_memory_allocated() - before,
+            "steps_per_dispatch": per if "steps_per_call" in cfg else 1}
+        if counts != want:
+            raise AssertionError(f"(a) {name}: launches {counts} != {want}")
+    states = {n: p20_state(torch, runs[n].model) for n in P20_TWINS}
+    for name, (twin, _) in P20_RUNS.items():
+        got, ref = p20_state(torch, runs[name].model), states[twin]
+        diff = sorted(k for k in ref if k not in got
+                      or not torch.equal(got[k], ref[k]))
+        extra = sorted(set(got) - set(ref))
+        info[name]["bit_identical"] = not diff and not extra
+        b = info[name]["bytes"]
+        log(f"  ({name}) against {twin} after {P20_STEPS} steps: "
+            f"{'bit-identical' if not diff and not extra else 'DIFFERS'} "
+            f"({len(ref)} tensors: parameters, BN statistics, optimizer "
+            f"state{', residual' if any(k.startswith('residual') for k in ref) else ''}); "
+            f"launches {'exact' if info[name]['launches_ok'] else 'WRONG'}; "
+            f"bytes a rank: parameters {b['params']}, optimizer "
+            f"{b['optimizer']} (twin {info[twin]['bytes']['optimizer']}), "
+            f"residual {b['residual']}; resident {info[name]['resident_bytes']}"
+            f", peak above it {info[name]['peak_bytes']}")
+        if diff or extra:
+            raise AssertionError(f"(a) {name} differs from {twin}: "
+                                 f"{(diff + extra)[:8]}")
+    return runs, info
+
+
+def launcher_wave(workdir: str, data_dir: str, runs: dict) -> dict:
+    """Launcher runs side by side on the card (``launcher_cmd``; ``runs``
+    maps a name to (snapshot dir, extra arguments)); returns per name the
+    exit code, the result JSON (None on failure) and stderr's tail."""
+    procs, out = {}, {}
+    t0 = time.monotonic()
+    for name, (snap, extra) in runs.items():
+        procs[name] = subprocess.Popen(
+            launcher_cmd(os.path.join(workdir, f"{name}.json"), snap,
+                         workdir, data_dir, *extra),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        for name, proc in procs.items():
+            _, err = proc.communicate(timeout=600)
+            res = None
+            if proc.returncode == 0:
+                with open(os.path.join(workdir, f"{name}.json")) as f:
+                    res = json.load(f)
+            out[name] = {"rc": proc.returncode, "res": res,
+                         "err": err[-3000:]}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"  {', '.join(runs)} side by side: {time.monotonic() - t0:.1f} s; "
+        f"exit codes {[o['rc'] for o in out.values()]}")
+    return out
+
+
+def p20_launcher(torch, workdir: str, data_dir: str) -> dict:
+    """Phase 20 (b): the launcher under ZeRO (4 buckets) and FSDP,
+    unbroken and stopped after epoch 0 and resumed, and the ZeRO
+    checkpoint resumed under 2 buckets; runs that need no other's
+    checkpoint go side by side on the card."""
+    import shutil
+
+    def sets(knob):
+        return [a for kv in P20_SETS[knob] for a in ("--set", kv)]
+
+    first = launcher_wave(workdir, data_dir, {
+        f"{k}-{r}": (f"p20{k}{r[0]}", [*sets(k), *extra])
+                  for k in P20_SETS
+                  for r, extra in (("unbroken", []),
+                                   ("first", ["--epochs", "1"]))})
+    for name, o in first.items():
+        if o["rc"] != 0:
+            raise AssertionError(f"(b) {name} exited {o['rc']}: {o['err']}")
+    shutil.copytree(os.path.join(workdir, "p20zerof"),
+                    os.path.join(workdir, "p20zeroo"))
+    other = [a for kv in P20_SETS["zero"] if not kv.startswith(
+        "exchange_buckets") for a in ("--set", kv)]
+    second = launcher_wave(workdir, data_dir, {
+        **{f"{k}-resumed": (f"p20{k}f", [*sets(k), "--resume", "--epochs",
+                                          "1"]) for k in P20_SETS},
+        "zero-other-buckets": ("p20zeroo", [*other, "--set",
+                                            "exchange_buckets=2",
+                                            "--resume"])})
+    bad = second.pop("zero-other-buckets")
+    if bad["rc"] == 0 or "ZeRO layout needs" not in bad["err"]:
+        raise AssertionError(f"(b) the resume under 2 buckets exited "
+                             f"{bad['rc']}: {bad['err']}")
+    why = next(line for line in bad["err"].splitlines()
+               if "ZeRO layout needs" in line)
+    log(f"  (zero-other-buckets) exited {bad['rc']}: {why.strip()[:300]}")
+    out = {"other_buckets_rc": bad["rc"]}
+    for k in P20_SETS:
+        unbroken, resumed = first[f"{k}-unbroken"]["res"], second[
+            f"{k}-resumed"]["res"]
+        if second[f"{k}-resumed"]["rc"] != 0:
+            raise AssertionError(f"(b) {k}-resumed: "
+                                 f"{second[f'{k}-resumed']['err']}")
+        for res in (unbroken, resumed):
+            for rec in res["records"]:
+                got = rec["launches"]["train"]
+                want = {n: v * CKPT_STEPS for n, v in TRAIN_LAUNCHES.items()}
+                if ({n: got.get(n, 0) for n in want} != want
+                        or rec["train_steps"] != CKPT_STEPS
+                        or not math.isfinite(rec["train_loss"])):
+                    raise AssertionError(f"(b) {k} epoch record {rec}")
+        restore = resumed["checkpoint"]["restore"]
+        same = resumed["state_digests"] == unbroken["state_digests"]
+        log(f"  ({k}) resumed run's state digest "
+            f"{'equals' if same else 'DIFFERS from'} the unbroken run's "
+            f"({unbroken['state_digests'][0][:16]}...); restore of epoch "
+            f"{restore and restore['epoch']} bit-exact: "
+            f"{restore and restore['digest_restored'] == restore['digest_at_save']}"
+            f"; state bytes {unbroken.get('state_bytes')}")
+        if (not same or restore is None or restore["epoch"] != 0
+                or restore["digest_restored"] != restore["digest_at_save"]):
+            raise AssertionError(f"(b) {k}: resumed {resumed['state_digests']}"
+                                 f" != {unbroken['state_digests']}, restore "
+                                 f"{restore}")
+        out[k] = {"unbroken": unbroken, "resumed": resumed}
+    return out
+
+
+def sharded_phase(torch, workdir: str, data_dir: str) -> dict:
+    """Phase 20 (module docstring)."""
+    import torch.distributed as dist
+
+    t0 = time.monotonic()
+    data, batches = p17_batches(torch, P20_STEPS)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        log(f"  (a) {len(P20_RUNS)} ZeRO/FSDP runs against "
+            f"{len(P20_TWINS)} plain twins, {P20_STEPS} steps each")
+        runs, info = p20_models(torch, data, batches)
+        log(f"  (a) {card_line()}: every run in turn")
+        times = p17_rounds(torch, runs, P20_ROUNDS, steps={
+            n: i["steps_per_dispatch"] for n, i in info.items()})
+    finally:
+        dist.destroy_process_group()
+    del runs, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_a = time.monotonic() - t0
+    log("  (b) the launcher under ZeRO and FSDP: unbroken, stopped and "
+        "resumed, and a ZeRO resume under another bucket count")
+    launched = p20_launcher(torch, workdir, data_dir)
+    log(f"  phase 20: (a) {t_a:.1f} s, (b) "
+        f"{time.monotonic() - t0 - t_a:.1f} s")
+    return {"runs": info, "times": times, "launcher": launched,
+            "seconds": {"a": t_a, "b": time.monotonic() - t0 - t_a}}
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -3627,21 +3943,28 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 16: checkpoint and resume on the card (the launcher)")
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = checkpoint_phase(torch, tmp)
+    with tempfile.TemporaryDirectory() as shards_tmp:
+        ckpt = checkpoint_phase(torch, shards_tmp)
         torch.cuda.empty_cache()
         log("phase 17: the rest of the BSP step on the card")
-        rest = rest_of_bsp_phase(torch, tmp, os.path.join(tmp, "data"))
-    torch.cuda.empty_cache()
+        rest = rest_of_bsp_phase(torch, shards_tmp,
+                                 os.path.join(shards_tmp, "data"))
+        torch.cuda.empty_cache()
 
-    log("phase 18: the classifier zoo")
-    with tempfile.TemporaryDirectory() as tmp:
-        zoo = zoo_phase(torch, tmp)
-    torch.cuda.empty_cache()
+        log("phase 18: the classifier zoo")
+        with tempfile.TemporaryDirectory() as tmp:
+            zoo = zoo_phase(torch, tmp)
+        torch.cuda.empty_cache()
 
-    log("phase 19: the WGAN, npz snapshots and sync_bn")
-    with tempfile.TemporaryDirectory() as tmp:
-        phase19 = sync_bn_phase(torch, tmp)
+        log("phase 19: the WGAN, npz snapshots and sync_bn")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase19 = sync_bn_phase(torch, tmp)
+        torch.cuda.empty_cache()
+
+        log("phase 20: ZeRO-1 and FSDP on the card")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase20 = sharded_phase(torch, tmp,
+                                    os.path.join(shards_tmp, "data"))
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -3708,6 +4031,7 @@ def main() -> int:
                    "lm_grad_check": lm_checked, "lm_session": lm_run,
                    "lm_step_trace": lm_trace, "checkpoint": ckpt,
                    "rest_of_bsp": rest, "zoo": zoo, "phase19": phase19,
+                   "phase20": phase20,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "

@@ -442,10 +442,15 @@ def test_bsp_rule_and_refusals(tmp_path):
         data=ImageNet_data(crop=32, synthetic_n=32, synthetic_pool=4,
                            synthetic_store=32, n_classes=10))
     assert np.isfinite(rule.wait()["val"]["loss"])
-    # ROADMAP item 13's planes are still refused
-    for cfg in (dict(zero_sharding=True), dict(fsdp_sharding=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_bsp_session(_tiny_model(tmp_path, **cfg))
+    # ROADMAP item 13's planes (ZeRO-1, FSDP) train; JAX's refusal of
+    # LARS under ZeRO stays
+    for knob in ("zero_sharding", "fsdp_sharding"):
+        out = run_bsp_session(_tiny_model(tmp_path / knob, **{knob: True}),
+                              max_epochs=1, checkpoint=False)
+        assert np.isfinite(out["records"][0]["train_loss"]), knob
+    with pytest.raises(ValueError, match="ELEMENTWISE"):
+        run_bsp_session(_tiny_model(tmp_path, zero_sharding=True,
+                                    optimizer="lars"))
     # sync_bn with FSDP is refused as JAX refuses it
     with pytest.raises(ValueError, match="sync_bn needs a shard_map"):
         _tiny_model(tmp_path, sync_bn=True,

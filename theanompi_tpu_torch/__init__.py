@@ -13,7 +13,8 @@ serving (``serving.InferenceServer``); BSP training (``rules.bsp.BSP`` /
 ``run_bsp_session``, the launcher, one process per card,
 ``torch.distributed`` for the exchange) of the classifier zoo, the
 TransformerLM and the WGAN, with every exchange mode, optimizer and
-cadence, ``sync_bn``, checkpoints and resume; the model contract's npz
+cadence, ``sync_bn``, ZeRO-1 and FSDP, checkpoints and resume; the
+model contract's npz
 snapshots; shard preparation (``data.imagenet``,
 ``tools.prepare_imagenet``).  Entry points take ``device=`` and default
 to ``"cuda"``.

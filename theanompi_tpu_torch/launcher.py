@@ -15,9 +15,10 @@ also when it is the only rank, so one card runs the same collectives as
 eight, and drives ``BSP().init(...).wait()`` on card ``LOCAL_RANK``.
 Rank 0 writes ``--result-json``: the session result (validation metrics,
 epoch records with their kernel launches, the checkpoint timings), the
-world size, every rank's parameter digest and every rank's state digest
+world size, every rank's parameter digest, every rank's state digest
 (parameters, buffers, optimizer state and step: equal digests, equal
-training states).
+training states) and every rank's ``state_bytes`` (what it keeps of the
+parameters, the optimizer state and the residual).
 
 Checkpoints are on (``<snapshot-dir>/<model name>/``, one per epoch);
 ``--resume`` goes on from the newest one that verifies.  ``--set K=V``
@@ -28,9 +29,12 @@ checkpoints), ``exchange_buckets=B`` (overlapped with the backward),
 ``exchange_what=params``, ``optimizer=adam|rmsprop|lars``, and
 ``steps_per_call=k`` or ``grad_accum_steps=a``; for example
 ``--set exchange_dtype=bf16 --set exchange_error_feedback=true --set
-exchange_buckets=4 --set optimizer=lars --set grad_accum_steps=2``.
-``zero_sharding``, ``fsdp_sharding`` and ``sync_bn`` stop the worker
-with their ROADMAP item (13).  The JAX options with their semantics:
+exchange_buckets=4 --set optimizer=lars --set grad_accum_steps=2``;
+``sync_bn=true``; ``zero_sharding=true`` (ZeRO-1: the optimizer state
+1/N a rank) or ``fsdp_sharding=true`` (the parameters too), with JAX's
+refusals (LARS under ZeRO, the bf16 wire under FSDP, both together).  A
+ZeRO checkpoint resumes only under its own ``exchange_buckets`` and
+world size.  The JAX options with their semantics:
 
 * ``--sync-type avg|cdd``: average or sum the exchanged gradients;
 * ``--monitor-dir DIR``: exported to the workers as
@@ -280,10 +284,13 @@ def run_worker(args: argparse.Namespace) -> int:
         result = rule.wait()
         world = dist.get_world_size()
         digests = [None] * world
-        dist.all_gather_object(digests, param_digest(rule.model.module))
+        with rule.model.full_params():
+            dist.all_gather_object(digests, param_digest(rule.model.module))
         states = [None] * world
         dist.all_gather_object(states, state_digest(
             rule.model.checkpoint_payload()))
+        held = [None] * world
+        dist.all_gather_object(held, rule.model.state_bytes())
         if dist.get_rank() == 0:
             print("final val:", {k: round(float(v), 4)
                                  for k, v in result.get("val", {}).items()},
@@ -293,7 +300,8 @@ def run_worker(args: argparse.Namespace) -> int:
                     json.dump({**result, "world_size": world,
                                "device": str(device),
                                "param_digests": digests,
-                               "state_digests": states}, f)
+                               "state_digests": states,
+                               "state_bytes": held}, f)
     finally:
         dist.destroy_process_group()
     return 0

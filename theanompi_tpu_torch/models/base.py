@@ -17,7 +17,9 @@ names and layouts through models/bridge.py), ``compile_grad_fn`` and
 ``optimizer_hyperparams``.  Every exchange mode, optimizer and cadence of
 the JAX BSP step is taken (``steps_per_call``: k steps per
 ``train_iter``; ``grad_accum_steps``: one update from ``a``
-microbatches), and ``sync_bn``, apart from ZeRO and FSDP.
+microbatches), ``sync_bn``, and the sharded planes: ``zero_sharding``
+(the optimizer state 1/N a rank, parallel/zero.py) and ``fsdp_sharding``
+(the parameters too, parallel/fsdp.py), with JAX's refusals.
 ``begin_epoch``'s random stream and the data streams are pure functions
 of (seed, epoch, rank), so a run resumed at an epoch boundary replays
 the unbroken one.
@@ -55,7 +57,21 @@ from theanompi_tpu_torch.parallel.bsp import (
 )
 from theanompi_tpu_torch.parallel.exchanger import (
     BSP_Exchanger,
+    resolve_strategy,
     zero_missing_grads,
+)
+from theanompi_tpu_torch.parallel.fsdp import (
+    full_params as fsdp_full_params,
+    init_fsdp_state,
+    load_per_param_opt_state,
+    make_bsp_fsdp_eval_step,
+    make_bsp_fsdp_step,
+    per_param_opt_state,
+)
+from theanompi_tpu_torch.parallel.zero import (
+    init_zero_exchange_residual,
+    init_zero_opt_state,
+    make_bsp_zero_step,
 )
 from theanompi_tpu_torch.utils.helper_funcs import (
     build_optimizer,
@@ -239,15 +255,35 @@ class TorchModel:
         JAX ``optimizer_hyperparams``)."""
         return {"learning_rate": self._base_lr, **self._optimizer_kwargs()}
 
+    def _make_optimizer(self, params) -> torch.optim.Optimizer:
+        return build_optimizer(params, self._base_lr,
+                               **self._optimizer_kwargs())
+
     def _ensure_state(self) -> TrainState:
         """The training state, made at first use: a model that only
-        serves never builds an optimizer."""
+        serves never builds an optimizer.  Under ``fsdp_sharding`` the
+        module keeps its parameters as this rank's flat shard from then
+        on, and under ``zero_sharding`` the optimizer steps on one (JAX's
+        ``_create_state`` branches)."""
         if self.state is None:
-            self.state = TrainState(
-                self.module, build_optimizer(self.module.parameters(),
-                                             self._base_lr,
-                                             **self._optimizer_kwargs()),
-                exchange_residual=self._init_residual())
+            cfg = self.config
+            if cfg.fsdp_sharding:
+                self._check_fsdp_supported()
+                self.state = init_fsdp_state(self.module,
+                                             self._make_optimizer,
+                                             cfg.exchange_buckets)
+            elif cfg.zero_sharding:
+                self._check_zero_supported()
+                optimizer, shard = init_zero_opt_state(
+                    self.module, self._make_optimizer, cfg.exchange_buckets)
+                self.state = TrainState(
+                    self.module, optimizer, sharding=shard,
+                    exchange_residual=self._init_residual())
+            else:
+                self.state = TrainState(
+                    self.module,
+                    self._make_optimizer(self.module.parameters()),
+                    exchange_residual=self._init_residual())
         return self.state
 
     def _init_residual(self) -> list[torch.Tensor] | None:
@@ -260,7 +296,81 @@ class TorchModel:
         if cfg.exchange_dtype != "bf16":
             raise ValueError("exchange_error_feedback compensates bf16 "
                              "quantization; set exchange_dtype='bf16'")
+        if cfg.zero_sharding:
+            return init_zero_exchange_residual(self.module,
+                                               cfg.exchange_buckets)
         return init_exchange_residual(self.module)
+
+    def _check_psum_grads_only(self, feature: str, how: str,
+                               allow_bf16_wire: bool = False) -> None:
+        """The sharded planes ARE the gradient exchange (JAX's guard):
+        ``exchange_what`` and the legacy bf16 strategy names do not
+        apply; the bf16 wire does only where ``allow_bf16_wire`` (ZeRO's
+        reduce-scatter has a quantization seam)."""
+        cfg = self.config
+        if cfg.exchange_what != "grads":
+            raise ValueError(f"{feature} IS the gradient exchange; "
+                             "exchange_what='params' does not apply")
+        if resolve_strategy(cfg.exchange_strategy) != "psum":
+            raise ValueError(
+                f"{feature}'s {how}; the bf16-compressed strategy "
+                f"{cfg.exchange_strategy!r} does not apply")
+        if not allow_bf16_wire and (cfg.exchange_dtype != "f32"
+                                    or cfg.exchange_error_feedback):
+            raise ValueError(
+                f"{feature}'s {how}; exchange_dtype="
+                f"{cfg.exchange_dtype!r}/exchange_error_feedback do not "
+                "apply")
+
+    def _check_zero_supported(self) -> None:
+        """JAX's refusals under ``zero_sharding``, with its messages."""
+        if self.config.optimizer == "lars":
+            raise ValueError("zero_sharding needs an ELEMENTWISE "
+                             "optimizer; lars computes layerwise trust "
+                             "ratios which a flat shard cannot see")
+        self._check_psum_grads_only(
+            "zero_sharding",
+            "reduce_scatter owns the wire dtype (use exchange_dtype)",
+            allow_bf16_wire=True)
+
+    def _check_fsdp_supported(self) -> None:
+        """JAX's refusals under ``fsdp_sharding``, with its messages."""
+        if self.config.zero_sharding:
+            raise ValueError("fsdp_sharding already shards params AND "
+                             "optimizer state; combining it with "
+                             "zero_sharding is meaningless")
+        self._check_psum_grads_only(
+            "fsdp_sharding", "collectives run at full precision")
+
+    def state_bytes(self) -> dict[str, int]:
+        """Bytes of the training state this rank keeps: ``params`` (the
+        module's parameters, plus the flat shard under ZeRO; under FSDP
+        the shard alone), ``optimizer`` (its state tensors) and
+        ``residual`` (error feedback)."""
+        state = self._ensure_state()
+
+        def nbytes(tensors) -> int:
+            return sum(t.numel() * t.element_size() for t in tensors
+                       if torch.is_tensor(t))
+
+        shard = getattr(state, "sharding", None)
+        res = getattr(state, "exchange_residual", None)
+        opts = [v for v in vars(state).values()
+                if isinstance(v, torch.optim.Optimizer)]
+        return {"params": nbytes([*state.module.parameters(),
+                                  *([shard.shard] if shard else [])]),
+                "optimizer": nbytes(v for opt in opts
+                                    for per in opt.state.values()
+                                    for v in per.values()),
+                "residual": nbytes([res] if isinstance(res, torch.Tensor)
+                                   else res or [])}
+
+    def full_params(self, write_back: bool = False):
+        """Context: inside it the module holds its whole parameters
+        (under FSDP gathered from every rank, so every rank enters
+        together; ``write_back`` re-shards what is there on the way
+        out); otherwise nothing to do."""
+        return fsdp_full_params(self.state, write_back)
 
     # -- checkpoint payload --------------------------------------------------
 
@@ -276,15 +386,19 @@ class TorchModel:
         The other tensors are the live ones: ``Checkpointer.save`` copies
         them."""
         state = self._ensure_state()
-        tensors = state.module.state_dict()
+        with self.full_params():
+            tensors = state.module.state_dict()
         names = {n for n, _ in state.module.named_parameters()}
         payload = {
             "params": {k: v for k, v in tensors.items() if k in names},
             "model_state": {k: v for k, v in tensors.items()
                             if k not in names},
-            "opt_state": state.optimizer.state_dict(),
+            "opt_state": self._opt_state_payload(),
             "step": state.step}
-        if state.exchange_residual is not None:
+        if isinstance(state.exchange_residual, torch.Tensor):
+            payload["exchange_residual"] = gather_rows(
+                [state.exchange_residual])[0]
+        elif state.exchange_residual is not None:
             payload["exchange_residual"] = dict(zip(
                 names_in_order(state.module),
                 gather_rows(state.exchange_residual)))
@@ -292,11 +406,60 @@ class TorchModel:
             payload["epoch"] = int(epoch)
         return payload
 
+    def _opt_state_payload(self) -> dict:
+        """The optimizer state of the payload: the optimizer's state dict;
+        under ZeRO each shard-length state tensor gathered from every
+        rank into JAX's global ``(n * per_shard,)`` vector; under FSDP
+        the per-parameter state dict of plain BSP (JAX's global
+        arrays)."""
+        state = self.state
+        if self.config.fsdp_sharding:
+            return per_param_opt_state(state)
+        sd = state.optimizer.state_dict()
+        if not self.config.zero_sharding or not sd["state"]:
+            return sd
+        shard = state.sharding.shard
+        per = sd["state"][0]
+        keys = [k for k, v in per.items()
+                if torch.is_tensor(v) and v.shape == shard.shape]
+        rows = gather_rows([per[k] for k in keys]) if keys else []
+        return {**sd, "state": {0: {**per, **{
+            k: r.reshape(-1) for k, r in zip(keys, rows)}}}}
+
+    def _adopt_opt_state(self, saved: dict) -> None:
+        """Load the payload's optimizer state (:meth:`_opt_state_payload`
+        's form); under ZeRO each rank takes its row of every global
+        vector, whose length must be this run's (another
+        ``exchange_buckets`` or world size fails here, as in JAX)."""
+        state = self.state
+        if self.config.fsdp_sharding:
+            load_per_param_opt_state(state, saved)
+            return
+        if self.config.zero_sharding and saved.get("state"):
+            shard = state.sharding
+            per = dict(saved["state"][0])
+            for k, v in per.items():
+                if torch.is_tensor(v) and v.dim() == 1:
+                    want = (shard.n * shard.layout.per_shard,)
+                    if tuple(v.shape) != want:
+                        raise ValueError(
+                            f"opt_state[{k!r}] has shape {tuple(v.shape)}; "
+                            f"this run's ZeRO layout needs {want} "
+                            f"({shard.n} ranks, exchange_buckets="
+                            f"{self.config.exchange_buckets}); a ZeRO "
+                            "checkpoint resumes only under its own layout")
+                    per[k] = v.view(shard.n, -1)[shard.rank]
+            saved = {**saved, "state": {0: per}}
+        state.optimizer.load_state_dict(saved)
+
     def adopt_restored_state(self, payload: dict) -> TrainState:
         """Load a checkpoint payload (:meth:`checkpoint_payload`'s form,
         tensors anywhere) into the module and the optimizer on this
         rank's device, in place: the optimizer keeps its parameters.  Each
-        rank takes its own row of a saved error-feedback residual."""
+        rank takes its own row of a saved error-feedback residual (and,
+        under ZeRO, of the optimizer state); under FSDP the parameters
+        and the optimizer state are re-sharded.  Every rank calls it
+        together."""
         state = self._ensure_state()
         saved = payload.get("exchange_residual")
         if (saved is None) != (state.exchange_residual is None):
@@ -305,11 +468,19 @@ class TorchModel:
                 "payload " + ("lacks" if saved is None else "holds")
                 + " an exchange_residual and exchange_error_feedback is "
                 + str(self.config.exchange_error_feedback))
-        state.module.load_state_dict({**payload["params"],
-                                      **payload["model_state"]})
-        state.optimizer.load_state_dict(payload["opt_state"])
+        with self.full_params(write_back=True):
+            state.module.load_state_dict({**payload["params"],
+                                          **payload["model_state"]})
+        self._adopt_opt_state(payload["opt_state"])
         state.step = int(payload["step"])
-        if saved is not None:
+        if isinstance(state.exchange_residual, torch.Tensor):
+            want = (self.n_workers,) + tuple(state.exchange_residual.shape)
+            if tuple(saved.shape) != want:
+                raise ValueError(
+                    f"exchange_residual has shape {tuple(saved.shape)}; "
+                    f"this run's ZeRO layout needs {want}")
+            state.exchange_residual.copy_(saved[self.rank])
+        elif saved is not None:
             for name, r in zip(names_in_order(state.module),
                                state.exchange_residual):
                 rows = saved[name]
@@ -331,8 +502,9 @@ class TorchModel:
         puts them)."""
         from theanompi_tpu_torch.models.bridge import flax_params
 
-        return flax_params(self.module,
-                           fused=self.config.bn_act_impl == "pallas")
+        with self.full_params():
+            return flax_params(self.module,
+                               fused=self.config.bn_act_impl == "pallas")
 
     def save(self, path: str | None = None) -> str:
         """Write :attr:`params` as the JAX package's npz snapshot (default
@@ -346,9 +518,11 @@ class TorchModel:
         """Replace the parameters in place from an npz snapshot of either
         package (shapes checked, cast to f32): the BN running statistics
         and the optimizer state stay as they are, as JAX's
-        ``state.replace(params=...)`` leaves them."""
-        self._load_params(self.module,
-                          load_params_npz(path, self.params))
+        ``state.replace(params=...)`` leaves them (under FSDP the
+        parameters are re-sharded)."""
+        like = self.params
+        with self.full_params(write_back=True):
+            self._load_params(self.module, load_params_npz(path, like))
 
     @staticmethod
     def _load_params(module: nn.Module, params: dict) -> None:
@@ -372,6 +546,10 @@ class TorchModel:
         loss_fn = self.loss_fn
 
         def gstep(state, batch, rng):
+            with fsdp_full_params(state):
+                return plain(state, batch, rng)
+
+        def plain(state, batch, rng):
             module = state.module
             params = list(module.parameters())
             buffers = dict(module.named_buffers())
@@ -448,19 +626,20 @@ class TorchModel:
         cadence's step when one is set, and put the module in train mode.
         ``sync_bn`` was threaded into the BNs when the module was built;
         with it off, a per-rank batch under 16 on a BN network warns (JAX's
-        rule).  Raises on the knobs the port has not taken over yet (ZeRO,
-        FSDP), and on ``sync_bn`` with FSDP, as JAX does."""
+        rule).  ``zero_sharding`` builds the ZeRO-1 steps and
+        ``fsdp_sharding`` the FSDP steps (its eval step gathers the
+        parameters); their refusals, and ``sync_bn`` with FSDP, raise
+        JAX's ``ValueError``."""
         cfg = self.config
         if cfg.fsdp_sharding and cfg.sync_bn:
             raise ValueError(
                 "sync_bn needs a shard_map step with a named 'data' "
                 "axis; the FSDP step is GSPMD-jitted with no named "
                 "axes — use per-shard BN (sync_bn=False) with FSDP")
-        for knob in ("zero_sharding", "fsdp_sharding"):
-            if getattr(cfg, knob):
-                raise NotImplementedError(
-                    f"ModelConfig.{knob} is not ported yet (ROADMAP.md "
-                    "section A, item 13)")
+        if cfg.fsdp_sharding:
+            self._check_fsdp_supported()
+        elif cfg.zero_sharding:
+            self._check_zero_supported()
         if cfg.steps_per_call > 1 and cfg.grad_accum_steps > 1:
             raise ValueError(
                 "steps_per_call and grad_accum_steps are both stacked-"
@@ -482,14 +661,27 @@ class TorchModel:
             exchange_buckets=cfg.exchange_buckets)
         self._ensure_state()
         self.exchanger = exchanger
-        self.train_step = make_bsp_train_step(self.loss_fn, exchanger)
-        self.train_step_multi = (
-            make_bsp_multi_step(self.loss_fn, exchanger)
-            if cfg.steps_per_call > 1 else None)
-        self.train_step_accum = (
-            make_bsp_accum_step(self.loss_fn, exchanger)
-            if cfg.grad_accum_steps > 1 else None)
-        self.eval_step = make_bsp_eval_step(self.eval_fn)
+        if cfg.fsdp_sharding or cfg.zero_sharding:
+            make = (make_bsp_fsdp_step if cfg.fsdp_sharding
+                    else make_bsp_zero_step)
+            self.train_step = make(self.loss_fn, exchanger)
+            self.train_step_multi = (
+                make(self.loss_fn, exchanger, multi=True)
+                if cfg.steps_per_call > 1 else None)
+            self.train_step_accum = (
+                make(self.loss_fn, exchanger, accum=True)
+                if cfg.grad_accum_steps > 1 else None)
+        else:
+            self.train_step = make_bsp_train_step(self.loss_fn, exchanger)
+            self.train_step_multi = (
+                make_bsp_multi_step(self.loss_fn, exchanger)
+                if cfg.steps_per_call > 1 else None)
+            self.train_step_accum = (
+                make_bsp_accum_step(self.loss_fn, exchanger)
+                if cfg.grad_accum_steps > 1 else None)
+        self.eval_step = (make_bsp_fsdp_eval_step(self.eval_fn)
+                          if cfg.fsdp_sharding
+                          else make_bsp_eval_step(self.eval_fn))
         self.module.train()
 
     def _epoch_rng(self, epoch: int) -> torch.Generator:

@@ -1,1 +1,9 @@
-"""See the package docstring; module names follow ``theanompi_tpu``."""
+"""The BSP planes over ``torch.distributed``, one process per card.
+
+Module names follow ``theanompi_tpu.parallel``: ``bsp`` (the step and
+its cadences), ``exchanger`` (the gradient and parameter exchange, its
+wires, error feedback and buckets overlapped with the backward),
+``partition`` (the byte-balanced plans), ``zero`` (ZeRO-1: the optimizer
+state sharded over the ranks) and ``fsdp`` (the parameters sharded
+too).
+"""

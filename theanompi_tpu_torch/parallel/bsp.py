@@ -54,12 +54,16 @@ class TrainState:
     ``exchange_residual`` is this rank's error-feedback residual (JAX:
     ``TrainState.exchange_residual``, the row of this data shard): one
     f32 tensor per parameter, in ``module.parameters()`` order, on the
-    module's device; ``None`` without error feedback."""
+    module's device; ``None`` without error feedback.  Under ZeRO it is
+    this rank's flat ``(total_flat,)`` vector, and ``sharding`` is the
+    parameter shard the optimizer steps on (parallel/zero.py
+    ``FlatShard``; FSDP's holds the parameters at rest)."""
 
     module: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
-    exchange_residual: list[torch.Tensor] | None = None
+    exchange_residual: list[torch.Tensor] | torch.Tensor | None = None
+    sharding: Any = None
 
 
 def init_exchange_residual(module: nn.Module) -> list[torch.Tensor]:

@@ -326,7 +326,8 @@ class BucketedBackward:
 
     The parameters are cut into ``bucket_ranges`` over their byte sizes
     in the order the backward produces their gradients (the reverse of
-    registration order).  A post-accumulate-grad hook on each parameter
+    registration order), unless ``buckets`` gives the plan (parameter
+    indices per bucket, in plan order: ZeRO's flat layout).  A post-accumulate-grad hook on each parameter
     marks it ready; a complete bucket is packed into one flat buffer
     (with error feedback, ``g + r`` is quantized there and the residual
     updated) and its collective starts with ``async_op=True``.  Buckets
@@ -343,18 +344,21 @@ class BucketedBackward:
     thread, one at a time."""
 
     def __init__(self, exchanger: BSP_Exchanger,
-                 params: list[torch.nn.Parameter]):
+                 params: list[torch.nn.Parameter],
+                 buckets: list[list[int]] | None = None):
         if exchanger.exchange_what != "grads":
             raise ValueError("the overlapped exchange is the GRADIENT "
                              "exchange; exchange_what='params' has no "
                              "backward to overlap with")
         self.exchanger = exchanger
         self.params = list(params)
-        order = list(range(len(self.params)))[::-1]
-        ranges = bucket_ranges([_nbytes(self.params[i]) for i in order],
-                               exchanger.exchange_buckets)
+        if buckets is None:
+            order = list(range(len(self.params)))[::-1]
+            ranges = bucket_ranges([_nbytes(self.params[i]) for i in order],
+                                   exchanger.exchange_buckets)
+            buckets = [order[lo:hi] for lo, hi in ranges]
         #: parameter indices of each bucket, in plan order
-        self.buckets = [order[lo:hi] for lo, hi in ranges]
+        self.buckets = [list(idx) for idx in buckets]
         self._bucket_of = {i: b for b, idx in enumerate(self.buckets)
                            for i in idx}
         self._armed = False
@@ -389,13 +393,18 @@ class BucketedBackward:
         self._pending = []
         self._armed = True
 
-    def _launch_next(self) -> None:
-        idx = self.buckets[self._next]
-        self._next += 1
-        self._pending += self.exchanger._launch_bucket(
+    def _launch(self, b: int) -> list[_Pending]:
+        """Start bucket ``b``'s collectives: the exchange of its
+        gradients (ZeRO's reduce-scatter overrides this)."""
+        idx = self.buckets[b]
+        return self.exchanger._launch_bucket(
             [self.params[i].grad for i in idx],
             None if self._residual is None
             else [self._residual[i] for i in idx], async_op=True)
+
+    def _launch_next(self) -> None:
+        self._next += 1
+        self._pending += self._launch(self._next - 1)
 
     def finish(self) -> None:
         """Start the buckets left, in plan order (a parameter that got no

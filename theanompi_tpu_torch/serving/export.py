@@ -98,7 +98,8 @@ def _sample_dtype(model) -> str:
 def export_model(model, export_dir: str, version: int | None = None,
                  max_to_keep: int = 5, weight_dtype: str = "f32") -> int:
     """Write one export version of ``model`` (its module's state_dict,
-    f32); returns the version (default: ``model.current_epoch``).
+    f32; under FSDP its parameters gathered, so every rank calls it);
+    returns the version (default: ``model.current_epoch``).
     Re-exporting an existing version is refused."""
     if weight_dtype not in WEIGHT_DTYPES:
         raise ValueError(f"weight_dtype {weight_dtype!r} is not ported yet "
@@ -110,8 +111,9 @@ def export_model(model, export_dir: str, version: int | None = None,
                          "the next one")
     step_dir = os.path.join(export_dir, str(version))
     os.makedirs(step_dir)
-    state = {k: v.detach().to("cpu", torch.float32).contiguous()
-             for k, v in model.module.state_dict().items()}
+    with model.full_params():
+        state = {k: v.detach().to("cpu", torch.float32).contiguous()
+                 for k, v in model.module.state_dict().items()}
     torch.save(state, os.path.join(step_dir, STATE_FILE))
     write_manifest(export_dir, version, step_dir)
     meta = {

@@ -40,6 +40,7 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 #: optimizer families the JAX package builds (all ported)
 OPTIMIZERS = ("sgd", "adam", "adamw", "rmsprop", "lars")
@@ -91,7 +92,20 @@ class LARS(torch.optim.Optimizer):
     ``u = g + wd p``; ``u = u * r`` with ``r = tc |p| / |u|``, or 1 where
     ``|p|`` or ``|u|`` is 0; ``u = -lr u``; ``m = u + momentum m``;
     ``u = m`` (nesterov: ``u + momentum m``); ``p += u``.  The norms are
-    per parameter tensor, as optax's are per leaf."""
+    per parameter tensor, as optax's are per leaf.
+
+    Under FSDP (parallel/fsdp.py) the one tensor is this rank's flat
+    shard, and ``shard_segments`` (``(lo, hi, leaf, whole)`` per piece of
+    a parameter in the shard) with ``n_leaves`` keep the norms per
+    parameter: a piece that is a whole parameter gives its norm as a
+    plain parameter would, a piece of one that other ranks share gives
+    its sum of squares; one all-reduce sums the vector of both over the
+    ranks, the shared ones take their square root, and each element is
+    scaled by its parameter's ratio (pads by 1)."""
+
+    #: the FSDP shard's parameter pieces, and the parameter count
+    shard_segments: list | None = None
+    n_leaves: int = 0
 
     def __init__(self, params, lr: float, momentum: float = 0.9,
                  nesterov: bool = False, weight_decay: float = 0.0,
@@ -99,6 +113,36 @@ class LARS(torch.optim.Optimizer):
         super().__init__(params, dict(
             lr=lr, momentum=momentum, nesterov=nesterov,
             weight_decay=weight_decay, trust_coefficient=trust_coefficient))
+
+    def _shard_norms(self, p: torch.Tensor, u: torch.Tensor):
+        """Per-parameter norms of the flat shard ``p`` and its update
+        ``u``, over every rank (class docstring); also each element's
+        parameter index (``n_leaves`` for a pad)."""
+        segs, n = self.shard_segments, self.n_leaves
+        vec = p.new_zeros(2 * n)
+        whole = [(lo, hi, i) for lo, hi, i, w in segs if w]
+        shared = [(lo, hi, i) for lo, hi, i, w in segs if not w]
+        if whole:
+            # each piece copied into storage of its own, so the norm
+            # sums in a plain parameter's order
+            idx = torch.tensor([i for _, _, i in whole], device=p.device)
+            vec[idx] = torch.stack(torch._foreach_norm(
+                [p[lo:hi].clone() for lo, hi, _ in whole]))
+            vec[idx + n] = torch.stack(torch._foreach_norm(
+                [u[lo:hi].clone() for lo, hi, _ in whole]))
+        for lo, hi, i in shared:
+            vec[i] = p[lo:hi].square().sum()
+            vec[i + n] = u[lo:hi].square().sum()
+        if dist.is_initialized():
+            dist.all_reduce(vec)
+        if shared:
+            idx = torch.tensor([i for _, _, i in shared], device=p.device)
+            idx = torch.cat([idx, idx + n])
+            vec[idx] = vec[idx].sqrt()
+        leaf = torch.full(p.shape, n, dtype=torch.long, device=p.device)
+        for lo, hi, i, _ in segs:
+            leaf[lo:hi] = i
+        return vec[:n], vec[n:], leaf
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -110,11 +154,16 @@ class LARS(torch.optim.Optimizer):
             lr, momentum = group["lr"], group["momentum"]
             wd, tc = group["weight_decay"], group["trust_coefficient"]
             us = [p.grad + wd * p for p in params]
-            p_norm = torch.stack(torch._foreach_norm(params))
-            u_norm = torch.stack(torch._foreach_norm(us))
+            if self.shard_segments is not None:
+                p_norm, u_norm, leaf = self._shard_norms(params[0], us[0])
+            else:
+                p_norm = torch.stack(torch._foreach_norm(params))
+                u_norm = torch.stack(torch._foreach_norm(us))
             ratio = torch.where((p_norm == 0) | (u_norm == 0),
                                 torch.ones_like(p_norm),
                                 tc * p_norm / u_norm)
+            if self.shard_segments is not None:
+                ratio = torch.cat([ratio, ratio.new_ones(1)])[leaf][None]
             for p, u, r in zip(params, us, ratio.unbind()):
                 state = self.state[p]
                 if not state:
