@@ -136,7 +136,9 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    epochs 1-2 run again and epoch 1 saved again, verifying.  (c)
    ``--max-restarts 1`` with ``CrashOnceResNet50`` (this script's model
    class: it raises at step 3 of epoch 1 in its first life only): the
-   launcher restarts the group with ``--resume``.  Checks: (b) and (c)
+   launcher restarts the group with ``--resume``.  (a), (b)'s first run
+   and (c) go side by side on the card, then (b)'s resume.  Checks: (b)
+   and (c)
    end with epochs 0-2 in their records and ``epochs_run`` 2 (a: 3),
    finite losses and the launches of phase 6b per step and per
    validation batch; each restore's state digest (parameters, buffers,
@@ -202,8 +204,9 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    launcher: ``python -m theanompi_tpu_torch.launcher BSP -D 1 -m
    theanompi_tpu_torch.models.googlenet -c GoogLeNet`` and ``-m
    theanompi_tpu_torch.models.cifar10 -c Cifar10_model``, one epoch of
-   the default recipe and data each, with the launches of (b) per step
-   and per validation batch and finite losses.  (d) K1a/K1c at unit
+   the default recipe and data each, side by side on the card, with the
+   launches of (b) per step and per validation batch and finite losses.
+   (d) K1a/K1c at unit
    scale at every (rows, C) of a batch-64 VGG16 and GoogLeNet training
    forward, y and dx exact against the plain versions, and
    K3a/K3b at GoogLeNet's (64, 56, 56, 64/192) bf16 n = 5 and Cifar10's
@@ -249,6 +252,25 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    checkpoint resumed under ``exchange_buckets=2`` must exit non-zero on
    the layout's shape.  Runs that need no other's checkpoint go side by
    side on the card.
+21. The async rules, in this process with no process group.  (a)
+   EASGD (tau 4), ASGD and GOSGD (p_push 0.5) through the rule API on
+   AlexNet's recipe (batch 128, bf16, 227 crops, synthetic ImageNet,
+   on-device augment) as two workers sharing the card
+   (``devices=["cuda:0", "cuda:0"]``, a stream each), ``P21_ITERS``
+   iterations a worker, then a 2-batch validation.  Launch counts set to
+   0 before each session and read after it: exactly 2 K3a + 2 K3b an
+   iteration over both workers and 2 K3a a validation batch, no other
+   kernel; EASGD's exchanges and ASGD's updates as the iteration counts
+   give, GOSGD's weights summing to 1 within 1e-6, every loss finite.
+   ms per worker iteration, images/s over both workers, each exchange
+   span's host ms; then each store operation alone at AlexNet's size
+   (EASGD exchange, ASGD push_pull, GOSGD push and merge) with its bytes.
+   (b) The CPU tests' round-robin EASGD and ASGD schedules in f32 at
+   batch 8 on the card and on the CPU: the center's and each worker's
+   displacement from the initial parameters within relative L2 2e-3.
+   (c) ``python -m theanompi_tpu_torch.launcher EASGD -D 1 --tau 4`` on
+   AlexNet's defaults with ``--result-json``, beside (b): 64
+   iterations, 17 exchanges, the K3 launches, a finite validation.
 
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
@@ -256,7 +278,7 @@ their own); 16 runs after it, then 17 on a one-rank group of its own
 (its launcher runs after that group ends), then 18 (18a before its own
 one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
 its own one-rank group, (c) on it), then 20 ((a) on its own one-rank
-group, (b) after it, on phase 16's shard files).  Phase 9 checkpoints each
+group, (b) after it, on phase 16's shard files), then 21 (no group).  Phase 9 checkpoints each
 epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
 checkpoints.
 
@@ -491,6 +513,20 @@ P20_SETS = {
              "grad_accum_steps=2", "n_epochs=2")}
 
 
+#: phase 21: the async rules on one card.  (a) AlexNet's recipe as two
+#: workers sharing the card: iterations a worker, EASGD's period, GOSGD's
+#: push probability, validation images, the span each rule's exchange
+#: runs under; the store operations' timed calls.  (b) the CPU tests'
+#: round-robin schedules ((epochs, iterations a worker an epoch)), their
+#: batch, and the limit on the card's center against the CPU's
+P21_ITERS = {"EASGD": 32, "ASGD": 16, "GOSGD": 32}
+P21_TAU, P21_P_PUSH, P21_VAL_IMAGES = 4, 0.5, 2 * TRAIN_BATCH
+P21_SPANS = {"EASGD": "easgd/exchange", "ASGD": "asgd/push_pull",
+             "GOSGD": "gosgd/push"}
+P21_OP_REPS = 5
+P21_SCHEDULES = {"EASGD": (1, 8), "ASGD": (2, 3)}
+P21_CHECK_BATCH, P21_CENTER_LIMIT = 8, 2e-3
+
 def _launches(**per_step) -> dict:
     return {**{k: 0 for k in TRAIN_LAUNCHES}, **per_step}
 
@@ -527,7 +563,13 @@ TRACE_KERNELS = {
     "K2c": r"maxpool3x3s2_bwd_tile_kernel"}
 
 
+#: when the script started (phase headers print the seconds since)
+_STARTED = time.monotonic()
+
+
 def log(msg: str) -> None:
+    if msg.startswith("phase "):
+        msg += f"  [{time.monotonic() - _STARTED:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1830,9 +1872,64 @@ def launcher_session(torch, workdir: str) -> dict:
                         ("print_freq=16",))
 
 
+class Launched:
+    """A ``python -m theanompi_tpu_torch.launcher <args>`` subprocess
+    writing its result JSON under ``workdir`` and its output to files
+    there (so runs side by side never block on a full pipe)."""
+
+    def __init__(self, workdir: str, args: list[str]):
+        self.out_json = os.path.join(workdir, "result.json")
+        self.cmd = [sys.executable, "-m", "theanompi_tpu_torch.launcher",
+                    *args, "--result-json", self.out_json]
+        self.logs = [open(os.path.join(workdir, f"launcher.{k}"), "w+")
+                     for k in ("stdout", "stderr")]
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            self.cmd, stdout=self.logs[0], stderr=self.logs[1], text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def close(self) -> None:
+        """Kill the run if it is still going (idempotent)."""
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def wait(self, timeout: float = 900) -> tuple[dict, float, str]:
+        """The result JSON, the run's wall seconds and its stdout; raises
+        on a non-zero exit (the output's tail in the message)."""
+        try:
+            self.proc.wait(timeout=timeout)
+        finally:
+            self.close()
+        wall = time.monotonic() - self.t0
+        stdout, stderr = (f.seek(0) or f.read() for f in self.logs)
+        for f in self.logs:
+            f.close()
+        for line in stdout.strip().splitlines()[-6:]:
+            log(f"    | {line}")
+        if self.proc.returncode != 0:
+            raise AssertionError(
+                f"launcher exited {self.proc.returncode}:\n"
+                + (stdout[-3000:] + stderr[-3000:]).strip())
+        with open(self.out_json) as f:
+            return json.load(f), wall, stdout
+
+
+def launcher_start(workdir: str, modelfile: str, modelclass: str,
+                   epochs: int, sets=()) -> Launched:
+    """Start ``python -m theanompi_tpu_torch.launcher BSP -D 1 -m
+    <modelfile> -c <modelclass> --epochs <epochs>`` with ``--set`` each
+    of ``sets`` (:func:`launcher_run`)."""
+    args = ["BSP", "-D", "1", "-m", modelfile, "-c", modelclass,
+            "--epochs", str(epochs), "--snapshot-dir", workdir]
+    for kv in sets:
+        args += ["--set", kv]
+    return Launched(workdir, args)
+
+
 def launcher_run(torch, workdir: str, modelfile: str, modelclass: str,
                  epochs: int, batch: int, want_train: dict, want_val: dict,
-                 sets=()) -> dict:
+                 sets=(), started: Launched | None = None) -> dict:
     """``python -m theanompi_tpu_torch.launcher BSP -D 1 -m <modelfile>
     -c <modelclass> --epochs <epochs>`` with ``--set`` each of ``sets``,
     in a subprocess (one worker on this card, a one-rank NCCL group),
@@ -1844,24 +1941,12 @@ def launcher_run(torch, workdir: str, modelfile: str, modelclass: str,
     finite: the records hold each epoch's mean training loss, which is
     finite only if every step's loss (a cross-entropy, never negative)
     is.  Times: the last epoch's ms per step and images/s at the
-    per-card ``batch``."""
-    out_json = os.path.join(workdir, "result.json")
-    cmd = [sys.executable, "-m", "theanompi_tpu_torch.launcher", "BSP",
-           "-D", "1", "-m", modelfile, "-c", modelclass, "--epochs",
-           str(epochs), "--snapshot-dir", workdir, "--result-json",
-           out_json]
-    for kv in sets:
-        cmd += ["--set", kv]
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    wall = time.monotonic() - t0
-    tail = (proc.stdout[-3000:] + proc.stderr[-3000:]).strip()
-    for line in proc.stdout.strip().splitlines()[-6:]:
-        log(f"    | {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"launcher exited {proc.returncode}:\n{tail}")
-    with open(out_json) as f:
-        res = json.load(f)
+    per-card ``batch``.  ``started``: the run, already started by
+    :func:`launcher_start` (to run beside another)."""
+    run = started or launcher_start(workdir, modelfile, modelclass, epochs,
+                                    sets)
+    res, wall, _ = run.wait()
+    cmd = run.cmd
     recs = res["records"]
     if len(recs) != epochs or res["world_size"] != 1:
         raise AssertionError(f"launcher result: {len(recs)} epochs, world "
@@ -2319,11 +2404,16 @@ def trace_alexnet_step(torch) -> dict:
 # -- phase 16: checkpoint and resume on the card ----------------------------
 
 def __getattr__(name: str):
-    """``CrashOnceResNet50``, the model class phase 16 (c) names to the
-    launcher (``-m chip_smoke -c CrashOnceResNet50``): ResNet-50 that
-    raises at step ``CKPT_CRASH_STEP`` of epoch 1 in the first life of a
-    launcher group, never after.  Built on first access, so importing
-    this script needs no port."""
+    """The model classes phases name by module path, built on first
+    access, so importing this script needs no port:
+    ``CrashOnceResNet50``, which phase 16 (c) names to the launcher
+    (``-m chip_smoke -c CrashOnceResNet50``): ResNet-50 that raises at
+    step ``CKPT_CRASH_STEP`` of epoch 1 in the first life of a launcher
+    group, never after; ``P21AlexNet``, phase 21 (b)'s rule workers:
+    AlexNet (the recipe's weights, drawn from the seed's CPU generator,
+    so alike on every device) with no dropout."""
+    if name == "P21AlexNet":
+        return _p21_alexnet()
     if name != "CrashOnceResNet50":
         raise AttributeError(f"module {__name__!r} has no attribute "
                              f"{name!r}")
@@ -2338,6 +2428,19 @@ def __getattr__(name: str):
             return super().train_iter(count, recorder)
 
     return CrashOnceResNet50
+
+
+def _p21_alexnet():
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+
+    class P21AlexNet(AlexNet):
+        def __init__(self, config=None, device="cuda", data=None,
+                     shard_rank=0, shard_size=1):
+            super().__init__(config, device, data=data,
+                             shard_rank=shard_rank, shard_size=shard_size)
+            self.module.drop.rate = 0.0
+
+    return P21AlexNet
 
 
 def ckpt_shards(root: str) -> str:
@@ -2395,36 +2498,69 @@ def launcher_cmd(out: str, snap: str, workdir: str, data_dir: str,
             "--result-json", out, *extra]
 
 
+def ckpt_runs(workdir: str, data_dir: str, runs: dict) -> dict:
+    """``python -m theanompi_tpu_torch.launcher BSP -D 1`` runs side by
+    side on the card (``runs`` maps a name to its snapshot directory
+    under ``workdir``, extra arguments, model and environment); returns
+    per name its result JSON with the run's wall seconds (from the start
+    of the wave) and stderr's ``[resilience]`` lines.  Fails on a
+    non-zero exit."""
+    procs = {}
+    t0 = time.monotonic()
+    try:
+        for name, (snap, extra, model, env) in runs.items():
+            out = os.path.join(workdir, f"{name}.json")
+            logs = [open(os.path.join(workdir, f"{name}.{k}"), "w+")
+                    for k in ("stdout", "stderr")]
+            procs[name] = [out, logs, subprocess.Popen(
+                launcher_cmd(out, snap, workdir, data_dir, *extra,
+                             model=model),
+                stdout=logs[0], stderr=logs[1], text=True,
+                env={**os.environ, **(env or {})},
+                cwd=os.path.dirname(os.path.abspath(__file__))), None]
+        while any(p[3] is None for p in procs.values()):
+            for p in procs.values():
+                if p[3] is None and p[2].poll() is not None:
+                    p[3] = time.monotonic() - t0
+            if time.monotonic() - t0 > 900:
+                raise AssertionError(f"launcher runs {list(runs)} still "
+                                     "running after 900 s")
+            time.sleep(0.2)
+        results = {}
+        for name, (out, logs, proc, wall) in procs.items():
+            stdout, stderr = (f.seek(0) or f.read() for f in logs)
+            resilience = [line for line in stderr.splitlines()
+                          if line.startswith("[resilience]")]
+            for line in resilience:
+                log(f"    | {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"launcher run {name} exited "
+                                     f"{proc.returncode}:\n{stdout[-3000:]}"
+                                     f"\n{stderr[-3000:]}")
+            with open(out) as f:
+                res = json.load(f)
+            res.update(wall_s=wall, resilience=resilience)
+            log(f"  ({name}) {' '.join(runs[name][1]) or 'unbroken'}: "
+                f"{wall:.1f} s, epochs_run {res['epochs_run']}, epochs "
+                f"{[r['epoch'] for r in res['records']]}")
+            results[name] = res
+        return results
+    finally:
+        for _, logs, proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
+
+
 def ckpt_run(name: str, snap: str, workdir: str, data_dir: str,
              *extra: str,
              model=("theanompi_tpu_torch.models.resnet50", "ResNet50"),
              env: dict | None = None) -> dict:
-    """One ``python -m theanompi_tpu_torch.launcher BSP -D 1`` run with
-    snapshot directory ``workdir/<snap>``; returns its result JSON with
-    the run's wall seconds and stderr's ``[resilience]`` lines.  Fails on
-    a non-zero exit."""
-    out = os.path.join(workdir, f"{name}.json")
-    cmd = launcher_cmd(out, snap, workdir, data_dir, *extra, model=model)
-    t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900,
-                          env={**os.environ, **(env or {})},
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    wall = time.monotonic() - t0
-    resilience = [line for line in proc.stderr.splitlines()
-                  if line.startswith("[resilience]")]
-    for line in resilience:
-        log(f"    | {line}")
-    if proc.returncode != 0:
-        raise AssertionError(f"launcher run {name} exited "
-                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                             f"{proc.stderr[-3000:]}")
-    with open(out) as f:
-        res = json.load(f)
-    res.update(wall_s=wall, resilience=resilience)
-    log(f"  ({name}) {' '.join(extra) or 'unbroken'}: {wall:.1f} s, "
-        f"epochs_run {res['epochs_run']}, epochs "
-        f"{[r['epoch'] for r in res['records']]}")
-    return res
+    """One run of :func:`ckpt_runs`."""
+    return ckpt_runs(workdir, data_dir,
+                     {name: (snap, extra, model, env)})[name]
 
 
 def trace_kernel_ids(path: str) -> dict[str, int]:
@@ -2496,22 +2632,27 @@ def checkpoint_phase(torch, workdir: str) -> dict:
     unbroken twice (the first profiled), (b) corrupted at its latest
     epoch by the fault plan and resumed through the fallback, (c) crashed
     and auto-resumed; every restore bit-exact against its save, the
-    final states held to (a)'s."""
+    final states held to (a)'s.  The runs that need no other's checkpoint
+    go side by side (the save pauses and times are then those of four
+    processes sharing the card and the host)."""
     from theanompi_tpu_torch.resilience import recovery
 
     data = ckpt_shards(os.path.join(workdir, "data"))
     prof = os.path.join(workdir, "profile")
-    a1 = ckpt_run("a1", "a1", workdir, data,
-                  env={"THEANOMPI_TPU_PROFILE": prof,
-                       "THEANOMPI_TPU_PROFILE_STEPS":
-                       str(CKPT_PROFILE_STEPS)})
-    a2 = ckpt_run("a2", "a2", workdir, data)
-    ckpt_run("b1", "b", workdir, data, "--epochs", "2", "--fault-plan",
-             json.dumps([{"site": "checkpoint", "epoch": 1,
-                          "action": "truncate"}]))
+    r50 = ("theanompi_tpu_torch.models.resnet50", "ResNet50")
+    # the runs that need no other's checkpoint go side by side
+    first = ckpt_runs(workdir, data, {
+        "a1": ("a1", (), r50, {"THEANOMPI_TPU_PROFILE": prof,
+                               "THEANOMPI_TPU_PROFILE_STEPS":
+                               str(CKPT_PROFILE_STEPS)}),
+        "a2": ("a2", (), r50, None),
+        "b1": ("b", ("--epochs", "2", "--fault-plan", json.dumps(
+            [{"site": "checkpoint", "epoch": 1, "action": "truncate"}])),
+            r50, None),
+        "c": ("c", ("--max-restarts", "1"),
+              ("chip_smoke", "CrashOnceResNet50"), None)})
+    a1, a2, c = first["a1"], first["a2"], first["c"]
     b2 = ckpt_run("b2", "b", workdir, data, "--resume", "--epochs", "2")
-    c = ckpt_run("c", "c", workdir, data, "--max-restarts", "1",
-                 model=("chip_smoke", "CrashOnceResNet50"))
     for res, want in ((a1, CKPT_EPOCHS), (a2, CKPT_EPOCHS), (b2, 2), (c, 2)):
         check_ckpt_run(res, want)
     if not any("is CORRUPT" in line for line in b2["resilience"]):
@@ -3265,7 +3406,7 @@ def zoo_phase(torch, workdir: str) -> dict:
     finally:
         dist.destroy_process_group()
     log("  (c) the launcher: GoogLeNet and Cifar10, one worker on this card")
-    launched = {}
+    launched, runs = {}, {}
     for label, modelfile, cls, batch, want_t, want_v in (
             ("googlenet", "theanompi_tpu_torch.models.googlenet",
              "GoogLeNet", ZOO_BATCH, GOOGLENET_TRAIN_LAUNCHES,
@@ -3275,8 +3416,18 @@ def zoo_phase(torch, workdir: str) -> dict:
              CIFAR_VAL_LAUNCHES)):
         sub = os.path.join(workdir, f"launcher_{label}")
         os.makedirs(sub)
-        launched[label] = launcher_run(torch, sub, modelfile, cls, 1, batch,
-                                       want_t, want_v)
+        # both side by side on the card: their times are shared ones
+        runs[label] = (sub, modelfile, cls, batch, want_t, want_v,
+                       launcher_start(sub, modelfile, cls, 1))
+    try:
+        for label, (sub, modelfile, cls, batch, want_t, want_v,
+                    run) in runs.items():
+            launched[label] = launcher_run(torch, sub, modelfile, cls, 1,
+                                           batch, want_t, want_v,
+                                           started=run)
+    finally:
+        for *_, run in runs.values():
+            run.close()
     log(f"  (d) K1 and K3 at the zoo's shapes ({card_line()})")
     times = {}
     for label, build in (("vgg16", lambda: VGGCNN(dtype=torch.bfloat16)),
@@ -3788,6 +3939,333 @@ def sharded_phase(torch, workdir: str, data_dir: str) -> dict:
             "seconds": {"a": t_a, "b": time.monotonic() - t0 - t_a}}
 
 
+# -- phase 21: the async rules on one card ----------------------------------
+
+def p21_session(torch, name: str, workdir: str) -> dict:
+    """One session of rule ``name`` through the rule API: AlexNet's
+    recipe (batch 128, bf16, 227 crops, synthetic ImageNet, on-device
+    augment) as two workers sharing this card (``devices=["cuda:0",
+    "cuda:0"]``, a CUDA stream each), one epoch of ``P21_ITERS[name]``
+    iterations a worker, then a validation of ``P21_VAL_IMAGES`` images,
+    under ``monitor`` (per-worker step times and exchange spans).
+    The launch counts are set to 0 just before the session and read just
+    after: exactly 2 K3a + 2 K3b an iteration over both workers and 2
+    K3a a validation batch, no other kernel; EASGD's exchanges and
+    ASGD's updates as the iteration counts give them, GOSGD's weights
+    summing to 1 within 1e-6; every training loss and the validation
+    finite.  Times: the session's worker-thread wall over its iterations
+    a worker (first iterations included); each worker's iteration
+    (``step_ms``: host wall of the worker's loop body, its exchange
+    included) as a mean without the slowest (the first) and a p50, and
+    images/s over both workers at the means; the exchange spans' host ms
+    per call."""
+    from theanompi_tpu_torch import monitor, rules
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.ops import _kernels
+
+    iters = P21_ITERS[name]
+    data = ImageNet_data(crop=227, seed=0,
+                         synthetic_n=2 * iters * TRAIN_BATCH)
+    data.n_val = P21_VAL_IMAGES
+    cfg = dataclasses.replace(AlexNet.default_config(), n_epochs=1,
+                              batch_size=TRAIN_BATCH, print_freq=0,
+                              snapshot_dir=workdir)
+    opts = {"EASGD": {"tau": P21_TAU}, "ASGD": {},
+            "GOSGD": {"p_push": P21_P_PUSH}}[name]
+    span = P21_SPANS[name]
+    with monitor.session(os.path.join(workdir, f"monitor_{name}")):
+        _kernels.reset_launch_counts()
+        rule = getattr(rules, name)().init(
+            devices=["cuda:0", "cuda:0"],
+            modelfile="theanompi_tpu_torch.models.alex_net",
+            modelclass="AlexNet", config=cfg, data=data, checkpoint=False,
+            **opts)
+        res = rule.wait()
+        counts = _kernels.launch_counts()
+        reg = monitor.registry()
+        hists = [reg.get("span_ms", span=span, worker=str(w)) for w in (0, 1)]
+        steps = [reg.get("step_ms", phase="train", worker=str(w))
+                 for w in (0, 1)]
+    n_it = 2 * iters
+    want = {k: 0 for k in counts}
+    want.update(lrn=2 * n_it + 2 * res["val_batches"], lrn_bwd=2 * n_it)
+    losses = [x for r in rule.recorders for x in r.train_losses]
+    out = {"iterations": res["iterations"], "val_batches": res["val_batches"],
+           "launches": counts, "session_launches": res["launches"],
+           "train_s": res["train_s"], "val": res["val"],
+           "session_ms_per_worker_iteration": res["train_s"] * 1e3 / iters,
+           "session_images_per_s": n_it * TRAIN_BATCH / res["train_s"],
+           "step_ms_p50": [h.percentile(50.0) for h in steps],
+           # the slowest iteration (the first: the data pool, the first
+           # launches on a new stream) left out
+           "step_ms_mean": [(h.sum - h.max) / (h.count - 1) for h in steps],
+           "first_step_ms": [h.max for h in steps]}
+    out["images_per_s"] = sum(TRAIN_BATCH * 1e3 / ms
+                              for ms in out["step_ms_mean"])
+    calls = sum(h.count for h in hists if h)
+    out.update(span=span, span_calls=calls,
+               span_ms_per_call=sum(h.sum for h in hists if h) / max(1, calls),
+               losses=len(losses), first_loss=losses[0] if losses else None,
+               last_loss=losses[-1] if losses else None)
+    for key in ("n_exchanges", "n_updates", "weights"):
+        if key in res:
+            out[key] = res[key]
+    log(f"  {name}: {n_it} iterations over 2 workers in "
+        f"{res['train_s']:.2f} s ({out['session_ms_per_worker_iteration']:.2f}"
+        f" ms per worker iteration, first iterations included); a worker's "
+        f"iteration: mean {out['step_ms_mean'][0]:.2f} / "
+        f"{out['step_ms_mean'][1]:.2f} ms after the first "
+        f"({out['first_step_ms'][0]:.0f} / {out['first_step_ms'][1]:.0f} "
+        f"ms), p50 {out['step_ms_p50'][0]:.2f} / {out['step_ms_p50'][1]:.2f};"
+        f" {out['images_per_s']:.0f} images/s on the card at the means; "
+        f"{calls} {span} at {out['span_ms_per_call']:.2f} ms "
+        f"(host); validation {res['val']} on {res['val_batches']} batches; "
+        + ", ".join(f"{k} {out[k]}" for k in ("n_exchanges", "n_updates",
+                                               "weights") if k in out))
+    bad = []
+    if counts != want or counts != res["launches"]:
+        bad.append(f"launches {counts} (session {res['launches']}) != {want}")
+    if res["iterations"] != n_it or len(losses) != n_it:
+        bad.append(f"{res['iterations']} iterations, {len(losses)} losses, "
+                   f"want {n_it}")
+    if not all(math.isfinite(x) for x in losses) or not all(
+            math.isfinite(v) for v in res["val"].values()) or not res["val"]:
+        bad.append(f"non-finite loss or validation {res['val']}")
+    if name == "EASGD" and res["n_exchanges"] != 2 * (iters // P21_TAU + 1):
+        bad.append(f"n_exchanges {res['n_exchanges']}")
+    if name == "ASGD" and res["n_updates"] != n_it:
+        bad.append(f"n_updates {res['n_updates']}")
+    if name == "GOSGD" and abs(sum(res["weights"]) - 1.0) > 1e-6:
+        bad.append(f"weights {res['weights']} sum {sum(res['weights'])}")
+    if bad:
+        raise AssertionError(f"phase 21 {name}: " + "; ".join(bad))
+    return out
+
+
+def p21_store_ops(torch) -> dict:
+    """Each store operation at AlexNet's 61.0 M f32 parameters on this
+    card, ``P21_OP_REPS`` calls after one warm-up, host wall ending in a
+    synchronize: an EASGD exchange (the host center copied to the card
+    and back: 2 x 4P bytes over the host link), an ASGD ``push_pull``
+    (gradients copied onto the server's card, the optimizer step, the
+    fresh center copied out: 4 x 4P bytes of copies on HBM beside the
+    step's own), a GOSGD push (a copy of the parameters: 2 x 4P bytes on
+    HBM) and the receiver's merge of it (3 x 4P bytes)."""
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.parallel.exchanger import gosgd_merge
+    from theanompi_tpu_torch.parallel.server import (
+        ASGDServer,
+        EASGDServer,
+        GossipHub,
+    )
+
+    model = AlexNet(device="cuda")
+    params = [p.detach() for p in model.module.parameters()]
+    nbytes = sum(p.numel() * p.element_size() for p in params)
+    grads = [torch.full_like(p, 1e-4) for p in params]
+    easgd = EASGDServer(params, alpha=0.5)
+    asgd = ASGDServer(params, model.optimizer_hyperparams())
+    hub = GossipHub(2)
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(P21_OP_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / P21_OP_REPS
+
+    out = {"params": sum(p.numel() for p in params), "param_bytes": nbytes,
+           "easgd_exchange": {"ms": timed(lambda: easgd.exchange(params)),
+                              "host_link_bytes": 2 * nbytes},
+           "asgd_push_pull": {"ms": timed(lambda: asgd.push_pull(grads)),
+                              "copy_bytes": 4 * nbytes},
+           "gosgd_push": {"ms": timed(lambda: hub.push(1, params, 0.25)),
+                          "copy_bytes": 2 * nbytes}}
+    (recv, _), *_ = hub.drain(1)
+    out["gosgd_merge"] = {
+        "ms": timed(lambda: gosgd_merge(params, 0.5, recv, 0.25)),
+        "hbm_bytes": 3 * nbytes}
+    for op in ("easgd_exchange", "asgd_push_pull", "gosgd_push",
+               "gosgd_merge"):
+        b = next(v for k, v in out[op].items() if k.endswith("bytes"))
+        out[op]["gb_per_s"] = b / out[op]["ms"] / 1e6
+    log(f"  store operations at {out['params']} parameters "
+        f"({nbytes / 1e6:.1f} MB): "
+        + "; ".join(f"{op} {out[op]['ms']:.2f} ms ({out[op]['gb_per_s']:.1f} "
+                    "GB/s of its bytes)"
+                    for op in ("easgd_exchange", "asgd_push_pull",
+                               "gosgd_push", "gosgd_merge")))
+    return out
+
+
+def p21_schedule(torch, name: str, device: str) -> dict:
+    """The CPU tests' round-robin two-worker schedule of rule ``name``
+    (EASGD: tau 2, alpha 0.5, 8 iterations a worker then the final sync;
+    ASGD: 3 pushes a worker in each of 2 epochs, the LR schedule forwarded
+    in between) driven through ``rule.prepare`` on ``device``: f32,
+    batch 8, the host augment (numpy draws, alike on both devices),
+    ``P21AlexNet`` (the recipe's seeded weights, no dropout).  Returns
+    the initial parameters, the center and both workers' parameters, on
+    the host.  From He-normal weights these schedules are chaotic (a
+    1e-7 relative change of the initial weights moves the CPU's EASGD
+    center by 3.6% of its displacement); from the recipe's, by 1.4e-5."""
+    from theanompi_tpu_torch import rules
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+
+    epochs, iters = P21_SCHEDULES[name]
+    data = ImageNet_data(crop=227, seed=0,
+                         synthetic_n=2 * iters * P21_CHECK_BATCH,
+                         synthetic_pool=16, augment_on_device=False)
+    cfg = dataclasses.replace(
+        AlexNet.default_config(), compute_dtype="float32",
+        batch_size=P21_CHECK_BATCH, n_epochs=epochs, lr_decay_epochs=(1,),
+        print_freq=0)
+    opts = {"tau": 2, "alpha": 0.5} if name == "EASGD" else {}
+    rule = getattr(rules, name)().prepare(
+        devices=[device, device], modelfile="chip_smoke",
+        modelclass="P21AlexNet", config=cfg, data=data, checkpoint=False,
+        **opts)
+    try:
+        # copies: on the CPU .cpu() would alias the live parameters
+        init = [p.detach().cpu().clone()
+                for p in rule.models[0].module.parameters()]
+        ws = rule.workers
+        for w in ws:
+            w.open()
+        for epoch in range(epochs):
+            for w in ws:
+                w.model.begin_epoch(epoch)
+            for it in range(iters):
+                for w in ws:
+                    w.step(it)
+            for w in ws:
+                w.end_epoch(epoch)
+        for w in ws:
+            w.finish()
+            w.close()
+        return {"init": init,
+                "center": [t.detach().cpu().clone() for t in
+                           rule.server.get_center()],
+                "workers": [[p.detach().cpu().clone() for p in w.params]
+                            for w in ws]}
+    finally:
+        rule.close()
+
+
+def p21_card_vs_cpu(torch) -> dict:
+    """The EASGD and ASGD schedules on the card and on the CPU: the
+    center's displacement from the initial parameters, and each worker's,
+    within relative L2 ``P21_CENTER_LIMIT`` of the CPU's (the limit phase
+    18 (a) holds an f32 card gradient to)."""
+    def flat(ts):
+        return torch.cat([t.reshape(-1).double() for t in ts])
+
+    out = {}
+    for name in P21_SCHEDULES:
+        t0 = time.monotonic()
+        card = p21_schedule(torch, name, "cuda:0")
+        t_card = time.monotonic() - t0
+        cpu = p21_schedule(torch, name, "cpu")
+        t_cpu = time.monotonic() - t0 - t_card
+        init = flat(cpu["init"])
+        if not torch.equal(flat(card["init"]), init):
+            raise AssertionError(f"phase 21 (b) {name}: the card's initial "
+                                 "parameters differ from the CPU's")
+
+        def rel(got, want):
+            d = flat(want) - init
+            return float((flat(got) - flat(want)).norm() / d.norm())
+
+        r = {"center": rel(card["center"], cpu["center"]),
+             "workers": [rel(g, w) for g, w in zip(card["workers"],
+                                                   cpu["workers"])],
+             "center_finite": bool(torch.isfinite(flat(card["center"])).all()),
+             "displacement": float((flat(cpu["center"]) - init).norm()
+                                   / init.norm()),
+             "card_s": t_card, "cpu_s": t_cpu}
+        out[name] = r
+        log(f"  {name}: card vs CPU, relative L2 of the displacement from "
+            f"the initial parameters: center {r['center']:.3g}, workers "
+            f"{', '.join(f'{x:.3g}' for x in r['workers'])} (limit "
+            f"{P21_CENTER_LIMIT}; the center moved {r['displacement']:.3g} "
+            f"of the parameters' norm); card {t_card:.1f} s, cpu "
+            f"{t_cpu:.1f} s")
+        if not (r["center_finite"] and r["center"] <= P21_CENTER_LIMIT
+                and max(r["workers"]) <= P21_CENTER_LIMIT):
+            raise AssertionError(f"phase 21 (b) {name}: {r}")
+    return out
+
+
+def p21_launcher_start(workdir: str) -> Launched:
+    """Start ``python -m theanompi_tpu_torch.launcher EASGD -D 1 --tau 4``
+    on AlexNet's defaults (batch 128, one epoch of the 8192-image
+    synthetic set) with ``--result-json``."""
+    return Launched(workdir, [
+        "EASGD", "-D", "1", "--tau", str(P21_TAU), "-m",
+        "theanompi_tpu_torch.models.alex_net", "-c", "AlexNet", "--epochs",
+        "1", "--set", "print_freq=0", "--snapshot-dir", workdir])
+
+
+def p21_launcher(run: Launched) -> dict:
+    """Phase 21 (c)'s checks of :func:`p21_launcher_start`'s run: one
+    worker, its exchanges (one each 4 iterations and the final one), 2
+    K3a + 2 K3b an iteration and 2 K3a a validation batch, a finite
+    validation."""
+    res, wall, _ = run.wait(600)
+    cmd = run.cmd
+    n_it = res["iterations"]
+    want = {k: 0 for k in res["launches"]}
+    want.update(lrn=2 * n_it + 2 * res["val_batches"], lrn_bwd=2 * n_it)
+    out = {"cmd": " ".join(cmd[1:]), "wall_s": wall, "iterations": n_it,
+           "n_exchanges": res["n_exchanges"], "launches": res["launches"],
+           "val_batches": res["val_batches"], "val": res["val"],
+           "train_s": res["train_s"], "devices": res["devices"],
+           "ms_per_iteration": res["train_s"] * 1e3 / n_it}
+    log(f"  {n_it} iterations, {res['n_exchanges']} exchanges, "
+        f"{res['val_batches']} validation batches in {wall:.1f} s "
+        f"({out['ms_per_iteration']:.2f} ms an iteration: the session's "
+        f"worker wall, its start and exchanges included); val {res['val']};"
+        f" launches lrn {res['launches']['lrn']}"
+        f" lrn_bwd {res['launches']['lrn_bwd']}")
+    if (res["devices"] != ["cuda:0"] or n_it != 8192 // TRAIN_BATCH
+            or res["n_exchanges"] != n_it // P21_TAU + 1
+            or res["launches"] != want or not res["val"]
+            or not all(math.isfinite(v) for v in res["val"].values())):
+        raise AssertionError(f"phase 21 (c): {out} (want launches {want})")
+    return out
+
+
+def async_phase(torch, workdir: str) -> dict:
+    """Phase 21: (a) the three rules' sessions on two workers sharing the
+    card, then each store operation timed alone; (b) the card against
+    the CPU, with (c) the EASGD launcher's run beside it (neither is
+    timed against the other)."""
+    t0 = time.monotonic()
+    log("  (a) EASGD, ASGD and GOSGD: two AlexNet workers on this card")
+    sessions = {name: p21_session(torch, name, workdir)
+                for name in P21_ITERS}
+    torch.cuda.empty_cache()
+    ops = p21_store_ops(torch)
+    torch.cuda.empty_cache()
+    log("  (b) the round-robin EASGD and ASGD schedules, card against CPU,"
+        " beside (c) the launcher: EASGD -D 1")
+    started = p21_launcher_start(workdir)
+    try:
+        checked = p21_card_vs_cpu(torch)
+        torch.cuda.empty_cache()
+        launched = p21_launcher(started)
+    finally:
+        started.close()
+    seconds = time.monotonic() - t0
+    log(f"  phase 21: {seconds:.1f} s")
+    return {"sessions": sessions, "store_ops": ops, "card_vs_cpu": checked,
+            "launcher": launched, "seconds": seconds}
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -3965,6 +4443,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase20 = sharded_phase(torch, tmp,
                                     os.path.join(shards_tmp, "data"))
+    torch.cuda.empty_cache()
+
+    log("phase 21: the async rules (EASGD, ASGD, GOSGD) on one card")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase21 = async_phase(torch, tmp)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -4010,7 +4493,11 @@ def main() -> int:
                  train_session_launches=session["launches"][k["name"]],
                  zoo_launches={label: run["launches"][k["name"]]
                                for label, run in zoo["sessions"].items()
-                               if run["launches"].get(k["name"])})
+                               if run["launches"].get(k["name"])},
+                 async_launches={rule: run["launches"][k["name"]]
+                                 for rule, run in
+                                 phase21["sessions"].items()
+                                 if run["launches"].get(k["name"])})
         per_zoo_step = {label: {key: t[kid][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             if key in t[kid]}
@@ -4031,7 +4518,8 @@ def main() -> int:
                    "lm_grad_check": lm_checked, "lm_session": lm_run,
                    "lm_step_trace": lm_trace, "checkpoint": ckpt,
                    "rest_of_bsp": rest, "zoo": zoo, "phase19": phase19,
-                   "phase20": phase20,
+                   "phase20": phase20, "phase21": phase21,
+                   "seconds": time.monotonic() - _STARTED,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
                            "epilogue are per batch-32 forward (K1a/K1b; "
@@ -4057,8 +4545,12 @@ def main() -> int:
                            "zoo_per_step: phase 18 (d)'s times summed per "
                            "training step of each zoo model (K1a/K1c at "
                            "unit scale, batch 64; K3 at GoogLeNet's batch-64 "
-                           "and Cifar10's batch-128 shapes)"},
+                           "and Cifar10's batch-128 shapes); "
+                           "async_launches: each phase-21 session's "
+                           "launches (two AlexNet workers sharing the "
+                           "card, iterations + validation)"},
                   f, indent=1)
+    log(f"whole script: {time.monotonic() - _STARTED:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@ TransformerLM trains at its default dims through the same command; a worker
 that fails stops its sibling and the launcher exits non-zero; two ranks
 stopped and resumed end as two unbroken ranks; ``--multihost`` joins two
 launchers of one rank each into one world; unported rules and options
-exit non-zero naming their ROADMAP item.
+(SERVE, the async rules' remote paths, ...) exit non-zero naming their
+ROADMAP item.
 
 This file imports no JAX: it is also the model module the launched
 workers import (``-m test_torch_launcher -c TinyAlexNet``).  Every
@@ -145,8 +146,10 @@ def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["EASGD"], 14), (["GOSGD"], 14), (["ASGD"], 14), (["SERVE"], 19),
-    (["BSP", "--collector"], 16), (["BSP", "--tau", "4"], 14),
+    (["EASGD", "--server-addr", "h:1"], 15),
+    (["ASGD", "--local-aggregation"], 15),
+    (["GOSGD", "--n-total-workers", "4"], 15), (["SERVE"], 19),
+    (["BSP", "--collector"], 16), (["EASGD", "--shards", "h:1,h:2"], 15),
     (["BSP", "--model-parallel=2"], 18), (["BSP", "--decode-max-seqs", "4"],
                                           20)])
 def test_unported_rules_and_options_name_their_roadmap_item(argv, item):

@@ -14,10 +14,22 @@ serving (``serving.InferenceServer``); BSP training (``rules.bsp.BSP`` /
 ``torch.distributed`` for the exchange) of the classifier zoo, the
 TransformerLM and the WGAN, with every exchange mode, optimizer and
 cadence, ``sync_bn``, ZeRO-1 and FSDP, checkpoints and resume; the
-model contract's npz
-snapshots; shard preparation (``data.imagenet``,
+async rules ``EASGD``, ``ASGD`` and ``GOSGD`` in one process (one worker
+thread per device entry, several may share a card); the model contract's
+npz snapshots; shard preparation (``data.imagenet``,
 ``tools.prepare_imagenet``).  Entry points take ``device=`` and default
-to ``"cuda"``.
+to ``"cuda"``.  The rule classes are exported here (imported on first
+use): ``from theanompi_tpu_torch import EASGD``.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["BSP", "EASGD", "ASGD", "GOSGD"]
+
+
+def __getattr__(name: str):
+    if name in __all__:
+        from theanompi_tpu_torch import rules
+
+        return getattr(rules, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,8 +1,11 @@
-"""``tmlocal BSP`` for the port: one process per card.
+"""``tmlocal`` for the port: BSP one process per card, and the async
+rules (EASGD, ASGD, GOSGD) in one process.
 
-Counterpart of ``theanompi_tpu/launcher.py`` for the BSP rule::
+Counterpart of ``theanompi_tpu/launcher.py``::
 
     python -m theanompi_tpu_torch.launcher BSP -D 1 \\
+        -m theanompi_tpu_torch.models.alex_net -c AlexNet --epochs 1
+    python -m theanompi_tpu_torch.launcher EASGD -D 2 --tau 4 \\
         -m theanompi_tpu_torch.models.alex_net -c AlexNet --epochs 1
 
 The JAX launcher runs one SPMD program over every local chip; the port
@@ -54,11 +57,26 @@ world size.  The JAX options with their semantics:
   (a shared file system): rank 0 alone writes checkpoints, and every
   other rank restores from that directory on its own host.
 
+The async rules run in ONE worker process with no process group
+(``rules/async_rules.py``): ``-D N`` is N worker threads over cards
+0..N-1 (fewer visible cards than N is refused; default every card), and
+``--platform cpu -D N`` N CPU workers (default 1).  Their options, with
+JAX's refusal matrix: ``--tau``, ``--alpha`` (EASGD), ``--p-push``,
+``--merge-momentum`` (GOSGD), ``--overlap-exchange`` (EASGD, ASGD) and
+``--min-workers``; ``--max-restarts N`` supervises the worker threads
+(a failed EASGD/ASGD worker restarts from the center) and restarts the
+session with ``--resume`` up to N times.  Their result JSON holds the
+session result (``val``, the counts ``n_exchanges`` (EASGD) or
+``n_updates`` (ASGD), GOSGD's ``weights``, ``iterations`` (over all
+workers), ``train_s`` (until the last worker thread ended),
+``val_batches``, and ``launches``: each kernel's launches over the
+session), the rule, the devices and each worker's parameter digest.
+
 The launcher never picks the CPU by itself: ``--platform`` defaults to
 ``cuda`` and fails without a card.  A worker that fails terminates its
-siblings and the launcher exits non-zero.  The other rules (EASGD, ASGD,
-GOSGD, SERVE) and the JAX launcher's other options exit non-zero with
-the ROADMAP item that will port them.
+siblings and the launcher exits non-zero.  SERVE and the JAX launcher's
+other options exit non-zero with the ROADMAP item that will port them
+(the async rules' remote paths: item 15).
 """
 
 from __future__ import annotations
@@ -74,19 +92,20 @@ import sys
 import time
 
 #: rules of the JAX launcher -> the ROADMAP.md section A item porting
-#: each (BSP is ported)
-RULES = {"BSP": None, "EASGD": 14, "ASGD": 14, "GOSGD": 14, "SERVE": 19}
+#: each (None: ported)
+RULES = {"BSP": None, "EASGD": None, "ASGD": None, "GOSGD": None,
+         "SERVE": 19}
+#: the rules that run in one process, one worker thread per device
+ASYNC_RULES = ("EASGD", "ASGD", "GOSGD")
 #: options of the JAX launcher this one does not take yet -> the ROADMAP
 #: item porting each; ``--decode-*`` are matched by prefix (item 20)
 UNPORTED_OPTIONS = {
     **dict.fromkeys(("--model-parallel", "--seq-parallel", "--pipe-parallel",
                      "--expert-parallel"), 18),
-    **dict.fromkeys(("--tau", "--alpha", "--p-push", "--merge-momentum",
-                     "--server-addr", "--overlap-exchange",
-                     "--n-total-workers", "--rank-offset", "--session-id"),
-                    14),
-    **dict.fromkeys(("--shards", "--local-aggregation", "--wire-protocol",
-                     "--wire-compression", "--wire-dtype"), 15),
+    **dict.fromkeys(("--server-addr", "--n-total-workers", "--rank-offset",
+                     "--session-id", "--shards", "--local-aggregation",
+                     "--wire-protocol", "--wire-compression", "--wire-dtype"),
+                    15),
     "--collector": 16, "--ingest": 17,
     **dict.fromkeys(("--export-dir", "--port", "--serve-host",
                      "--serve-replicas", "--max-batch", "--max-delay-ms",
@@ -110,14 +129,15 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m theanompi_tpu_torch.launcher",
         description="tmlocal for the PyTorch port: one process per card",
         allow_abbrev=False)
-    p.add_argument("rule", help="training rule (BSP)")
+    p.add_argument("rule", help="training rule (BSP, EASGD, ASGD, GOSGD)")
     p.add_argument("-m", "--modelfile", required=True,
                    help="model module path")
     p.add_argument("-c", "--modelclass", required=True,
                    help="model class name")
     p.add_argument("-D", "--devices", type=int, default=None,
-                   help="processes, one per card (default: every visible "
-                        "card; 1 on --platform cpu)")
+                   help="BSP: processes, one per card; async rules: "
+                        "worker threads, one per card (default: every "
+                        "visible card; 1 on --platform cpu)")
     p.add_argument("--epochs", type=int, default=None,
                    help="cap the number of epochs")
     p.add_argument("--batch-size", type=int, default=None)
@@ -143,7 +163,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-restarts", type=int, default=0, metavar="N",
                    help="restart a group whose worker died, from its "
                         "latest verified checkpoint, up to N times "
-                        "(single host only)")
+                        "(single host only); async rules also restart a "
+                        "failed worker thread from the center up to N "
+                        "times")
+    p.add_argument("--min-workers", type=int, default=None, metavar="N",
+                   help="async rules under --max-restarts: abort when "
+                        "fewer than N workers are left (default 1)")
+    p.add_argument("--tau", type=int, default=None,
+                   help="EASGD: iterations between exchanges (default 10)")
+    p.add_argument("--alpha", type=float, default=None,
+                   help="EASGD: elastic coefficient (default 0.5)")
+    p.add_argument("--p-push", type=float, default=None,
+                   help="GOSGD: per-iteration push probability "
+                        "(default 0.1)")
+    p.add_argument("--merge-momentum", default=None,
+                   choices=("scale", "keep"),
+                   help="GOSGD: scale the receiver's first moments by its "
+                        "share of each merge (default) or keep them")
+    p.add_argument("--overlap-exchange", action="store_true",
+                   help="EASGD/ASGD: run each worker's exchange on a "
+                        "thread of its own while it computes on "
+                        "(bounded staleness 1)")
     p.add_argument("--multihost", action="store_true",
                    help="one launcher per host; needs --coordinator, "
                         "--nhosts and --host-id")
@@ -176,6 +216,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
         raise SystemExit("-D must be >= 1")
     if args.max_restarts < 0:
         raise SystemExit("--max-restarts must be >= 0")
+    _check_rule_options(args)
     hosts = (args.coordinator, args.nhosts, args.host_id)
     if args.multihost:
         if None in hosts:
@@ -192,6 +233,31 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
         raise SystemExit("--coordinator, --nhosts and --host-id need "
                          "--multihost")
     return args
+
+
+#: option -> the rules that take it (else refused, as JAX's matrix does)
+_RULE_OPTIONS = {"tau": ("EASGD",), "alpha": ("EASGD",),
+                 "p_push": ("GOSGD",), "merge_momentum": ("GOSGD",),
+                 "overlap_exchange": ("EASGD", "ASGD"),
+                 "min_workers": ASYNC_RULES}
+
+
+def _check_rule_options(args: argparse.Namespace) -> None:
+    """Refuse a rule's option under another rule (a flag silently
+    ignored would let the user believe it acts) and the async rules
+    across hosts."""
+    for opt, rules in _RULE_OPTIONS.items():
+        if getattr(args, opt) not in (None, False) and args.rule not in rules:
+            flag = "--" + opt.replace("_", "-")
+            if opt == "overlap_exchange":
+                # BSP overlaps in its step; GOSGD pushes never block
+                raise SystemExit(f"{flag} applies to EASGD/ASGD only")
+            raise SystemExit(f"{flag} applies to {'/'.join(rules)} only")
+    if args.rule in ASYNC_RULES and args.multihost:
+        raise _not_ported(f"{args.rule} across hosts (the parameter "
+                          "service)", 15)
+    if args.min_workers is not None and args.min_workers < 1:
+        raise SystemExit("--min-workers must be >= 1")
 
 
 def _parse_config_sets(pairs: list[str]) -> dict:
@@ -260,9 +326,60 @@ def param_digest(module) -> str:
     return h.hexdigest()
 
 
+def _jsonable(value):
+    """The scalars, strings, lists and dicts of a rule result; tensors
+    (the center, the consensus) are dropped."""
+    if value is None or isinstance(value, (bool, int, float, str)):
+        return value
+    if isinstance(value, dict):
+        kept = {k: v for k, v in ((k, _jsonable(v)) for k, v in value.items())
+                if v is not None}
+        return kept or None
+    if isinstance(value, (list, tuple)):
+        kept = [_jsonable(v) for v in value]
+        return kept if all(v is not None for v in kept) else None
+    return None
+
+
+def run_async(args: argparse.Namespace) -> int:
+    """An async rule's session in this process: one worker thread per
+    device (``-D``), no process group; writes the result JSON."""
+    from theanompi_tpu_torch import rules
+
+    _, config = model_config(args)
+    kwargs = dict(devices=args.devices, device=args.platform,
+                  modelfile=args.modelfile, modelclass=args.modelclass,
+                  config=config, resume=args.resume,
+                  sync_type=args.sync_type, max_epochs=args.epochs)
+    opts = {"tau": args.tau, "alpha": args.alpha, "p_push": args.p_push,
+            "merge_momentum": args.merge_momentum,
+            "min_workers": args.min_workers}
+    kwargs.update({k: v for k, v in opts.items() if v is not None})
+    if args.overlap_exchange:
+        kwargs["overlap"] = True
+    if args.max_restarts:
+        kwargs["max_restarts"] = args.max_restarts
+    rule = getattr(rules, args.rule)().init(**kwargs)
+    result = rule.wait()
+    print("final val:", {k: round(float(v), 4)
+                         for k, v in result.get("val", {}).items()},
+          flush=True)
+    if args.result_json:
+        with open(args.result_json, "w") as f:
+            json.dump({**_jsonable(result), "rule": args.rule,
+                       "device": args.platform,
+                       "devices": [str(d) for d in rule.devices],
+                       "param_digests": [param_digest(m.module)
+                                         for m in rule.models]}, f)
+    return 0
+
+
 def run_worker(args: argparse.Namespace) -> int:
     """One rank: join the process group from the environment, run the
-    BSP session on this rank's device, and (rank 0) write the result."""
+    BSP session on this rank's device, and (rank 0) write the result;
+    an async rule runs its whole session here (:func:`run_async`)."""
+    if args.rule in ASYNC_RULES:
+        return run_async(args)
     import torch
     import torch.distributed as dist
 
@@ -356,10 +473,10 @@ def _run_group(argv: list[str], env: dict, n: int, rank0: int,
 
 
 def spawn(args: argparse.Namespace, argv: list[str]) -> int:
-    """Start one worker per card (or ``-D`` CPU workers) and wait; a
-    group whose worker failed is started again with ``--resume`` up to
-    ``--max-restarts`` times (single host), else the failed worker's
-    exit code is returned."""
+    """Start one worker per card (or ``-D`` CPU workers; one process for
+    an async rule) and wait; a group whose worker failed is started
+    again with ``--resume`` up to ``--max-restarts`` times (single
+    host), else the failed worker's exit code is returned."""
     import torch
 
     if args.platform == "cuda":
@@ -373,6 +490,8 @@ def spawn(args: argparse.Namespace, argv: list[str]) -> int:
                              "are visible")
     else:
         n = args.devices or 1
+    if args.rule in ASYNC_RULES:
+        n = 1  # one process; its -D worker threads
     model_config(args)  # fail here, before any worker starts
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -117,9 +117,11 @@ class AlexNet(TorchModel):
 
     def __init__(self, config: ModelConfig | None = None,
                  device: str | torch.device = "cuda", n_classes: int = 1000,
-                 crop: int = 227, data: ImageNet_data | None = None):
+                 crop: int = 227, data: ImageNet_data | None = None,
+                 shard_rank: int = 0, shard_size: int = 1):
         self._net_cfg = {"n_classes": int(n_classes), "crop": int(crop)}
-        super().__init__(config, device, data=data)
+        super().__init__(config, device, data=data, shard_rank=shard_rank,
+                         shard_size=shard_size)
 
     @property
     def uses_batchnorm(self) -> bool:

@@ -24,7 +24,9 @@ microbatches), ``sync_bn``, and the sharded planes: ``zero_sharding``
 of (seed, epoch, rank), so a run resumed at an epoch boundary replays
 the unbroken one.
 One process trains on one card; the rank and worker count come from
-``torch.distributed``.
+``torch.distributed``.  An async rule's worker threads each hold a model
+of their own with ``shard_rank``/``shard_size``: the worker trains on
+its shard of each epoch, and its random stream is keyed by the shard.
 """
 
 from __future__ import annotations
@@ -184,13 +186,23 @@ class TorchModel:
     VAL_SYNC_WINDOW = 8
 
     def __init__(self, config: ModelConfig | None = None,
-                 device: str | torch.device = "cuda", data=None):
+                 device: str | torch.device = "cuda", data=None,
+                 shard_rank: int = 0, shard_size: int = 1):
         self.device = resolve_device(device)
         self.config = config or self.default_config()
         dist = torch.distributed
         initialized = dist.is_available() and dist.is_initialized()
         self.rank = dist.get_rank() if initialized else 0
         self.n_workers = dist.get_world_size() if initialized else 1
+        # async-rule data sharding: this model instance (one worker
+        # thread's) sees shard ``shard_rank`` of ``shard_size`` of every
+        # epoch; BSP leaves 0/1 (the ranks split each global batch)
+        self.shard_rank = shard_rank
+        self.shard_size = shard_size
+        if self.n_workers > 1 and shard_size > 1:
+            raise ValueError(
+                "per-worker data sharding (shard_size>1, async rules) and a "
+                "multi-host mesh cannot be combined in one model instance")
         self.batch_size = self.config.batch_size
         self.global_batch = self.batch_size * self.n_workers
         self.n_epochs = self.config.n_epochs
@@ -685,29 +697,43 @@ class TorchModel:
         self.module.train()
 
     def _epoch_rng(self, epoch: int) -> torch.Generator:
-        """The random stream of ``epoch`` on this rank (augment draws,
-        then dropout masks): a generator on the device seeded from
-        (seed, epoch, rank), so a run replays the same draws epoch by
-        epoch."""
+        """The random stream of ``epoch`` on this rank, or on this async
+        worker's shard (augment draws, then dropout masks): a generator
+        on the device seeded from (seed, epoch, rank or shard), so a run
+        replays the same draws epoch by epoch."""
+        key = self.shard_rank if self.shard_size > 1 else self.rank
         seed = ((self.config.seed + 1) * 1_000_003 + 7919 * epoch
-                + 104729 * self.rank)
+                + 104729 * key)
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _next_rng(self) -> torch.Generator:
+        """The generator the next step draws from (JAX's ``_next_rng``
+        splits its key; here the epoch's generator advances as it is
+        drawn from): what ASGD's ``gstep(state, batch, rng)`` takes."""
+        return self._rng
+
     def begin_epoch(self, epoch: int) -> int:
-        """Start the epoch's prefetched train stream (this rank's block
-        of every global batch); returns the number of iterations,
+        """Start the epoch's prefetched train stream (an async worker's
+        shard of the epoch, else this rank's block of every global
+        batch); returns the number of iterations,
         rounded down to a multiple of the stacked cadence
         (``max(steps_per_call, grad_accum_steps)``); an epoch shorter
         than one stack raises."""
         self.cleanup_iter()
         self.current_epoch = epoch
         self._rng = self._epoch_rng(epoch)
-        if self.n_workers > 1:
-            host_iter = self.data.host_train_batches(
-                epoch, self.global_batch, self.rank, self.n_workers)
+        if self.shard_size > 1:
+            host_iter = self.data.train_batches(
+                epoch, self.global_batch, self.shard_rank, self.shard_size)
+            n_iters = self.data.n_train_batches_for(
+                epoch, self.global_batch, self.shard_rank, self.shard_size)
         else:
-            host_iter = self.data.train_batches(epoch, self.global_batch)
-        n_iters = self.data.n_train_batches_for(epoch, self.global_batch)
+            host_iter = (self.data.host_train_batches(
+                epoch, self.global_batch, self.rank, self.n_workers)
+                if self.n_workers > 1
+                else self.data.train_batches(epoch, self.global_batch))
+            n_iters = self.data.n_train_batches_for(epoch,
+                                                    self.global_batch)
         stack = max(self.config.steps_per_call,
                     self.config.grad_accum_steps)
         if stack > 1:

@@ -332,7 +332,8 @@ def flax_params(module: nn.Module, fused: bool = False) -> dict:
     nested dicts of f32 numpy arrays in flax's layouts; ``fused`` places
     a BN-free zoo member's conv biases as a tree built with
     ``bn_act_impl='pallas'`` holds them (``BiasAct_k/bias``), else in the
-    conv before each.  Every parameter is used once."""
+    conv before each.  Every parameter is used once.  The arrays are
+    copies: on the CPU a view would change with the next in-place step."""
     pool = {n: p.detach().float().cpu().numpy()
             for n, p in module.named_parameters()}
     leaves = []
@@ -341,7 +342,7 @@ def flax_params(module: nn.Module, fused: bool = False) -> dict:
             leaf = pool.pop(port)
         except KeyError:
             raise KeyError(f"port parameter {port} is missing") from None
-        leaves.append((path, np.ascontiguousarray(_TO_FLAX[layout](leaf))))
+        leaves.append((path, np.array(_TO_FLAX[layout](leaf), order="C")))
     if pool:
         raise KeyError(f"{len(pool)} port parameters left unmapped: "
                        f"{sorted(pool)[:8]}")

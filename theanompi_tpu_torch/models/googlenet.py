@@ -204,10 +204,12 @@ class GoogLeNet(TorchModel):
     def __init__(self, config: ModelConfig | None = None,
                  device: str | torch.device = "cuda", n_classes: int = 1000,
                  crop: int = 224, width_mult: float = 1.0,
-                 data: ImageNet_data | None = None):
+                 data: ImageNet_data | None = None,
+                 shard_rank: int = 0, shard_size: int = 1):
         self._net_cfg = {"n_classes": int(n_classes), "crop": int(crop),
                          "width_mult": float(width_mult)}
-        super().__init__(config, device, data=data)
+        super().__init__(config, device, data=data, shard_rank=shard_rank,
+                         shard_size=shard_size)
 
     @property
     def uses_batchnorm(self) -> bool:

@@ -146,13 +146,15 @@ class ResNet50(TorchModel):
                  device: str | torch.device = "cuda",
                  stage_sizes: Sequence[int] | None = None, width: int = 64,
                  n_classes: int = 1000, crop: int = 224,
-                 data: ImageNet_data | None = None):
+                 data: ImageNet_data | None = None,
+                 shard_rank: int = 0, shard_size: int = 1):
         if stage_sizes is None:
             stage_sizes = self.stage_sizes
         self._net_cfg = {"stage_sizes": [int(s) for s in stage_sizes],
                          "width": int(width), "n_classes": int(n_classes),
                          "crop": int(crop)}
-        super().__init__(config, device, data=data)
+        super().__init__(config, device, data=data, shard_rank=shard_rank,
+                         shard_size=shard_size)
 
     @classmethod
     def default_config(cls) -> ModelConfig:

@@ -147,13 +147,15 @@ class TransformerLM(TorchModel):
     def __init__(self, config: ModelConfig | None = None,
                  device: str | torch.device = "cuda", vocab: int = 256,
                  seq_len: int = 128, n_layers: int = 2, d_model: int = 128,
-                 n_heads: int = 4, data: SeqLM_data | None = None):
+                 n_heads: int = 4, data: SeqLM_data | None = None,
+                 shard_rank: int = 0, shard_size: int = 1):
         if (config or self.default_config()).remat:
             raise _not_ported("ModelConfig.remat")
         self._net_cfg = dict(vocab=int(vocab), seq_len=int(seq_len),
                              n_layers=int(n_layers), d_model=int(d_model),
                              n_heads=int(n_heads))
-        super().__init__(config, device, data=data)
+        super().__init__(config, device, data=data, shard_rank=shard_rank,
+                         shard_size=shard_size)
         self.train_flops_per_sample = _lm_train_flops(
             self.module, n_layers, seq_len, d_model)
 

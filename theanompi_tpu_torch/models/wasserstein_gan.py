@@ -151,9 +151,10 @@ class Wasserstein_GAN(TorchModel):
 
     def __init__(self, config: ModelConfig | None = None,
                  device: str | torch.device = "cuda", data=None,
-                 width: int = 64):
+                 width: int = 64, shard_rank: int = 0, shard_size: int = 1):
         self._net_cfg = {"width": int(width)}
-        super().__init__(config, device, data=data)
+        super().__init__(config, device, data=data, shard_rank=shard_rank,
+                         shard_size=shard_size)
         # each round takes a fresh real slice per critic update
         self.global_batch = self.batch_size * self.n_workers * self.n_critic
         self._val_rng: torch.Generator | None = None

@@ -5,7 +5,9 @@ Monitoring is OFF unless a run dir is configured, through
 variable.  When off, ``inc``/``set_gauge``/``add_gauge``/``observe``/``span``/
 ``progress``/``observe_step`` return after one boolean check and the
 registry receives zero writes.  When on, the session's registry is written as
-``metrics_{name}.jsonl`` in the run dir at session exit.
+``metrics_{name}.jsonl`` in the run dir at session exit, and the async
+rules' per-worker step times feed a straggler detector
+(``health.StragglerDetector``) through ``observe_step(..., worker=)``.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import threading
 import time
 from typing import Iterator
 
+from theanompi_tpu_torch.monitor.health import StragglerDetector
 from theanompi_tpu_torch.monitor.registry import MetricsRegistry
 
 ENV_VAR = "THEANOMPI_TPU_MONITOR"
@@ -24,6 +27,7 @@ ENV_VAR = "THEANOMPI_TPU_MONITOR"
 class _State:
     def __init__(self):
         self.registry = MetricsRegistry()
+        self.straggler: StragglerDetector | None = None
         self.enabled = False
         self.run_dir: str | None = None
         self.name = "rank0"
@@ -61,6 +65,7 @@ def session(run_dir: str | None = None,
         if _state.depth == 0:
             os.makedirs(resolved, exist_ok=True)
             _state.registry = MetricsRegistry()
+            _state.straggler = StragglerDetector(registry=_state.registry)
             _state.run_dir, _state.name = resolved, name
             _state.enabled = True
         _state.depth += 1
@@ -135,9 +140,19 @@ def progress(phase: str | None = None, step: int | None = None) -> None:
 
 
 def observe_step(seconds: float, phase: str | None = None,
-                 step: int | None = None) -> None:
-    """One training step's host time into the ``step_ms`` histogram."""
+                 step: int | None = None, worker: int | None = None) -> bool:
+    """One training step's host time into the ``step_ms`` histogram
+    (labelled by ``worker`` when given: the async rules); a worker's
+    step also feeds the straggler detector.  Returns True while that
+    worker is flagged as a straggler (always False when monitoring is
+    off or no worker is given)."""
     if not _state.enabled:
-        return
-    _state.registry.observe("step_ms", seconds * 1e3, phase=str(phase))
+        return False
+    labels = {"phase": str(phase)}
+    if worker is not None:
+        labels["worker"] = str(worker)
+    _state.registry.observe("step_ms", seconds * 1e3, **labels)
     progress(phase, step)
+    if worker is not None and _state.straggler is not None:
+        return _state.straggler.observe(worker, seconds)
+    return False

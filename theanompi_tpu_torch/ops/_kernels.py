@@ -113,6 +113,16 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind_all() -> None:
+    """Build the libraries of every kernel defined so far and bind each:
+    done before worker threads launch kernels concurrently, so none of
+    them builds or binds on the way."""
+    build(sorted({k.library for k in KERNELS.values()}))
+    for k in list(KERNELS.values()):
+        if k._fn is None:
+            k._bind()
+
+
 def on_cpu(t: torch.Tensor) -> bool:
     """True when ``t`` lies on the CPU, the only case in which a wrapper
     takes its kernel's plain version."""

@@ -5,5 +5,7 @@ its cadences), ``exchanger`` (the gradient and parameter exchange, its
 wires, error feedback and buckets overlapped with the backward),
 ``partition`` (the byte-balanced plans), ``zero`` (ZeRO-1: the optimizer
 state sharded over the ranks) and ``fsdp`` (the parameters sharded
-too).
+too); and the async rules' in-process planes: ``server`` (the EASGD,
+ASGD and GOSGD stores), ``pipe`` (the overlapped exchange) and
+``exchanger``'s merge arithmetic.
 """

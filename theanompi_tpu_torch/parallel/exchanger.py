@@ -27,12 +27,17 @@ the buckets from gradient hooks while the backward runs (JAX's
 ``backward_exchange``).  With no process group (one process) the f32
 exchange leaves the tensors as they are and the bf16 wire quantizes
 them, as a JAX mesh of one device does.
+
+The module ends with the async rules' merge arithmetic (EASGD, ASGD,
+GOSGD; JAX ``exchanger.py:555-675``), plain functions of lists or dicts
+of tensors that return new tensors.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -421,3 +426,89 @@ class BucketedBackward:
         finally:
             self._armed = False
             self._pending = []
+
+
+# -- the async rules' merge arithmetic (EASGD, ASGD, GOSGD) ------------------
+#
+# JAX's ``exchanger.py:555-675``: pure functions of lists (or dicts with
+# the same keys) of tensors.  Each returns new tensors and leaves its
+# arguments as they were, so nothing a caller hands on aliases a tensor
+# that a later in-place step updates (JAX donates instead).  Scalar
+# coefficients are applied in f32, as JAX's traced Python floats are.
+
+
+def _leafwise(fn, *trees):
+    """``fn`` over matching leaves of lists or of dicts (``trees[0]``'s
+    keys)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: fn(*(t[k] for t in trees)) for k in first}
+    return [fn(*xs) for xs in zip(*trees, strict=True)]
+
+
+def easgd_worker_update(worker, center, alpha):
+    """worker - alpha * (worker - center)."""
+    return _leafwise(lambda w, c: w - alpha * (w - c), worker, center)
+
+
+def easgd_center_update(center, worker, alpha):
+    """center + alpha * (worker - center)."""
+    return _leafwise(lambda c, w: c + alpha * (w - c), center, worker)
+
+
+def easgd_both_updates(worker, center, alpha):
+    """One elastic exchange: ``(new_worker, new_center)``."""
+    return (easgd_worker_update(worker, center, alpha),
+            easgd_center_update(center, worker, alpha))
+
+
+def easgd_center_update_n(center, worker_mean, alpha_eff):
+    """``center + alpha_eff * (mean - center)``: the closed form of n
+    elastic exchanges against one center version (``alpha_eff = n *
+    alpha``)."""
+    return _leafwise(lambda c, m: c + alpha_eff * (m - c), center,
+                     worker_mean)
+
+
+def easgd_apply_delta(current, snapshot, returned):
+    """The overlapped exchange's correction: the elastic force the store
+    computed for ``snapshot`` (``snapshot - returned``), applied to the
+    parameters the worker holds now: ``current - (snapshot - returned)``."""
+    return _leafwise(lambda c, s, r: c - (s - r), current, snapshot, returned)
+
+
+def asgd_apply_grads(center, grads, lr):
+    """Parameter-server SGD step: center - lr * grads."""
+    return _leafwise(lambda c, g: c - lr * g, center, grads)
+
+
+def gosgd_merge(own, own_w: float, recv, recv_w: float):
+    """Gossip merge: the weighted average ``(own_w * own + recv_w *
+    recv) / (own_w + recv_w)`` and the summed weight, every scalar in
+    f32 as JAX's jitted merge computes it (the weight is returned as a
+    Python float)."""
+    own_w, recv_w = np.float32(own_w), np.float32(recv_w)
+    total = np.float32(own_w + recv_w)
+    merged = _leafwise(
+        lambda a, b: (float(own_w) * a + float(recv_w) * b.to(a.device))
+        / float(total), own, recv)
+    return merged, float(total)
+
+
+#: per-parameter optimizer slots that hold first-moment information, the
+#: port's names for optax's ``trace``/``mu``/``mean``/``momentum``
+#: (SGD, LARS and RMSprop ``momentum_buffer``; Adam and AdamW
+#: ``exp_avg``).  Second moments and step counts are never scaled.
+FIRST_MOMENT_SLOTS = frozenset({"momentum_buffer", "exp_avg"})
+
+
+def gosgd_scale_momentum(optimizer: torch.optim.Optimizer, frac: float):
+    """Scale the optimizer's first-moment slots by the receiver's share
+    of a gossip merge (JAX's ``gosgd_scale_momentum``: the sender's
+    unshipped momentum taken as zero), in place; returns ``optimizer``."""
+    with torch.no_grad():
+        for per in optimizer.state.values():
+            for slot, value in per.items():
+                if slot in FIRST_MOMENT_SLOTS and torch.is_tensor(value):
+                    value.mul_(frac)
+    return optimizer

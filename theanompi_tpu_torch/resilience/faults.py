@@ -2,8 +2,13 @@
 faults.py``).
 
 A fault plan is a JSON list of specs, each naming a ``site``, coordinate
-matchers and an ``action``; this package wires two sites:
+matchers and an ``action``; this package wires four sites:
 
+* ``worker_step``: one iteration of an async-rule worker (coords
+  ``rule`` = ``easgd``/``asgd``/``gosgd``, ``worker``, ``step``: the
+  worker's iterations since it (re)started);
+* ``exchange``: one call of an in-process parameter store
+  (``parallel/server.py``; coord ``kind`` = ``easgd``/``asgd``/``gosgd``);
 * ``serve_step``: one replica batch execution (coords ``replica``,
   ``step``);
 * ``checkpoint``: one epoch's manifest, just written on the
@@ -12,6 +17,9 @@ matchers and an ``action``; this package wires two sites:
   fails verification at the next resume (utils/checkpoint.py).  A
   ``raise`` there is logged by the worker, never fatal.
 
+    [{"site": "worker_step", "rule": "easgd", "worker": 1, "step": 3}]
+    [{"site": "exchange", "kind": "asgd", "action": "delay",
+      "delay_s": 0.2, "times": -1}]
     [{"site": "serve_step", "replica": 0, "step": 3, "action": "raise"}]
     [{"site": "checkpoint", "epoch": 1, "action": "truncate"}]
 

@@ -6,7 +6,7 @@ Counterpart of ``theanompi_tpu/rules/base.py``:
     rule.init(device="cuda", modelfile="...", modelclass="...")
     rule.wait()
 
-One process drives one card.  A multi-card run starts one process per
+BSP: one process drives one card.  A multi-card run starts one process per
 card with ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT`` in the environment; when ``WORLD_SIZE > 1``,
 :meth:`Rule.init` joins the default process group (NCCL on ``cuda``,
@@ -14,6 +14,11 @@ gloo on ``cpu``) before the model is built.  The session runs on a
 background thread; ``wait()`` joins it and re-raises its failure.  A
 session that dies leaves a crash marker in the monitor run dir when
 monitoring is on (``resilience.recovery.record_crash``).
+
+The async rules (``rules/async_rules.py``) instead run one worker thread
+per entry of a device list in this process, with no process group:
+``init(devices=N | [device, ...], device=...)``, resolved by
+:func:`resolve_devices`.
 """
 
 from __future__ import annotations
@@ -57,6 +62,50 @@ def init_distributed(device: torch.device) -> bool:
     return True
 
 
+def resolve_devices(devices=None, device: str | torch.device = "cuda",
+                    global_mesh: bool = False) -> list[torch.device]:
+    """The async rules' worker devices (JAX's ``resolve_devices``).
+
+    ``devices`` is None (every card; one worker on the CPU), a count N
+    (cards 0..N-1, or N CPU workers when ``device`` is ``"cpu"``), or a
+    list of devices, device strings or card indices (``device`` then
+    plays no part).  A list may name the same card more than once: each
+    worker there launches on a stream of its own.  Asking for more cards
+    than are visible raises.  Rules that place per-worker state
+    (``global_mesh=False``) refuse to run inside a process group of more
+    than one rank."""
+    if (not global_mesh and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        raise NotImplementedError(
+            "async rules under multi-host launch need the DCN server "
+            "transport (ROADMAP.md section A, item 15); run them per-host, "
+            "or use BSP for multi-host")
+    if devices is None or isinstance(devices, int):
+        kind = resolve_device(device).type
+        n_cards = torch.cuda.device_count() if kind == "cuda" else None
+        if devices is None:
+            devices = n_cards or 1
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if n_cards is not None and devices > n_cards:
+            raise ValueError(f"requested {devices} devices, have {n_cards}")
+        return [torch.device(kind, i) if kind == "cuda"
+                else torch.device("cpu") for i in range(devices)]
+    out = []
+    for d in devices:
+        dev = resolve_device(torch.device("cuda", d) if isinstance(d, int)
+                             else d)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", dev.index or 0)
+            if dev.index >= torch.cuda.device_count():
+                raise ValueError(f"device {dev} requested, have "
+                                 f"{torch.cuda.device_count()} cards")
+        out.append(dev)
+    if not out:
+        raise ValueError("devices is an empty list")
+    return out
+
+
 def rank_device(device: str | torch.device | None) -> torch.device:
     """``device`` for this process: ``cuda`` without an index means the
     card ``LOCAL_RANK`` names."""
@@ -70,6 +119,10 @@ class Rule:
     """Base: owns the session thread and its error."""
 
     name = "rule"
+    #: True for rules that run one program over every rank of the
+    #: process group (BSP); False for rules that place per-worker state
+    #: on individual local devices (the async rules)
+    uses_global_mesh = False
 
     def __init__(self):
         self._thread: threading.Thread | None = None
@@ -103,8 +156,6 @@ class Rule:
                 rank = dist.get_rank() if dist.is_initialized() else 0
                 with monitor.session(name=f"rank{rank}"):
                     try:
-                        if device.type == "cuda":
-                            torch.cuda.set_device(device)
                         self._session(device, modelfile, modelclass,
                                       config, resume, sync_type, **kwargs)
                     except BaseException as e:

@@ -41,6 +41,7 @@ from __future__ import annotations
 import os
 import time
 
+import torch
 import torch.distributed as dist
 
 from theanompi_tpu_torch import monitor
@@ -213,11 +214,14 @@ class BSP(Rule):
     """Synchronous BSP data-parallel rule: one process per card."""
 
     name = "BSP"
+    uses_global_mesh = True
 
     def _session(self, device, modelfile, modelclass, config, resume,
                  sync_type, max_epochs=None, checkpoint=True,
                  profile_dir: str | None = None,
                  monitor_dir: str | None = None, **kwargs):
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
         cls = resolve_model_class(modelfile, modelclass)
         self.model = cls(config=config, device=device, **kwargs)
         self.result = run_bsp_session(self.model, sync_type=sync_type,
