@@ -271,6 +271,28 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    (c) ``python -m theanompi_tpu_torch.launcher EASGD -D 1 --tau 4`` on
    AlexNet's defaults with ``--result-json``, beside (b): 64
    iterations, 17 exchanges, the K3 launches, a finite validation.
+22. The async rules' remote paths.  Two port services, ``python -m
+   theanompi_tpu_torch.parallel.service`` on their default device (this
+   card), one for the launchers and one for this process.  (c) first,
+   alone: one exchange of AlexNet's 61.0 M f32 parameters each way
+   (worker to service: a gossip push; service to worker: its drain) and
+   an EASGD exchange round trip, over TCP in-band, over the
+   shared-memory lane and on the bf16 wire, the in-process stores
+   beside them; each with its bytes before and after the wire, the wire
+   ratio (0.5 on the bf16 wire, 1 over TCP), ``shm/oob_bytes_total``
+   and the path it took, and the size of ``/dev/shm``.  Then (b) the
+   launchers run side by side on the card: ``EASGD -D 1
+   --server-addr``, ``ASGD -D 1 --shards 2`` (its two shard processes
+   on the card too) and two ``GOSGD -D 1`` sharing one hub
+   (``--n-total-workers 2 --rank-offset 0/1 --session-id``),
+   ``P22_ITERS`` iterations each of ``P22AlexNet``, each with exact K3
+   totals; while they run, (a) phase 21 (b)'s EASGD
+   and ASGD schedules on the card through the service on the f32 wire,
+   bit-identical to the in-process run (center and workers; cuDNN's
+   deterministic algorithms), EASGD's also on the bf16 wire within
+   ``P22_BF16_LIMIT`` of the f32 wire's parameters and not at 0, and
+   a threaded two-worker EASGD with ``local_aggregation`` through the
+   service: one aggregate wire exchange a period, zero fallbacks.
 
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
@@ -278,7 +300,7 @@ their own); 16 runs after it, then 17 on a one-rank group of its own
 (its launcher runs after that group ends), then 18 (18a before its own
 one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
 its own one-rank group, (c) on it), then 20 ((a) on its own one-rank
-group, (b) after it, on phase 16's shard files), then 21 (no group).  Phase 9 checkpoints each
+group, (b) after it, on phase 16's shard files), then 21 and 22 (no group).  Phase 9 checkpoints each
 epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
 checkpoints.
 
@@ -526,6 +548,21 @@ P21_SPANS = {"EASGD": "easgd/exchange", "ASGD": "asgd/push_pull",
 P21_OP_REPS = 5
 P21_SCHEDULES = {"EASGD": (1, 8), "ASGD": (2, 3)}
 P21_CHECK_BATCH, P21_CENTER_LIMIT = 8, 2e-3
+#: phase 22: iterations of each launcher run (``P22AlexNet``'s synthetic
+#: set at batch 128; the aggregated session's two workers share them);
+#: EASGD's period in the launcher (the aggregated session exchanges every
+#: iteration) and GOSGD's push probability; timed calls of each exchange
+#: after a warm-up; the bf16
+#: wire's limit on the parameters' relative L2 distance from the f32
+#: wire's (PERF.md: each crossing rounds to bf16, at most 2^-9
+#: relative, twice an exchange, and the elastic pull halves what came
+#: before: 2 * 2^-8)
+P22_ITERS, P22_TAU, P22_P_PUSH, P22_REPS = 8, 4, 0.5, 2
+P22_BF16_LIMIT = 2.0 ** -7
+#: phase 22 (a)'s round-robin schedules ((epochs, iterations a worker an
+#: epoch) of phase 21 (b)'s, shortened: each remote exchange moves the
+#: whole parameter set both ways)
+P22_SCHEDULES = {"EASGD": (1, 2), "ASGD": (2, 1)}
 
 def _launches(**per_step) -> dict:
     return {**{k: 0 for k in TRAIN_LAUNCHES}, **per_step}
@@ -2411,9 +2448,13 @@ def __getattr__(name: str):
     step ``CKPT_CRASH_STEP`` of epoch 1 in the first life of a launcher
     group, never after; ``P21AlexNet``, phase 21 (b)'s rule workers:
     AlexNet (the recipe's weights, drawn from the seed's CPU generator,
-    so alike on every device) with no dropout."""
+    so alike on every device) with no dropout; ``P22AlexNet``, phase
+    22's launcher workers: the AlexNet recipe on ``P22_ITERS`` batches
+    of the synthetic set and one validation batch."""
     if name == "P21AlexNet":
         return _p21_alexnet()
+    if name == "P22AlexNet":
+        return _p22_alexnet()
     if name != "CrashOnceResNet50":
         raise AttributeError(f"module {__name__!r} has no attribute "
                              f"{name!r}")
@@ -2441,6 +2482,20 @@ def _p21_alexnet():
             self.module.drop.rate = 0.0
 
     return P21AlexNet
+
+
+def _p22_alexnet():
+    from theanompi_tpu_torch.data.imagenet import ImageNet_data
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+
+    class P22AlexNet(AlexNet):
+        def build_data(self):
+            data = ImageNet_data(crop=227, seed=self.config.seed,
+                                 synthetic_n=P22_ITERS * TRAIN_BATCH)
+            data.n_val = TRAIN_BATCH
+            return data
+
+    return P22AlexNet
 
 
 def ckpt_shards(root: str) -> str:
@@ -4101,7 +4156,8 @@ def p21_store_ops(torch) -> dict:
     return out
 
 
-def p21_schedule(torch, name: str, device: str) -> dict:
+def p21_schedule(torch, name: str, device: str, schedule=None,
+                 **remote) -> dict:
     """The CPU tests' round-robin two-worker schedule of rule ``name``
     (EASGD: tau 2, alpha 0.5, 8 iterations a worker then the final sync;
     ASGD: 3 pushes a worker in each of 2 epochs, the LR schedule forwarded
@@ -4111,12 +4167,14 @@ def p21_schedule(torch, name: str, device: str) -> dict:
     the initial parameters, the center and both workers' parameters, on
     the host.  From He-normal weights these schedules are chaotic (a
     1e-7 relative change of the initial weights moves the CPU's EASGD
-    center by 3.6% of its displacement); from the recipe's, by 1.4e-5."""
+    center by 3.6% of its displacement); from the recipe's, by 1.4e-5.
+    ``schedule`` overrides ``P21_SCHEDULES[name]``; ``remote``
+    (``server_addr``) runs the store in a service (phase 22)."""
     from theanompi_tpu_torch import rules
     from theanompi_tpu_torch.data.imagenet import ImageNet_data
     from theanompi_tpu_torch.models.alex_net import AlexNet
 
-    epochs, iters = P21_SCHEDULES[name]
+    epochs, iters = schedule or P21_SCHEDULES[name]
     data = ImageNet_data(crop=227, seed=0,
                          synthetic_n=2 * iters * P21_CHECK_BATCH,
                          synthetic_pool=16, augment_on_device=False)
@@ -4128,7 +4186,7 @@ def p21_schedule(torch, name: str, device: str) -> dict:
     rule = getattr(rules, name)().prepare(
         devices=[device, device], modelfile="chip_smoke",
         modelclass="P21AlexNet", config=cfg, data=data, checkpoint=False,
-        **opts)
+        **opts, **remote)
     try:
         # copies: on the CPU .cpu() would alias the live parameters
         init = [p.detach().cpu().clone()
@@ -4264,6 +4322,482 @@ def async_phase(torch, workdir: str) -> dict:
     log(f"  phase 21: {seconds:.1f} s")
     return {"sessions": sessions, "store_ops": ops, "card_vs_cpu": checked,
             "launcher": launched, "seconds": seconds}
+
+
+class ServiceProc:
+    """``python -m theanompi_tpu_torch.parallel.service`` on its default
+    device (this card), its output in a file under ``workdir``."""
+
+    def __init__(self, workdir: str, name: str):
+        self.port = free_port()
+        self.addr = f"127.0.0.1:{self.port}"
+        self.log = open(os.path.join(workdir, f"{name}.log"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "theanompi_tpu_torch.parallel.service",
+             "--host", "127.0.0.1", "--port", str(self.port)],
+            stdout=self.log, stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def wait_ready(self, timeout: float = 120.0) -> None:
+        from theanompi_tpu_torch.parallel.service import ServiceClient
+        from theanompi_tpu_torch.resilience.retry import RetryPolicy
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                c = ServiceClient(self.addr,
+                                  retry=RetryPolicy(max_attempts=1))
+                try:
+                    if c.call("ping") == "pong":
+                        return
+                finally:
+                    c.close()
+            except OSError:
+                pass
+            if self.proc.poll() is not None or time.monotonic() > deadline:
+                self.log.seek(0)
+                raise AssertionError(
+                    f"service at {self.addr} did not come up (exit "
+                    f"{self.proc.poll()}): {self.log.read()[-2000:]}")
+            time.sleep(0.3)
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+
+
+def _counter(reg, name: str, direction: str | None = None,
+             **labels) -> float:
+    if direction is not None:
+        labels["dir"] = direction
+    m = reg.get(name, **labels)
+    return float(m.value) if m is not None else 0.0
+
+
+def p22_wire_env(shm_lane: bool, dtype: str) -> None:
+    """The service clients' wire settings, read when a client is made."""
+    os.environ["THEANOMPI_TPU_WIRE_SHM"] = "1" if shm_lane else "0"
+    os.environ["THEANOMPI_TPU_WIRE_DTYPE"] = dtype
+
+
+def p22_exchange_costs(torch, addr: str, workdir: str) -> dict:
+    """Phase 22 (c): AlexNet's parameters (on this card) moved once each
+    way and exchanged, ``P22_REPS`` timed calls after one warm-up, host
+    wall ending in a synchronize.  Worker to service: a gossip push (the
+    worker's tensors copied to the host, framed, received and copied into
+    the hub); service to worker: the hub's drain (framed back, copied
+    into new host tensors, then onto the card); round trip: an EASGD
+    exchange (both ways and the elastic arithmetic on the service's
+    card).  Setups: ``tcp`` (in-band f32), ``shm`` (the lane, f32), and
+    ``bf16`` (in-band: the lane ships a leaf at its own dtype); the
+    in-process stores beside them.  Each direction's bytes before and
+    after the wire (the client's ``service/wire_bytes_pre``/``_post``),
+    their ratio and ``shm/oob_bytes_total`` per call say which path each
+    exchange took."""
+    from theanompi_tpu_torch import monitor
+    from theanompi_tpu_torch.models.alex_net import AlexNet
+    from theanompi_tpu_torch.parallel import shm
+    from theanompi_tpu_torch.parallel.server import EASGDServer, GossipHub
+    from theanompi_tpu_torch.parallel.service import (
+        RemoteEASGD,
+        RemoteGossipHub,
+    )
+
+    model = AlexNet(device="cuda")
+    params = [p.detach() for p in model.module.parameters()]
+    nbytes = sum(p.numel() * p.element_size() for p in params)
+    st = os.statvfs("/dev/shm")
+    dev_shm = {"size_bytes": st.f_blocks * st.f_frsize,
+               "free_bytes": st.f_bavail * st.f_frsize}
+    log(f"  /dev/shm: {dev_shm['size_bytes'] / 2**20:.0f} MiB, "
+        f"{dev_shm['free_bytes'] / 2**20:.0f} MiB free; AlexNet's "
+        f"{sum(p.numel() for p in params)} parameters: {nbytes / 1e6:.1f} MB")
+
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(P22_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / P22_REPS
+
+    out = {"param_bytes": nbytes, "dev_shm": dev_shm, "setups": {}}
+    setups = {"tcp": (False, "f32"), "shm": (True, "f32"),
+              "bf16": (False, "bf16")}
+    try:
+        for name, (lane, dtype) in setups.items():
+            p22_wire_env(lane, dtype)
+            with monitor.session(os.path.join(workdir, f"p22c_{name}")):
+                reg = monitor.registry()
+                hub = RemoteGossipHub(addr, 2, session_id=f"p22c-{name}")
+                east = RemoteEASGD(addr, params, alpha=0.5,
+                                   session_id=f"p22c-{name}")
+                try:
+                    row = {}
+                    before = {k: _counter(reg, *k) for k in _P22_SERIES}
+                    push_ms, drain_ms = [], []
+                    for _ in range(P22_REPS + 1):
+                        torch.cuda.synchronize()
+                        t1 = time.monotonic()
+                        hub.push(1, params, 0.25)
+                        t2 = time.monotonic()
+                        (got, _), = hub.drain(1)
+                        moved = [t.to("cuda", non_blocking=True)
+                                 for t in got]
+                        torch.cuda.synchronize()
+                        t3 = time.monotonic()
+                        push_ms.append((t2 - t1) * 1e3)
+                        drain_ms.append((t3 - t2) * 1e3)
+                        del got, moved
+                    mid = {k: _counter(reg, *k) for k in _P22_SERIES}
+                    trip_ms = timed(lambda: east.exchange(params))
+                    after = {k: _counter(reg, *k) for k in _P22_SERIES}
+                    calls = P22_REPS + 1
+                    moved1 = {k: (mid[k] - before[k]) / calls
+                              for k in _P22_SERIES}
+                    moved2 = {k: (after[k] - mid[k]) / calls
+                              for k in _P22_SERIES}
+                    # the warm-up call left out of the times
+                    row["to_service"] = _p22_bytes_row(
+                        "to_service", float(np.mean(push_ms[1:])), moved1,
+                        nbytes)
+                    row["to_worker"] = _p22_bytes_row(
+                        "to_worker", float(np.mean(drain_ms[1:])), moved1,
+                        nbytes)
+                    row["round_trip"] = _p22_bytes_row(
+                        "round_trip", trip_ms, moved2, nbytes)
+                    row["fallbacks"] = {
+                        r: _counter(reg, "shm/fallback_total", reason=r)
+                        for r in ("cap", "alloc", "space", "remote",
+                                  "nonce")}
+                finally:
+                    hub.close()
+                    east.close()
+            out["setups"][name] = row
+            log(f"  {name}: " + "; ".join(
+                f"{way} {r['ms']:.1f} ms ({r['path']}, "
+                f"{r['pre_bytes'] / 1e6:.1f} -> {r['post_bytes'] / 1e6:.1f}"
+                f" MB on the wire, ratio {r['ratio']:.3f}, oob "
+                f"{r['oob_bytes'] / 1e6:.1f} MB, "
+                f"{nbytes / r['ms'] / 1e6 * (2 if way == 'round_trip' else 1):.2f}"
+                " GB/s of parameters)"
+                for way, r in row.items() if way != "fallbacks")
+                + (f"; shm fallbacks {row['fallbacks']}"
+                   if any(row["fallbacks"].values()) else ""))
+            # the bf16 wire halves the parameters' bytes, TCP in f32
+            # keeps them (the frame's header travels whole in both: a
+            # few KiB of 244 MB); the lane's bytes are not on the wire
+            want_ratio = {"tcp": 1.0, "bf16": 0.5}.get(name)
+            off = {way: r["ratio"] for way, r in row.items()
+                   if way != "fallbacks" and want_ratio is not None
+                   and abs(r["ratio"] - want_ratio) > 1e-3}
+            if off:
+                raise AssertionError(f"phase 22 (c) {name}: wire ratio "
+                                     f"{off}, want {want_ratio}")
+    finally:
+        shm.release_all()
+        p22_wire_env(True, "f32")
+    easgd = EASGDServer(params, alpha=0.5)
+    hub = GossipHub(2)
+
+    def push_drain():
+        hub.push(1, params, 0.25)
+        hub.drain(1)
+    push_ms = timed(push_drain)
+    out["in_process"] = {
+        "easgd_exchange_ms": timed(lambda: easgd.exchange(params)),
+        "gosgd_push_drain_ms": push_ms}
+    ex_ms = out["in_process"]["easgd_exchange_ms"]
+    log(f"  in-process: EASGD exchange {ex_ms:.1f} ms, gossip push and "
+        f"drain {push_ms:.1f} ms")
+    return out
+
+
+#: the client-side byte series phase 22 (c) reads (name, dir)
+_P22_SERIES = (("service/wire_bytes_pre", "send"),
+               ("service/wire_bytes_post", "send"),
+               ("service/wire_bytes_pre", "recv"),
+               ("service/wire_bytes_post", "recv"),
+               ("shm/oob_bytes_total", "send"),
+               ("shm/oob_bytes_total", "recv"))
+
+
+def _p22_bytes_row(way: str, ms: float, got: dict, nbytes: int) -> dict:
+    """One direction's bytes per call: the big frame's direction (send
+    for the push, recv for the drain, both for the round trip)."""
+    dirs = {"to_service": ("send",), "to_worker": ("recv",),
+            "round_trip": ("send", "recv")}[way]
+    pre = sum(got[("service/wire_bytes_pre", d)] for d in dirs)
+    post = sum(got[("service/wire_bytes_post", d)] for d in dirs)
+    oob = sum(got[("shm/oob_bytes_total", d)] for d in dirs)
+    return {"ms": ms, "pre_bytes": pre, "post_bytes": post,
+            "ratio": post / pre if pre else 1.0, "oob_bytes": oob,
+            "path": ("shm lane" if oob >= 0.9 * nbytes * len(dirs)
+                     else "in-band" if oob == 0 else "mixed")}
+
+
+def p22_schedules(torch, addr: str) -> dict:
+    """Phase 22 (a): phase 21 (b)'s EASGD and ASGD schedules at
+    ``P22_SCHEDULES``' lengths on the card,
+    in-process and through the service on the f32 wire (bit-identical:
+    center and both workers), and EASGD's on the bf16 wire (lane off)
+    within ``P22_BF16_LIMIT`` of the f32 wire's parameters in relative
+    L2; the K3 launches of each remote run exact (2 K3a + 2 K3b an
+    iteration, no validation).  cuDNN runs its deterministic algorithms
+    here: otherwise two runs of one schedule on this card differ in
+    their summation order (phase 21 (b) saw the card's own repeat
+    differ), and the comparison would test the convolutions,
+    not the service.  If the f32 wire is not bit-identical, the
+    in-process schedule runs again to say whether the card repeats
+    itself."""
+    from theanompi_tpu_torch.ops import _kernels
+
+    def flat(ts):
+        return torch.cat([t.reshape(-1).double() for t in ts])
+
+    def tensors(run):
+        return run["center"] + sum(run["workers"], [])
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for name, (epochs, iters) in P22_SCHEDULES.items():
+            runs, counts = {}, {}
+            legs = [("in_process", True, "f32", {}),
+                    ("f32_wire", True, "f32", {"server_addr": addr})]
+            if name == "EASGD":
+                legs.append(("bf16_wire", False, "bf16",
+                             {"server_addr": addr}))
+            for label, lane, dtype, remote in legs:
+                p22_wire_env(lane, dtype)
+                _kernels.reset_launch_counts()
+                t0 = time.monotonic()
+                runs[label] = p21_schedule(torch, name, "cuda:0",
+                                           (epochs, iters), **remote)
+                runs[label]["s"] = time.monotonic() - t0
+                counts[label] = _kernels.launch_counts()
+            p22_wire_env(True, "f32")
+            n_it = 2 * epochs * iters
+            want = {k: 0 for k in counts["f32_wire"]}
+            want.update(lrn=2 * n_it, lrn_bwd=2 * n_it)
+            same = [torch.equal(a, b) for a, b in
+                    zip(tensors(runs["in_process"]),
+                        tensors(runs["f32_wire"]))]
+            r = {"bit_identical": all(same), "tensors": len(same),
+                 "launches": counts,
+                 "seconds": {k: v["s"] for k, v in runs.items()}}
+            if "bf16_wire" in runs:
+                f32, b16 = runs["f32_wire"], runs["bf16_wire"]
+
+                def rel(got, want_):
+                    return float((flat(got) - flat(want_)).norm()
+                                 / flat(want_).norm())
+                r["bf16_center"] = rel(b16["center"], f32["center"])
+                r["bf16_workers"] = [rel(g, w) for g, w in
+                                     zip(b16["workers"], f32["workers"])]
+            if not r["bit_identical"]:
+                again = p21_schedule(torch, name, "cuda:0",
+                                     (epochs, iters))
+                r["card_repeats_itself"] = all(
+                    torch.equal(a, b) for a, b in
+                    zip(tensors(runs["in_process"]), tensors(again)))
+            out[name] = r
+            log(f"  {name} schedule: service (f32 wire) against "
+                f"in-process: {sum(same)}/{len(same)} tensors "
+                "bit-identical"
+                + (f" (the card repeats itself: "
+                   f"{r['card_repeats_itself']})"
+                   if "card_repeats_itself" in r else "")
+                + (f"; bf16 wire against f32 wire: center "
+                   f"{r['bf16_center']:.3g}, workers "
+                   f"{', '.join(f'{x:.3g}' for x in r['bf16_workers'])} "
+                   f"(relative L2 of the parameters; limit "
+                   f"{P22_BF16_LIMIT:.4g})" if "bf16_center" in r else "")
+                + "; " + ", ".join(f"{k} {v:.1f} s"
+                                   for k, v in r["seconds"].items()))
+            bad = []
+            if not r["bit_identical"]:
+                bad.append("the service's f32 run is not the in-process "
+                           "run")
+            if "bf16_center" in r and max(
+                    [r["bf16_center"], *r["bf16_workers"]]) \
+                    > P22_BF16_LIMIT:
+                bad.append("bf16 wire past its limit")
+            if "bf16_center" in r and min(
+                    [r["bf16_center"], *r["bf16_workers"]]) <= 0.0:
+                bad.append("bf16 wire at distance 0 from the f32 wire: "
+                           "nothing was rounded")
+            for label in counts:
+                if label != "in_process" and counts[label] != want:
+                    bad.append(f"{label} launches {counts[label]} != "
+                               f"{want}")
+            if bad:
+                raise AssertionError(f"phase 22 (a) {name}: "
+                                     + "; ".join(bad))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def p22_aggregated(torch, service: ServiceProc, workdir: str) -> dict:
+    """Phase 22 (b), in this process: EASGD with two AlexNet workers on
+    ``devices=["cuda:0", "cuda:0"]`` (tau 1, alpha 0.5: n * alpha = 1)
+    and ``local_aggregation=True`` through the service, each worker on
+    its half of the ``P22_ITERS`` batches: one aggregate wire exchange a
+    period (every iteration of a worker and the final sync), each
+    counted as two exchanges at the service, no fallback, exact K3
+    totals."""
+    from theanompi_tpu_torch import rules
+    from theanompi_tpu_torch.ops import _kernels
+
+    cls = _p22_alexnet()
+    cfg = dataclasses.replace(cls.default_config(), n_epochs=1,
+                              batch_size=TRAIN_BATCH, print_freq=0,
+                              snapshot_dir=workdir)
+    _kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    rule = rules.EASGD().init(
+        devices=["cuda:0", "cuda:0"], modelfile="chip_smoke",
+        modelclass="P22AlexNet", config=cfg, checkpoint=False, tau=1,
+        alpha=0.5, local_aggregation=True, server_addr=service.addr,
+        session_id="p22-aggregated")
+    res = rule.wait()
+    wall = time.monotonic() - t0
+    counts = _kernels.launch_counts()
+    n_it = res["iterations"]
+    periods = P22_ITERS // 2 + 1
+    want = {k: 0 for k in counts}
+    want.update(lrn=2 * n_it + 2 * res["val_batches"], lrn_bwd=2 * n_it)
+    out = {"iterations": n_it, "aggregate": res["aggregate"],
+           "n_exchanges": res["n_exchanges"], "periods": periods,
+           "launches": counts, "val": res["val"], "wall_s": wall,
+           "train_s": res["train_s"]}
+    log(f"  aggregated EASGD: {n_it} iterations over 2 workers, "
+        f"{res['aggregate']['flights']} aggregate exchanges for "
+        f"{periods} periods, {res['aggregate']['fallbacks']} fallbacks, "
+        f"{res['n_exchanges']} exchanges counted at the service; "
+        f"{wall:.1f} s; val {res['val']}")
+    if (n_it != P22_ITERS or counts != want
+            or res["aggregate"] != {"flights": periods, "fallbacks": 0}
+            or res["n_exchanges"] != 2 * periods or not res["val"]
+            or not all(math.isfinite(v) for v in res["val"].values())):
+        raise AssertionError(f"phase 22 (b) aggregated: {out} (want "
+                             f"launches {want})")
+    return out
+
+
+def p22_launchers_start(workdir: str, service_addr: str) -> dict:
+    """Phase 22 (b)'s launcher runs, started side by side."""
+    common = ["-m", "chip_smoke", "-c", "P22AlexNet", "--epochs", "1",
+              "--set", "print_freq=0"]
+    args = {
+        "easgd": ["EASGD", "-D", "1", "--tau", str(P22_TAU),
+                  "--server-addr", service_addr, "--session-id",
+                  "p22-easgd"],
+        "asgd_shards": ["ASGD", "-D", "1", "--shards", "2"],
+        **{f"gosgd_r{r}": ["GOSGD", "-D", "1", "--p-push", str(P22_P_PUSH),
+                           "--server-addr", service_addr,
+                           "--n-total-workers", "2", "--rank-offset",
+                           str(r), "--session-id", "p22-gosgd"]
+           for r in (0, 1)}}
+    runs = {}
+    for name, a in args.items():
+        d = os.path.join(workdir, name)
+        os.makedirs(d, exist_ok=True)
+        runs[name] = Launched(d, [*a, *common, "--snapshot-dir", d])
+    return runs
+
+
+def p22_launchers(runs: dict) -> dict:
+    """Phase 22 (b)'s checks: each run's iterations, exact K3 totals (2
+    K3a + 2 K3b an iteration, 2 K3a a validation batch), a finite
+    validation; EASGD's exchanges (one each ``P22_TAU`` iterations and
+    the final one), ASGD's updates, the two GOSGD processes' weights
+    summing to 1 within 1e-6."""
+    out = {}
+    for name, run in runs.items():
+        res, wall, stdout = run.wait(600)
+        n_it = res["iterations"]
+        want = {k: 0 for k in res["launches"]}
+        want.update(lrn=2 * n_it + 2 * res["val_batches"], lrn_bwd=2 * n_it)
+        r = {"cmd": " ".join(run.cmd[1:]), "wall_s": wall,
+             "iterations": n_it, "launches": res["launches"],
+             "val_batches": res["val_batches"], "val": res["val"],
+             "train_s": res["train_s"],
+             "ms_per_iteration": res["train_s"] * 1e3 / n_it}
+        for key in ("n_exchanges", "n_updates", "weights"):
+            if key in res:
+                r[key] = res[key]
+        out[name] = r
+        log(f"  launcher {name}: {n_it} iterations, {res['val_batches']} "
+            f"validation batches in {wall:.1f} s ({r['ms_per_iteration']:.1f}"
+            f" ms an iteration, the cards shared); launches lrn "
+            f"{res['launches']['lrn']} lrn_bwd {res['launches']['lrn_bwd']}; "
+            + ", ".join(f"{k} {r[k]}" for k in ("n_exchanges", "n_updates",
+                                                 "weights") if k in r))
+        bad = (n_it != P22_ITERS or res["launches"] != want
+               or not res["val"]
+               or not all(math.isfinite(v) for v in res["val"].values()))
+        if name == "easgd":
+            bad |= res["n_exchanges"] != P22_ITERS // P22_TAU + 1
+        if name == "asgd_shards":
+            bad |= res["n_updates"] != P22_ITERS
+            # the fleet holds its ranges on the workers' platform
+            shards = dict(re.findall(r"\[shards\] shard (\d+) listening "
+                                     r"on \S+ \(device (\S+)\)", stdout))
+            r["shard_devices"] = shards
+            log(f"  launcher {name}: shard devices {shards}")
+            bad |= sorted(shards) != ["0", "1"] or any(
+                d != "cuda" for d in shards.values())
+        if bad:
+            raise AssertionError(f"phase 22 (b) {name}: {r} (want "
+                                 f"launches {want})")
+    weights = out["gosgd_r0"]["weights"] + out["gosgd_r1"]["weights"]
+    if abs(sum(weights) - 1.0) > 1e-6:
+        raise AssertionError(f"phase 22 (b) gosgd: weights {weights}")
+    return out
+
+
+def remote_phase(torch, workdir: str) -> dict:
+    """Phase 22: (c) the exchange costs alone, then (b)'s launchers side
+    by side on the card while this process runs (a) and (b)'s aggregated
+    session (none of these timed against another)."""
+    import secrets
+
+    t0 = time.monotonic()
+    os.environ.setdefault("THEANOMPI_TPU_SERVICE_KEY", secrets.token_hex(16))
+    services = [ServiceProc(workdir, "service_launchers"),
+                ServiceProc(workdir, "service_here")]
+    runs: dict = {}
+    try:
+        for s in services:
+            s.wait_ready()
+        log(f"  two services up in {time.monotonic() - t0:.1f} s")
+        log("  (c) one exchange of AlexNet's parameters each way, alone")
+        costs = p22_exchange_costs(torch, services[1].addr, workdir)
+        torch.cuda.empty_cache()
+        log("  (b) the launchers side by side, beside (a) and the "
+            "aggregated session")
+        runs = p22_launchers_start(workdir, services[0].addr)
+        sched = p22_schedules(torch, services[1].addr)
+        torch.cuda.empty_cache()
+        aggregated = p22_aggregated(torch, services[1], workdir)
+        torch.cuda.empty_cache()
+        launched = p22_launchers(runs)
+    finally:
+        for run in runs.values():
+            run.close()
+        for s in services:
+            s.close()
+    seconds = time.monotonic() - t0
+    log(f"  phase 22: {seconds:.1f} s")
+    return {"exchange_costs": costs, "schedules": sched,
+            "aggregated": aggregated, "launchers": launched,
+            "seconds": seconds}
 
 
 def main() -> int:
@@ -4448,6 +4982,12 @@ def main() -> int:
     log("phase 21: the async rules (EASGD, ASGD, GOSGD) on one card")
     with tempfile.TemporaryDirectory() as tmp:
         phase21 = async_phase(torch, tmp)
+    torch.cuda.empty_cache()
+
+    log("phase 22: the async rules' remote paths (services, shards, "
+        "local aggregation) on one card")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase22 = remote_phase(torch, tmp)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -4498,6 +5038,16 @@ def main() -> int:
                                  for rule, run in
                                  phase21["sessions"].items()
                                  if run["launches"].get(k["name"])})
+        if k["name"] in ("lrn", "lrn_bwd"):
+            k["remote_launches"] = {
+                **{f"launcher_{label}": run["launches"][k["name"]]
+                   for label, run in phase22["launchers"].items()},
+                "aggregated_easgd":
+                    phase22["aggregated"]["launches"][k["name"]],
+                **{f"schedule_{rule.lower()}_{wire}":
+                   r["launches"][wire][k["name"]]
+                   for rule, r in phase22["schedules"].items()
+                   for wire in r["launches"] if wire != "in_process"}}
         per_zoo_step = {label: {key: t[kid][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
             if key in t[kid]}
@@ -4519,6 +5069,7 @@ def main() -> int:
                    "lm_step_trace": lm_trace, "checkpoint": ckpt,
                    "rest_of_bsp": rest, "zoo": zoo, "phase19": phase19,
                    "phase20": phase20, "phase21": phase21,
+                   "phase22": phase22,
                    "seconds": time.monotonic() - _STARTED,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
@@ -4548,7 +5099,13 @@ def main() -> int:
                            "and Cifar10's batch-128 shapes); "
                            "async_launches: each phase-21 session's "
                            "launches (two AlexNet workers sharing the "
-                           "card, iterations + validation)"},
+                           "card, iterations + validation); "
+                           "remote_launches (K3): each phase-22 run's "
+                           "launches: the launchers (one worker, 4 "
+                           "iterations + 1 validation batch), the "
+                           "aggregated two-worker EASGD session, and the "
+                           "remote round-robin schedules (no "
+                           "validation)"},
                   f, indent=1)
     log(f"whole script: {time.monotonic() - _STARTED:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -10,7 +10,8 @@ validation; an injected ``worker_step`` fault aborts a long session in
 seconds; a supervised worker restarts from the center; the overlap pipe
 runs both rules; EASGD's center checkpoint resumes under BSP, a BSP
 checkpoint seeds GOSGD, ASGD resumes with its server's momentum, GOSGD
-from its sidecars; the remote paths are refused naming ROADMAP item 15.
+from its sidecars; the rules and the launcher refuse what JAX's refuse
+(the remote paths themselves: ``test_torch_{service,shards,aggregate}.py``).
 ``python -m theanompi_tpu_torch.launcher {EASGD,ASGD,GOSGD} -D 2
 --platform cpu`` writes its result JSON.
 
@@ -269,13 +270,15 @@ def test_gosgd_resumes_every_worker_from_its_sidecars(tmp_path):
 
 
 @pytest.mark.parametrize("rule_cls,kw,err,match", [
-    (EASGD, {"server_addr": "h:1"}, NotImplementedError, "item 15"),
-    (ASGD, {"server_addr": "h:1,h:2"}, NotImplementedError, "item 15"),
-    (EASGD, {"local_aggregation": True}, NotImplementedError, "item 15"),
+    (EASGD, {"tau": 0}, ValueError, "tau must be >= 1"),
+    (ASGD, {"server_addr": " , "}, ValueError, "no addresses"),
+    (EASGD, {"config_kw": {"zero_sharding": True}}, ValueError,
+     "BSP feature"),
     (EASGD, {"local_aggregation": True, "alpha": 0.9}, ValueError,
      "n\\*alpha"),
-    (ASGD, {"session_id": "s"}, NotImplementedError, "item 15"),
-    (GOSGD, {"n_total_workers": 4}, ValueError, "item 15"),
+    (ASGD, {"config_kw": {"grad_accum_steps": 2}}, ValueError,
+     "BSP feature"),
+    (GOSGD, {"n_total_workers": 4}, ValueError, "need server_addr"),
     (GOSGD, {"rank_offset": 2}, ValueError, "need server_addr"),
     (GOSGD, {"server_addr": "h:1,h:2"}, ValueError, "unsharded"),
     (GOSGD, {"local_aggregation": True}, ValueError, "aggregation"),
@@ -380,14 +383,14 @@ def test_launcher_two_cpu_workers(tmp_path, workers_import_this_file, capfd,
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["EASGD", "--server-addr", "h:1"], "item 15"),
-    (["ASGD", "--local-aggregation"], "item 15"),
+    (["BSP", "--server-addr", "h:1"], "applies to EASGD/ASGD/GOSGD only"),
+    (["GOSGD", "--local-aggregation"], "applies to EASGD/ASGD only"),
     (["GOSGD", "--tau", "3"], "--tau applies to EASGD only"),
     (["BSP", "--p-push", "0.5"], "--p-push applies to GOSGD only"),
     (["GOSGD", "--overlap-exchange"], "applies to EASGD/ASGD only"),
     (["BSP", "--min-workers", "1"], "applies to EASGD/ASGD/GOSGD only"),
-    (["EASGD", "--multihost", "--coordinator", "h:1", "--nhosts", "2",
-      "--host-id", "0"], "item 15"),
+    (["EASGD", "--shards", "2", "--multihost", "--coordinator", "h:1",
+      "--nhosts", "2", "--host-id", "0"], "single-host"),
 ])
 def test_launcher_refuses(argv, match):
     with pytest.raises(SystemExit, match=match):

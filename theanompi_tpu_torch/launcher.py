@@ -65,7 +65,21 @@ JAX's refusal matrix: ``--tau``, ``--alpha`` (EASGD), ``--p-push``,
 ``--merge-momentum`` (GOSGD), ``--overlap-exchange`` (EASGD, ASGD) and
 ``--min-workers``; ``--max-restarts N`` supervises the worker threads
 (a failed EASGD/ASGD worker restarts from the center) and restarts the
-session with ``--resume`` up to N times.  Their result JSON holds the
+session with ``--resume`` up to N times.  Their remote paths:
+``--server-addr HOST:PORT`` points the session at a parameter service
+(``python -m theanompi_tpu_torch.parallel.service``), a comma-separated
+list at a shard fleet; ``--shards K`` (EASGD, ASGD; single host) starts
+and supervises K shard processes for the session (on the CPU) and
+points it at them; ``--session-id`` scopes the service's store (the
+same id on every host of one session); ``--local-aggregation`` (EASGD,
+ASGD) makes one aggregate exchange a period for this process's workers;
+GOSGD's ``--n-total-workers`` and ``--rank-offset`` place this
+process's workers among every process's on one shared hub.  A GOSGD
+run with ``--server-addr`` and a pinned ``--session-id`` is not
+auto-resumed (the hub keeps its deactivated ranks).  ``--wire-protocol``,
+``--wire-compression`` and ``--wire-dtype`` are exported to the
+workers as ``THEANOMPI_TPU_WIRE_PROTOCOL``, ``_COMPRESSION`` and
+``_DTYPE``, which every service client reads.  Their result JSON holds the
 session result (``val``, the counts ``n_exchanges`` (EASGD) or
 ``n_updates`` (ASGD), GOSGD's ``weights``, ``iterations`` (over all
 workers), ``train_s`` (until the last worker thread ended),
@@ -75,8 +89,7 @@ session), the rule, the devices and each worker's parameter digest.
 The launcher never picks the CPU by itself: ``--platform`` defaults to
 ``cuda`` and fails without a card.  A worker that fails terminates its
 siblings and the launcher exits non-zero.  SERVE and the JAX launcher's
-other options exit non-zero with the ROADMAP item that will port them
-(the async rules' remote paths: item 15).
+other options exit non-zero with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -102,10 +115,6 @@ ASYNC_RULES = ("EASGD", "ASGD", "GOSGD")
 UNPORTED_OPTIONS = {
     **dict.fromkeys(("--model-parallel", "--seq-parallel", "--pipe-parallel",
                      "--expert-parallel"), 18),
-    **dict.fromkeys(("--server-addr", "--n-total-workers", "--rank-offset",
-                     "--session-id", "--shards", "--local-aggregation",
-                     "--wire-protocol", "--wire-compression", "--wire-dtype"),
-                    15),
     "--collector": 16, "--ingest": 17,
     **dict.fromkeys(("--export-dir", "--port", "--serve-host",
                      "--serve-replicas", "--max-batch", "--max-delay-ms",
@@ -184,6 +193,35 @@ def build_parser() -> argparse.ArgumentParser:
                    help="EASGD/ASGD: run each worker's exchange on a "
                         "thread of its own while it computes on "
                         "(bounded staleness 1)")
+    p.add_argument("--server-addr", default=None, metavar="HOST:PORT[,...]",
+                   help="async rules: the parameter service's address; a "
+                        "comma-separated list names a shard fleet")
+    p.add_argument("--shards", type=int, default=None, metavar="K",
+                   help="EASGD/ASGD, single host: start and supervise K "
+                        "shard processes and split the center across them")
+    p.add_argument("--session-id", default=None,
+                   help="async rules: the id scoping the service's store; "
+                        "every host of one session passes the same "
+                        "(default: a fresh id per session)")
+    p.add_argument("--local-aggregation", action="store_true",
+                   help="EASGD/ASGD: one aggregate exchange a period for "
+                        "this process's workers")
+    p.add_argument("--n-total-workers", type=int, default=None,
+                   help="GOSGD: the workers of every process sharing one "
+                        "--server-addr hub")
+    p.add_argument("--rank-offset", type=int, default=None,
+                   help="GOSGD: this process's first global worker rank "
+                        "(default 0)")
+    p.add_argument("--wire-protocol", default=None, choices=("v1", "v2"),
+                   help="service transport: v2 framed (default) or v1 "
+                        "pickle (THEANOMPI_TPU_WIRE_PROTOCOL)")
+    p.add_argument("--wire-compression", default=None,
+                   choices=("none", "zlib"),
+                   help="v2 payload compression "
+                        "(THEANOMPI_TPU_WIRE_COMPRESSION)")
+    p.add_argument("--wire-dtype", default=None, choices=("f32", "bf16"),
+                   help="v2 wire dtype: bf16 halves the f32 bytes on the "
+                        "wire (THEANOMPI_TPU_WIRE_DTYPE)")
     p.add_argument("--multihost", action="store_true",
                    help="one launcher per host; needs --coordinator, "
                         "--nhosts and --host-id")
@@ -238,8 +276,14 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
 #: option -> the rules that take it (else refused, as JAX's matrix does)
 _RULE_OPTIONS = {"tau": ("EASGD",), "alpha": ("EASGD",),
                  "p_push": ("GOSGD",), "merge_momentum": ("GOSGD",),
+                 "n_total_workers": ("GOSGD",), "rank_offset": ("GOSGD",),
                  "overlap_exchange": ("EASGD", "ASGD"),
-                 "min_workers": ASYNC_RULES}
+                 "min_workers": ASYNC_RULES, "server_addr": ASYNC_RULES,
+                 "session_id": ASYNC_RULES}
+#: the options' environment variables (read by every service client)
+WIRE_ENV = {"wire_protocol": "THEANOMPI_TPU_WIRE_PROTOCOL",
+            "wire_compression": "THEANOMPI_TPU_WIRE_COMPRESSION",
+            "wire_dtype": "THEANOMPI_TPU_WIRE_DTYPE"}
 
 
 def _check_rule_options(args: argparse.Namespace) -> None:
@@ -253,11 +297,34 @@ def _check_rule_options(args: argparse.Namespace) -> None:
                 # BSP overlaps in its step; GOSGD pushes never block
                 raise SystemExit(f"{flag} applies to EASGD/ASGD only")
             raise SystemExit(f"{flag} applies to {'/'.join(rules)} only")
-    if args.rule in ASYNC_RULES and args.multihost:
-        raise _not_ported(f"{args.rule} across hosts (the parameter "
-                          "service)", 15)
     if args.min_workers is not None and args.min_workers < 1:
         raise SystemExit("--min-workers must be >= 1")
+    # JAX's refusal matrix for the remote paths
+    if args.local_aggregation and args.rule not in ("EASGD", "ASGD"):
+        raise SystemExit(
+            "--local-aggregation applies to EASGD/ASGD only: GOSGD "
+            "gossip pushes whole (params, weight) trees to random "
+            "peers and BSP exchanges in-step via collectives")
+    if args.shards is not None:
+        if args.rule not in ("EASGD", "ASGD"):
+            raise SystemExit(
+                "--shards applies to EASGD/ASGD only: the GOSGD gossip "
+                "hub is unsharded (it rendezvouses whole param trees, "
+                "not an accumulating center) and BSP has no parameter "
+                "service")
+        if args.multihost:
+            raise SystemExit(
+                "--shards is single-host (the launcher spawns the shard "
+                "processes); multi-host runs start the fleet once and "
+                "point every host at it with a comma-separated "
+                "--server-addr")
+        if args.server_addr:
+            raise SystemExit(
+                "pass either --shards K (spawn a local shard fleet) or "
+                "a comma-separated --server-addr (an existing fleet), "
+                "not both")
+        if args.shards < 1:
+            raise SystemExit("--shards must be >= 1")
 
 
 def _parse_config_sets(pairs: list[str]) -> dict:
@@ -353,10 +420,15 @@ def run_async(args: argparse.Namespace) -> int:
                   sync_type=args.sync_type, max_epochs=args.epochs)
     opts = {"tau": args.tau, "alpha": args.alpha, "p_push": args.p_push,
             "merge_momentum": args.merge_momentum,
-            "min_workers": args.min_workers}
+            "min_workers": args.min_workers,
+            "server_addr": args.server_addr, "session_id": args.session_id,
+            "n_total_workers": args.n_total_workers,
+            "rank_offset": args.rank_offset}
     kwargs.update({k: v for k, v in opts.items() if v is not None})
     if args.overlap_exchange:
         kwargs["overlap"] = True
+    if args.local_aggregation:
+        kwargs["local_aggregation"] = True
     if args.max_restarts:
         kwargs["max_restarts"] = args.max_restarts
     rule = getattr(rules, args.rule)().init(**kwargs)
@@ -472,11 +544,41 @@ def _run_group(argv: list[str], env: dict, n: int, rank0: int,
         _stop(procs)
 
 
+def _without_shards(argv: list[str]) -> list[str]:
+    """``argv`` without its ``--shards K`` (or ``--shards=K``)."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--shards":
+            skip = True
+        elif not a.startswith("--shards="):
+            out.append(a)
+    return out
+
+
 def spawn(args: argparse.Namespace, argv: list[str]) -> int:
     """Start one worker per card (or ``-D`` CPU workers; one process for
     an async rule) and wait; a group whose worker failed is started
     again with ``--resume`` up to ``--max-restarts`` times (single
-    host), else the failed worker's exit code is returned."""
+    host), else the failed worker's exit code is returned.  ``--shards
+    K`` starts the shard fleet here, for every life of the group, and
+    hands the workers its ``--server-addr``; the shards hold their
+    ranges on the workers' ``--platform``."""
+    if args.shards is None:
+        return _spawn(args, argv)
+    from theanompi_tpu_torch.parallel.shards import ShardProcessGroup
+
+    group = ShardProcessGroup(args.shards, device=args.platform,
+                              max_restarts=args.max_restarts or 1)
+    try:
+        return _spawn(args, _without_shards(argv)
+                      + ["--server-addr", group.server_addr])
+    finally:
+        group.stop()
+
+
+def _spawn(args: argparse.Namespace, argv: list[str]) -> int:
     import torch
 
     if args.platform == "cuda":
@@ -501,6 +603,9 @@ def spawn(args: argparse.Namespace, argv: list[str]) -> int:
         env["THEANOMPI_TPU_MONITOR"] = args.monitor_dir
     if args.fault_plan:
         env["THEANOMPI_TPU_FAULTS"] = args.fault_plan
+    for opt, var in WIRE_ENV.items():
+        if getattr(args, opt):
+            env[var] = getattr(args, opt)
     if args.multihost:
         addr, _, port = args.coordinator.rpartition(":")
         env.update(WORLD_SIZE=str(n * args.nhosts), MASTER_ADDR=addr,
@@ -520,6 +625,17 @@ def spawn(args: argparse.Namespace, argv: list[str]) -> int:
             env["MASTER_PORT"] = str(_free_port())
         rc = _run_group(argv, env, n, rank0, life)
         if rc == 0 or life >= restarts:
+            return rc
+        if args.rule == "GOSGD" and args.server_addr and args.session_id:
+            # a pinned-session-id gossip hub survives the crash WITH its
+            # deactivated ranks and stale in-flight payloads: resuming
+            # into it would refuse gossip to restarted ranks and merge
+            # pre-crash params
+            print("[resilience] NOT auto-resuming GOSGD: the pinned "
+                  f"--session-id {args.session_id!r} hub keeps deactivated "
+                  "ranks and stale in-flight gossip across a resume; "
+                  "restart all hosts with a fresh --session-id",
+                  file=sys.stderr, flush=True)
             return rc
         life += 1
         print(f"[resilience] {args.rule} session died (worker exit code "

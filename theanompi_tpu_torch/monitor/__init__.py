@@ -81,6 +81,24 @@ def session(run_dir: str | None = None,
                 _state.run_dir = None
 
 
+def tree_bytes(tree) -> int:
+    """Total byte size of the arrays in a nest of lists, tuples and dicts
+    (numpy arrays, torch tensors, bytes; other leaves count 0): the
+    service client's wire accounting."""
+    if isinstance(tree, (bytes, bytearray)):
+        return len(tree)
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    nbytes = getattr(tree, "nbytes", None)
+    if isinstance(nbytes, int):  # numpy
+        return nbytes
+    if hasattr(tree, "element_size") and hasattr(tree, "numel"):  # torch
+        return tree.numel() * tree.element_size()
+    return 0
+
+
 def inc(name: str, amount: float = 1.0, /, **labels) -> None:
     if not _state.enabled:
         return

@@ -235,26 +235,33 @@ class GossipHub:
         self.n_workers = n_workers
         self._inboxes = [queue.Queue(maxsize=maxsize)
                          for _ in range(n_workers)]
-        self._active = [True] * n_workers
+        self._lock = make_lock("GossipHub._lock")
+        self._active = [True] * n_workers  # guarded_by: self._lock
 
     def push(self, dst: int, params: Tensors, weight: float) -> bool:
         """Deliver a copy of ``params`` with ``weight`` to worker ``dst``;
         False if refused (a full inbox or a deactivated worker: the
-        sender keeps its weight, so no gossip weight is lost)."""
+        sender keeps its weight, so no gossip weight is lost).  The copy
+        is made first; the check and the enqueue are one step under the
+        lock :meth:`deactivate` takes, so a push either lands before the
+        receiver's deactivation (and its final drain takes it) or is
+        refused, never stranded in an inbox nobody drains."""
         faults.fire("exchange", kind="gosgd")
-        if not self._active[dst]:
-            return False
         copies = [p.detach().clone() for p in params]
-        try:
-            self._inboxes[dst].put_nowait((copies, float(weight),
-                                           publish(copies)))
-            return True
-        except queue.Full:
-            return False
+        ready = publish(copies)
+        with self._lock:
+            if not self._active[dst]:
+                return False
+            try:
+                self._inboxes[dst].put_nowait((copies, float(weight), ready))
+                return True
+            except queue.Full:
+                return False
 
     def deactivate(self, rank: int) -> None:
         """Mark ``rank`` finished; peers stop pushing to it."""
-        self._active[rank] = False
+        with self._lock:
+            self._active[rank] = False
 
     def drain(self, rank: int) -> list[tuple[list[torch.Tensor], float]]:
         """Every pending delivery for worker ``rank`` (non-blocking), as

@@ -1,0 +1,840 @@
+"""Shared-memory payload lane — zero-copy same-host frames.
+
+A same-host process group — a parameter service and its workers, a
+shard fleet — ships its hottest payloads (the exchanged parameters)
+across a loopback socket with at least two in-band copies per array.
+The sendmsg scatter-gather work in ``parallel/rpc.py`` removed the
+*serialization* copies; the kernel socket copy in and out remained.
+
+This module is the out-of-band half of the wire-v2 shm lane
+(docs/DESIGN.md "Shared-memory lane"):
+
+* **Arena** (one per process) — allocates one ``/dev/shm`` segment per
+  outgoing frame via ``multiprocessing.shared_memory``, stamps a
+  header (magic + generation), and tracks the lease under a deadline.
+  An ACKED segment is RECYCLED — parked on a freelist and reissued to
+  a later frame under a bumped generation, so a steady-state exchange
+  costs one warm ``memcpy`` per direction instead of a
+  create/zero-fill/unlink cycle (which costs several times the
+  memcpy).  Recycling is safe precisely because of when the ack
+  fires (below): an ack proves every receiver view of that segment is
+  already dead.  Every OTHER release path — lease expiry, channel
+  close, freelist overflow — unlinks instead of recycling, because
+  those cannot prove the receiver is done; and since the receiver's
+  ``mmap`` pins the inode, an unlink can never tear surviving views.
+* **Lease** — one per frame: every shm-eligible leaf of the frame is
+  packed into the same segment at 64-byte-aligned offsets, and the
+  frame's skeleton carries ``(segment, offset, length, generation)``
+  descriptors instead of in-band buffers.
+* **ShmChannel** — per-connection lane state, hung off the negotiated
+  ``wire.WireOptions``.  The sender side allocates leases (any failure
+  degrades silently to in-band bytes); the receiver side maps
+  segments read-only and queues the decref **ack** when the mapping
+  DIES — a ``weakref.finalize`` on the ``mmap`` fires once the last
+  decoded view is garbage; the ack then piggybacks on the
+  connection's next outgoing frame.  The refcount IS the view
+  lifetime: a consumer that retains views (a KV cache pinning pages)
+  simply never acks, so that segment is never recycled and its data
+  stays valid forever, while drop-promptly consumers (the exchange
+  loop, the ingest stream) recycle every round.  Stale generations,
+  foreign decrefs, double decrefs, and expired leases are TYPED
+  refusals (:class:`ShmLeaseError` subclasses) that ride the wire's
+  typed-error discipline.
+* **Negotiation** — the client offers ``"shm": {boot_id, uid, nonce}``
+  inside the wire-v2 hello (already under the HMAC session); the
+  server grants only when the proof matches its own boot-id + uid
+  (same host, same user) and echoes the nonce.  Silent fallback
+  everywhere: a remote peer, a legacy server, or a broken ``/dev/shm``
+  all land on in-band v2 with no caller-visible difference.
+
+Trust model: the grant requires the shared HMAC authkey (the hello
+rides the authenticated session) AND a matching uid, so a peer that
+can read a segment could already read the process memory it came
+from.  Receivers map ``PROT_READ`` — decoded views are read-only.
+
+A peer dying mid-lease is swept by the arena owner: unacked leases
+expire after ``THEANOMPI_TPU_SHM_LEASE_S`` and are unlinked; an OWNER
+killed outright leaves ``tmshm_<pid>_*`` files that
+:func:`sweep_orphans` reclaims by liveness-probing the embedded pid
+(run at arena creation, by the conftest segment fence, and by the
+bench kill leg).
+
+Copy of ``theanompi_tpu/parallel/shm.py`` (the port imports nothing of
+the JAX package).  The segment prefix stays ``tmshm``: ``map_payload``
+refuses any other, so a JAX peer and a port peer map each other's
+segments only because the prefix is the same.  One difference: the
+arena creates a segment only when ``/dev/shm`` has room for it (a
+tmpfs smaller than the frame would fault on the copy); otherwise the
+frame ships in-band, counted under ``shm/fallback_total{reason=space}``.
+"""
+
+from __future__ import annotations
+
+import atexit
+import mmap
+import os
+import secrets
+import struct
+import threading
+import time
+import weakref
+from typing import Any
+
+from theanompi_tpu_torch import monitor
+from theanompi_tpu_torch.analysis.lockgraph import make_lock
+
+__all__ = [
+    "Arena", "Lease", "ShmChannel", "ShmError", "ShmLeaseError",
+    "StaleGeneration", "ForeignSegment", "DoubleDecref", "LeaseExpired",
+    "arena", "available", "boot_id", "client_offer", "client_channel",
+    "server_grant", "enabled", "min_bytes", "release_all",
+    "segment_names", "sweep_orphans",
+]
+
+#: every segment this lane creates is named tmshm_<pid>_<uid>_<n> — the
+#: pid prefix is what makes orphans of a killed owner identifiable
+SEG_PREFIX = "tmshm"
+
+#: in-segment header: magic(4) pad(4) generation(8); payload starts at
+#: the first 64-byte boundary after it
+HEADER_MAGIC = b"TMSH"
+_HEADER = struct.Struct(">4sIQ")
+PAYLOAD_OFFSET = 64
+_ALIGN = 64
+
+_SHM_DIR = "/dev/shm"
+
+
+def enabled() -> bool:
+    """The lane's master switch (default ON, like mux): a client only
+    OFFERS and a server only GRANTS when this is set."""
+    return os.environ.get("THEANOMPI_TPU_WIRE_SHM", "1") == "1"
+
+
+def min_bytes() -> int:
+    """Leaves smaller than this stay in-band (descriptor + mmap
+    overhead would outweigh the saved copy)."""
+    return int(os.environ.get("THEANOMPI_TPU_SHM_MIN_BYTES",
+                              str(64 << 10)))
+
+
+def lease_timeout_s() -> float:
+    """How long an unacked lease may live before the owner sweeps it.
+    Generous by default: a receiver legitimately retains decoded views
+    across an exchange period (unlink-on-sweep cannot tear them — see
+    module docstring — but a sweep before the receiver MAPS reads as a
+    typed :class:`LeaseExpired`)."""
+    return float(os.environ.get("THEANOMPI_TPU_SHM_LEASE_S", "120"))
+
+
+def max_bytes() -> int:
+    """Total bytes the arena may hold leased at once; an alloc past
+    the cap degrades that frame to in-band (counted)."""
+    return int(os.environ.get("THEANOMPI_TPU_SHM_MAX_BYTES",
+                              str(2 << 30)))
+
+
+def boot_id() -> str | None:
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            return f.read().strip()
+    except OSError:
+        return None
+
+
+_AVAILABLE: bool | None = None
+
+
+def available() -> bool:
+    """Platform probe, computed once: POSIX shared memory + a readable
+    boot id.  False anywhere silently disables the lane."""
+    global _AVAILABLE
+    if _AVAILABLE is None:
+        try:
+            from multiprocessing import shared_memory  # noqa: F401
+
+            _AVAILABLE = (os.path.isdir(_SHM_DIR)
+                          and os.access(_SHM_DIR, os.W_OK)
+                          and boot_id() is not None
+                          and hasattr(os, "getuid"))
+        except Exception:
+            _AVAILABLE = False
+    return _AVAILABLE
+
+
+# ---------------------------------------------------------------------------
+# Typed refusals
+# ---------------------------------------------------------------------------
+
+
+class ShmError(RuntimeError):
+    """Base class for shm-lane failures."""
+
+
+class ShmLeaseError(ShmError):
+    """Base class for the lease refusal matrix.  Class names ride the
+    wire's ``("err", "ClassName: ...")`` discipline — clients classify
+    on the name, exactly like ``LeaseError`` / ``Overloaded``."""
+
+
+class StaleGeneration(ShmLeaseError):
+    """A read or decref named a generation the segment no longer
+    carries — the lease was reissued or the descriptor is stale."""
+
+
+class ForeignSegment(ShmLeaseError):
+    """A decref or read named a segment this arena never leased."""
+
+
+class DoubleDecref(ShmLeaseError):
+    """A decref for a lease that was already released."""
+
+
+class LeaseExpired(ShmLeaseError):
+    """The segment is gone: the lease expired (owner swept it) or the
+    owner exited before the receiver mapped."""
+
+
+# ---------------------------------------------------------------------------
+# Owner side: Lease + Arena
+# ---------------------------------------------------------------------------
+
+
+class Lease:
+    """One leased segment = one outgoing frame's out-of-band payload.
+    Owned by the encoding thread until handed back to the arena; the
+    arena only touches it under its own lock."""
+
+    __slots__ = ("name", "generation", "size", "deadline", "used",
+                 "_shm", "_cursor")
+
+    def __init__(self, shm_obj, name: str, generation: int, size: int,
+                 deadline: float):
+        self._shm = shm_obj
+        self.name = name
+        self.generation = generation
+        self.size = size
+        self.deadline = deadline
+        self._cursor = PAYLOAD_OFFSET
+        self.used = 0
+
+    def put(self, data) -> int | None:
+        """Copy one leaf's bytes into the segment at the next aligned
+        offset; returns the offset, or None when the segment is full
+        (the caller falls back to an in-band buffer for that leaf)."""
+        mv = data if isinstance(data, memoryview) else memoryview(data)
+        n = mv.nbytes
+        off = (self._cursor + _ALIGN - 1) // _ALIGN * _ALIGN
+        if off + n > self.size:
+            return None
+        if n:
+            self._shm.buf[off:off + n] = mv
+        self._cursor = off + n
+        self.used += 1
+        return off
+
+    def _dispose(self) -> None:
+        try:
+            self._shm.close()
+        except (OSError, BufferError):
+            pass
+        try:
+            self._shm.unlink()
+        except (OSError, FileNotFoundError):
+            pass
+
+
+def _aligned(n: int) -> int:
+    return (n + _ALIGN - 1) // _ALIGN * _ALIGN
+
+
+#: free space a new segment must leave in ``/dev/shm``
+_SHM_HEADROOM = 16 << 20
+
+
+def free_bytes() -> int | None:
+    """Free bytes in ``/dev/shm`` (None when it cannot be read)."""
+    try:
+        st = os.statvfs(_SHM_DIR)
+    except OSError:
+        return None
+    return st.f_bavail * st.f_frsize
+
+
+def _room_for(size: int) -> bool:
+    free = free_bytes()
+    return free is None or free >= size + _SHM_HEADROOM
+
+
+def _dispose_segment(seg) -> None:
+    """Close + unlink one ``SharedMemory``, swallowing the races
+    (already unlinked, exported buffers) that teardown paths hit."""
+    try:
+        seg.close()
+    except (OSError, BufferError):
+        pass
+    try:
+        seg.unlink()
+    except (OSError, FileNotFoundError):
+        pass
+
+
+class Arena:
+    """Process-wide segment allocator + lease table (module
+    docstring).  One per process (:func:`arena`); every connection's
+    :class:`ShmChannel` allocates from it."""
+
+    #: freelist ceiling: the deepest in-repo pipeline (ingest at
+    #: depth 4, double-buffered) parks ~6 segments per direction;
+    #: past this, the oldest free segment is unlinked instead
+    _FREE_SLOTS = 8
+
+    def __init__(self):
+        self._lock = make_lock("shm.Arena._lock")
+        self._leased: dict[str, Lease] = {}  # guarded_by: self._lock
+        #: acked segments parked for reuse: [(shm_obj, name, size)]
+        self._free: list = []                # guarded_by: self._lock
+        #: recently released names, kept so a second decref can be
+        #: classified as DoubleDecref instead of ForeignSegment
+        self._freed: dict[str, int] = {}     # guarded_by: self._lock
+        self._gen = 0                        # guarded_by: self._lock
+        self._n = 0                          # guarded_by: self._lock
+        #: resident bytes = leased + parked-free segments
+        self._bytes = 0                      # guarded_by: self._lock
+        self._tag = secrets.token_hex(4)
+        atexit.register(self.close)
+
+    # -- alloc / decref -------------------------------------------------
+
+    def alloc(self, payload_bytes: int) -> Lease | None:
+        """Lease a segment for one frame's out-of-band leaves —
+        recycling an acked free segment when one is big enough, else
+        creating fresh.  Returns None — NEVER raises — on any failure
+        (cap, ENOSPC, a broken /dev/shm): the frame silently ships
+        in-band."""
+        from multiprocessing import shared_memory
+
+        self.sweep()
+        size = PAYLOAD_OFFSET + _aligned(int(payload_bytes))
+        overflow: list = []
+        with self._lock:
+            self._gen += 1
+            gen = self._gen
+            # smallest adequate parked segment wins: a frame's
+            # payload size is near-constant per plane, so steady
+            # state is an exact-size hit with warm pages
+            best = None
+            for i, (_, _, sz) in enumerate(self._free):
+                if sz >= size and (best is None
+                                   or sz < self._free[best][2]):
+                    best = i
+            if best is not None:
+                seg, name, seg_size = self._free.pop(best)
+            else:
+                seg = None
+                # creating fresh: evict parked segments before
+                # refusing on the cap — free bytes are reclaimable
+                while (self._bytes + size > max_bytes()
+                       and self._free):
+                    overflow.append(self._free.pop(0))
+                    self._bytes -= overflow[-1][2]
+                if self._bytes + size > max_bytes():
+                    monitor.inc("shm/fallback_total", reason="cap")
+                    hit_cap = True
+                else:
+                    hit_cap = False
+                    self._n += 1
+                    idx = self._n
+        for o_seg, o_name, _ in overflow:
+            _dispose_segment(o_seg)
+        if seg is None and hit_cap:
+            return None
+        if seg is None and not _room_for(size):
+            # tmpfs grants a segment larger than its free space and
+            # faults (SIGBUS) on the first write past it: ship in-band
+            monitor.inc("shm/fallback_total", reason="space")
+            return None
+        if seg is None:
+            name = f"{SEG_PREFIX}_{os.getpid()}_{self._tag}_{idx}"
+            try:
+                seg = shared_memory.SharedMemory(create=True, name=name,
+                                                 size=size)
+            except Exception:
+                monitor.inc("shm/fallback_total", reason="alloc")
+                return None
+            seg_size = size
+            fresh = True
+        else:
+            fresh = False
+        try:
+            seg.buf[:_HEADER.size] = _HEADER.pack(HEADER_MAGIC, 0, gen)
+        except (OSError, ValueError, TypeError):
+            _dispose_segment(seg)
+            monitor.inc("shm/fallback_total", reason="alloc")
+            if not fresh:
+                with self._lock:
+                    self._bytes -= seg_size
+            return None
+        lease = Lease(seg, name, gen, seg_size,
+                      time.monotonic() + lease_timeout_s())
+        with self._lock:
+            self._leased[name] = lease
+            if fresh:
+                self._bytes += seg_size
+        return lease
+
+    def decref(self, name: str, generation: int) -> None:
+        """Release one lease (the receiver's piggybacked ack) back to
+        the freelist — the ack proves every receiver view died, so the
+        segment is safe to reissue.  The refusal matrix: unknown name
+        -> :class:`ForeignSegment`, already-released ->
+        :class:`DoubleDecref`, wrong generation ->
+        :class:`StaleGeneration`."""
+        overflow: list = []
+        with self._lock:
+            lease = self._leased.get(name)
+            if lease is None:
+                if name in self._freed:
+                    raise DoubleDecref(
+                        f"segment {name} was already released")
+                raise ForeignSegment(
+                    f"segment {name} was never leased by this arena")
+            if int(generation) != lease.generation:
+                raise StaleGeneration(
+                    f"decref for {name} generation {generation}, lease "
+                    f"holds generation {lease.generation}")
+            self._drop_locked(lease, recycle=True)
+            while len(self._free) > self._FREE_SLOTS:
+                overflow.append(self._free.pop(0))
+                self._bytes -= overflow[-1][2]
+        for o_seg, o_name, _ in overflow:
+            _dispose_segment(o_seg)
+
+    def forget(self, name: str, generation: int) -> None:
+        """Release one lease WITHOUT recycling (channel teardown: the
+        peer may still hold live views, so the segment must never be
+        reissued — unlink leaves those views valid).  Never refused."""
+        with self._lock:
+            lease = self._leased.get(name)
+            if lease is None or int(generation) != lease.generation:
+                return
+            self._drop_locked(lease, recycle=False)
+        lease._dispose()
+
+    def cancel(self, lease: Lease) -> None:
+        """Give back an allocated-but-unused lease (no leaf fit, or
+        encoding failed after alloc) — no receiver ever saw it, so it
+        recycles.  Not a decref, never refused."""
+        overflow: list = []
+        with self._lock:
+            if self._leased.get(lease.name) is not lease:
+                return
+            self._drop_locked(lease, recycle=True)
+            while len(self._free) > self._FREE_SLOTS:
+                overflow.append(self._free.pop(0))
+                self._bytes -= overflow[-1][2]
+        for o_seg, o_name, _ in overflow:
+            _dispose_segment(o_seg)
+
+    def _drop_locked(self, lease, recycle):  # requires_lock: self._lock
+        del self._leased[lease.name]
+        if recycle:
+            self._free.append((lease._shm, lease.name, lease.size))
+        else:
+            self._bytes -= lease.size
+        self._freed[lease.name] = lease.generation
+        while len(self._freed) > 1024:
+            self._freed.pop(next(iter(self._freed)))
+
+    # -- sweeps ---------------------------------------------------------
+
+    def sweep(self) -> int:
+        """Unlink every lease past its deadline (a peer that died — or
+        stalled — mid-lease must not leak segments).  Returns the
+        number swept."""
+        now = time.monotonic()
+        expired: list[Lease] = []
+        with self._lock:
+            for lease in list(self._leased.values()):
+                if now >= lease.deadline:
+                    # NOT recycled: the receiver never acked, so it
+                    # may still hold live views — unlink keeps them
+                    # valid, reuse would rewrite under them
+                    self._drop_locked(lease, recycle=False)
+                    expired.append(lease)
+        for lease in expired:
+            lease._dispose()
+            monitor.inc("shm/lease_sweeps_total", kind="expired")
+        return len(expired)
+
+    def release_all(self) -> int:
+        """Force-release every outstanding lease AND parked free
+        segment (test teardown / process exit).  Receivers that
+        already mapped keep valid views — the unlink only removes the
+        name.  Returns the number of leases released (parked free
+        segments are not leases)."""
+        with self._lock:
+            leases = list(self._leased.values())
+            for lease in leases:
+                self._drop_locked(lease, recycle=False)
+            free, self._free = self._free, []
+            for _, _, sz in free:
+                self._bytes -= sz
+        for lease in leases:
+            lease._dispose()
+            monitor.inc("shm/lease_sweeps_total", kind="close")
+        for seg, _, _ in free:
+            _dispose_segment(seg)
+        return len(leases)
+
+    def outstanding(self) -> int:
+        with self._lock:
+            return len(self._leased)
+
+    def close(self) -> None:
+        self.release_all()
+
+
+_ARENA: Arena | None = None
+_ARENA_LOCK = make_lock("shm._ARENA_LOCK")
+
+
+def arena() -> Arena:
+    """The process-global arena (created on first shm send; creation
+    also sweeps orphans left by previously-killed owners)."""
+    global _ARENA
+    with _ARENA_LOCK:
+        if _ARENA is None:
+            _ARENA = Arena()
+            try:
+                sweep_orphans()
+            except OSError:
+                pass
+    return _ARENA
+
+
+def release_all() -> int:
+    """Force-release this process's outstanding leases (the conftest
+    segment fence calls this between tests)."""
+    with _ARENA_LOCK:
+        a = _ARENA
+    return a.release_all() if a is not None else 0
+
+
+def segment_names(prefix: str = SEG_PREFIX) -> list[str]:
+    """Names of every live shm-lane segment on this host."""
+    try:
+        return sorted(n for n in os.listdir(_SHM_DIR)
+                      if n.startswith(prefix + "_"))
+    except OSError:
+        return []
+
+
+def sweep_orphans() -> int:
+    """Unlink segments whose embedded creator pid is dead — the
+    kill-a-peer leg's cleanup path.  Live owners' segments are left
+    alone (their own sweeps/atexit handle them)."""
+    swept = 0
+    for name in segment_names():
+        try:
+            pid = int(name.split("_")[1])
+        except (IndexError, ValueError):
+            continue
+        try:
+            os.kill(pid, 0)
+            continue  # owner alive — not an orphan
+        except ProcessLookupError:
+            pass
+        except PermissionError:
+            continue  # alive, other user
+        try:
+            os.unlink(os.path.join(_SHM_DIR, name))
+            swept += 1
+            monitor.inc("shm/lease_sweeps_total", kind="orphan")
+        except OSError:
+            pass
+    return swept
+
+
+# ---------------------------------------------------------------------------
+# Receiver side: read-only mapping
+# ---------------------------------------------------------------------------
+
+
+def map_payload(name: str, generation: int) -> mmap.mmap:
+    """Map one segment read-only and validate its header against the
+    descriptor's generation.  Raw ``os.open`` + ``mmap`` — deliberately
+    NOT ``SharedMemory`` attach, whose resource tracker would unlink
+    the owner's segment when THIS process exits (3.10 has no
+    ``track=False``)."""
+    path = os.path.join(_SHM_DIR, name)
+    if os.sep in name or not name.startswith(SEG_PREFIX + "_"):
+        raise ForeignSegment(f"refusing to map non-lane segment {name!r}")
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except FileNotFoundError:
+        raise LeaseExpired(
+            f"segment {name} is gone — the lease expired or its owner "
+            "exited before this read") from None
+    try:
+        m = mmap.mmap(fd, 0, prot=mmap.PROT_READ)
+    except (OSError, ValueError) as e:
+        raise ShmError(f"cannot map segment {name}: {e}") from e
+    finally:
+        os.close(fd)
+    if len(m) < PAYLOAD_OFFSET:
+        m.close()
+        raise ForeignSegment(f"segment {name} is too small to carry "
+                             "a lane header")
+    magic, _, gen = _HEADER.unpack_from(m, 0)
+    if magic != HEADER_MAGIC:
+        m.close()
+        raise ForeignSegment(f"segment {name} carries no lane header")
+    if gen != int(generation):
+        m.close()
+        raise StaleGeneration(
+            f"segment {name} holds generation {gen}, descriptor says "
+            f"{generation} — stale read refused")
+    return m
+
+
+# ---------------------------------------------------------------------------
+# Per-connection lane state
+# ---------------------------------------------------------------------------
+
+
+class ShmChannel:
+    """One connection's shm lane (both directions).  Hung off the
+    negotiated ``wire.WireOptions``; shared by every stream of a mux
+    connection, so all state is locked."""
+
+    #: receiver-side map cache ceiling: one lease per frame means one
+    #: live entry per concurrently-decoding stream — 8 is headroom
+    _MAP_CACHE = 8
+
+    def __init__(self, role: str):
+        self.role = role
+        self._lock = make_lock("shm.ShmChannel._lock")
+        self._send_ok = True              # guarded_by: self._lock
+        self._acks: list = []             # guarded_by: self._lock
+        self._mine: set = set()           # guarded_by: self._lock
+        self._maps: dict = {}             # guarded_by: self._lock
+        self._closed = False              # guarded_by: self._lock
+        #: per-decoding-thread stack of keys mapped by the frame in
+        #: flight (mux streams decode concurrently; each thread's
+        #: frames are its own)
+        self._frames = threading.local()
+        #: keys belonging to ANY thread's in-flight frame — the cache
+        #: overflow evictor must never drop these (a re-map would
+        #: register a second finalizer = a second ack)
+        self._active: set = set()         # guarded_by: self._lock
+
+    # -- sender side ----------------------------------------------------
+
+    @property
+    def send_ok(self) -> bool:
+        with self._lock:
+            return self._send_ok
+
+    def alloc(self, payload_bytes: int) -> Lease | None:
+        with self._lock:
+            if not self._send_ok or self._closed:
+                return None
+        lease = arena().alloc(payload_bytes)
+        if lease is not None:
+            with self._lock:
+                self._mine.add((lease.name, lease.generation))
+        return lease
+
+    def cancel(self, lease: Lease) -> None:
+        with self._lock:
+            self._mine.discard((lease.name, lease.generation))
+        arena().cancel(lease)
+
+    def disable_send(self, reason: str) -> None:
+        """Silent per-connection degrade: every later frame ships
+        in-band.  Counted once per flip."""
+        with self._lock:
+            if not self._send_ok:
+                return
+            self._send_ok = False
+        monitor.inc("shm/fallback_total", reason=reason)
+
+    # -- receiver side --------------------------------------------------
+
+    def begin_frame(self) -> None:
+        """Open a frame scope on this thread: keys mapped until the
+        matching :meth:`end_frame` are released from the cache when
+        the frame's decode completes (see :meth:`map_for_read`)."""
+        stack = getattr(self._frames, "stack", None)
+        if stack is None:
+            stack = self._frames.stack = []
+        stack.append([])
+
+    def end_frame(self) -> None:
+        """Close the thread's innermost frame scope and drop the cache
+        entries it created.  A (name, generation) pair is referenced
+        by exactly one frame, so no later decode can want them — from
+        here the mapping lives exactly as long as the decoded views,
+        and its death fires the decref ack."""
+        stack = getattr(self._frames, "stack", None)
+        if not stack:
+            return
+        keys = stack.pop()
+        evicted: list = []
+        with self._lock:
+            for k in keys:
+                self._active.discard(k)
+                m = self._maps.pop(k, None)
+                if m is not None:
+                    evicted.append(m)
+        # strong refs die OUTSIDE the lock: dropping a mapping can
+        # fire its finalize -> _queue_ack -> this (non-reentrant) lock
+        evicted.clear()
+
+    def map_for_read(self, name: str, generation: int) -> mmap.mmap:
+        """Map (or reuse this frame's mapping of) one segment.  The
+        decref ack is queued by a ``weakref.finalize`` when the mmap
+        DIES — i.e. once :meth:`end_frame` dropped it from the cache
+        AND the last decoded view over it is garbage — which is
+        exactly the proof the owner needs to recycle the segment.  A
+        key must NEVER be mapped twice (two finalizers would ack
+        twice, and the first ack would let the owner rewrite under the
+        second mapping's views), which frame-scoping guarantees: each
+        (name, generation) belongs to exactly one frame, and within a
+        frame the cache dedupes."""
+        key = (name, int(generation))
+        evicted: list = []
+        frame = getattr(self._frames, "stack", None)
+        with self._lock:
+            m = self._maps.get(key)
+            if m is not None:
+                return m
+        fresh = map_payload(name, int(generation))
+        try:
+            with self._lock:
+                m = self._maps.get(key)
+                if m is not None:  # lost a benign race: keep the first
+                    return m
+                self._maps[key] = fresh
+                if frame:
+                    self._active.add(key)
+                if len(self._maps) > self._MAP_CACHE:
+                    for k in list(self._maps):
+                        if len(self._maps) <= self._MAP_CACHE:
+                            break
+                        if k != key and k not in self._active:
+                            evicted.append(self._maps.pop(k))
+                weakref.finalize(fresh, self._queue_ack, name,
+                                 int(generation))
+                m = fresh
+            if frame:
+                frame[-1].append(key)
+            return m
+        finally:
+            # strong refs die OUTSIDE the lock (finalize takes it too)
+            del fresh
+            evicted.clear()
+
+    def _queue_ack(self, name: str, generation: int) -> None:
+        """Finalizer target: the mapping (and so every view) of
+        ``(name, generation)`` is dead — tell the owner."""
+        with self._lock:
+            if self._closed:
+                return
+            self._acks.append([name, int(generation)])
+
+    def drain_acks(self) -> list:
+        with self._lock:
+            acks, self._acks = self._acks, []
+        return acks
+
+    def apply_acks(self, acks) -> None:
+        """Owner side of the piggybacked decrefs.  Refusals raise the
+        typed :class:`ShmLeaseError` subclasses — the wire layer turns
+        them into a typed err reply; the connection survives."""
+        if not isinstance(acks, list):
+            raise ShmError(f"malformed shm ack list: {acks!r}")
+        for item in acks:
+            try:
+                name, gen = item
+                name, gen = str(name), int(gen)
+            except (TypeError, ValueError) as e:
+                raise ShmError(f"malformed shm ack {item!r}") from e
+            arena().decref(name, gen)
+            with self._lock:
+                self._mine.discard((name, gen))
+
+    # -- teardown -------------------------------------------------------
+
+    def close(self) -> None:
+        """Connection teardown: release every lease this channel still
+        holds (acks that never came back must not wait out the
+        timeout).  Released via :meth:`Arena.forget` — NOT recycled —
+        because the peer may still hold live views; the unlink keeps
+        those valid.  Receiver-side mappings are dropped outside the
+        lock (their finalizers fire, but ``_closed`` suppresses the
+        now-pointless acks)."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._send_ok = False
+            mine, self._mine = self._mine, set()
+            maps, self._maps = self._maps, {}
+            self._acks = []
+            self._active = set()
+        maps.clear()
+        with _ARENA_LOCK:
+            a = _ARENA
+        if a is None:
+            return
+        for name, gen in mine:
+            a.forget(name, gen)
+
+
+# ---------------------------------------------------------------------------
+# Negotiation (rides the wire-v2 hello, under the HMAC session)
+# ---------------------------------------------------------------------------
+
+
+def client_offer() -> dict | None:
+    """The client's same-host proof for the hello: boot-id + uid + a
+    fresh nonce the server must echo.  None (no offer) when the lane
+    is disabled or the platform cannot carry it."""
+    if not enabled() or not available():
+        return None
+    return {"boot_id": boot_id(), "uid": os.getuid(),
+            "nonce": secrets.token_hex(8)}
+
+
+def client_channel(offer: dict | None, reply: Any) -> ShmChannel | None:
+    """Build the client-side channel from the server's hello reply —
+    None (silent in-band) unless the grant is present AND echoes the
+    offer's nonce."""
+    if offer is None or not isinstance(reply, dict):
+        return None
+    grant = reply.get("shm")
+    if not (isinstance(grant, dict) and grant.get("granted")):
+        return None
+    if grant.get("nonce") != offer.get("nonce"):
+        monitor.inc("shm/fallback_total", reason="nonce")
+        return None
+    monitor.inc("shm/grants_total", role="client")
+    return ShmChannel("client")
+
+
+def server_grant(request: Any) -> tuple[ShmChannel | None, dict | None]:
+    """Server side: grant only when the peer proves it shares this
+    host (boot-id) and user (uid).  Returns (channel, reply-grant) or
+    (None, None) — the reply simply omits ``shm`` on refusal, which an
+    old client never looks for anyway."""
+    if not enabled() or not available() or not isinstance(request, dict):
+        return None, None
+    if (request.get("boot_id") != boot_id()
+            or request.get("uid") != os.getuid()):
+        monitor.inc("shm/fallback_total", reason="remote")
+        return None, None
+    monitor.inc("shm/grants_total", role="server")
+    return ShmChannel("server"), {"granted": True,
+                                  "nonce": request.get("nonce")}

@@ -1,0 +1,937 @@
+"""Wire protocol v2 — framed, zero-copy, compressed pytree transport.
+
+The v1 transport (``parallel/service.py``) ships every request as one
+pickled tuple over ``multiprocessing.connection``: a parameter
+tree is serialized by pickle (buffer copies), decoded by pickle
+(arbitrary-code execution for anyone holding the key), and there is no
+seam to compress or re-dtype the payload.  MPI-characterization work
+(arXiv:1810.11112, PAPERS.md) shows exactly this pattern — host
+serialization copies on the critical path — dominating data-parallel
+scaling before the network does.
+
+v2 splits every message into
+
+* a **fixed header** — magic ``TMW2``, flags, buffer count, skeleton
+  length — followed by a **skeleton**: the message's pytree structure
+  as JSON with each ndarray replaced by a placeholder describing its
+  buffer index, dtype, shape, wire dtype, and compression;
+* one **raw buffer per ndarray leaf**, sent straight from the array's
+  memory via ``memoryview`` — ndarrays never pass through pickle in
+  either direction.
+
+Per-payload options (negotiated at connect time, recorded per leaf so
+any frame can deviate):
+
+* ``compression``: ``'none'`` | ``'zlib'`` — zlib level 1 per buffer,
+  kept only when it actually shrinks the leaf;
+* ``dtype``: ``'f32'`` | ``'bf16'`` — float32 leaves travel as
+  bfloat16 (half the bytes; bf16 keeps f32's exponent range) and are
+  restored to float32 on receive, so *accumulation at the receiving
+  store stays f32* (``parallel/server.py`` centers never see bf16).
+
+Decoder hardening (the v1 pickle transport could neither validate nor
+survive a bad frame): every failure mode — bad magic, corrupt
+skeleton, buffer-size mismatch, zlib bomb, a peer that stops sending
+mid-frame — raises a **typed** :class:`WireDecodeError` instead of
+hanging or crashing the server loop; when the header was intact the
+decoder drains the frame's declared buffers first so the connection
+stays usable.  Structural leaves JSON cannot express (optax
+namedtuple states) are rebuilt by validated module/qualname import —
+NOT pickle — with a last-resort pickle escape that is disabled by
+default on the server side of the v2 path (see ``WireOptions``).
+
+``parallel/service.py`` negotiates v2 at HMAC-handshake time and
+falls back to v1 pickle for old peers.
+
+Copy of ``theanompi_tpu/parallel/wire.py``; the frames are
+byte-identical to the JAX package's, so a JAX peer and a port peer
+talk to each other.  Two places differ because the port has neither
+JAX nor ``ml_dtypes``:
+
+* **bf16.** The bf16 wire dtype rounds f32 to bf16 here, with numpy
+  bit arithmetic (round to nearest even; a NaN becomes the quiet NaN of
+  its sign), bit-identical to ``ml_dtypes``; the receiver widens the
+  bits back to f32.  numpy has no bf16 dtype without ``ml_dtypes``, so
+  a leaf whose OWN dtype is bf16 travels as a CPU ``torch.bfloat16``
+  tensor on both ends (dtype name ``bfloat16`` in the skeleton, as the
+  JAX package writes it) and is never coerced to another dtype.
+* **Namedtuples.** A frame that names a module of JAX, its libraries
+  or the JAX package is refused with :class:`WireDecodeError` without
+  importing it (:data:`REFUSED_MODULES`).
+
+The leaves are numpy arrays, as in JAX; the service clients convert
+between torch and numpy at their edge.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import json
+import os
+import struct
+import zlib
+from typing import Any
+
+import numpy as np
+
+import torch
+
+from theanompi_tpu_torch import monitor
+from theanompi_tpu_torch.monitor import trace as _trace
+from theanompi_tpu_torch.parallel import shm as _shm
+
+#: the skeleton's name of the bf16 dtype (the JAX package's numpy name)
+BF16 = "bfloat16"
+
+#: top-level modules a namedtuple node may not name: the port must not
+#: import JAX, its libraries or the JAX package to decode a frame
+REFUSED_MODULES = frozenset({"jax", "jaxlib", "flax", "optax", "ml_dtypes",
+                             "theanompi_tpu"})
+
+MAGIC = b"TMW2"
+WIRE_VERSION = 2
+#: fixed header: magic(4) version(1) flags(1) n_bufs(4) skeleton_len(4)
+_HEADER = struct.Struct(">4sBBII")
+
+#: hard ceilings so a malicious/corrupt header cannot make the decoder
+#: allocate unbounded memory (the 'oversized frame' failure mode)
+MAX_SKELETON_BYTES = 64 << 20
+MAX_BUFFERS = 1 << 16
+MAX_BUFFER_BYTES = 1 << 32
+
+#: leaves smaller than this skip zlib (the header would outweigh it)
+_MIN_COMPRESS_BYTES = 512
+
+#: how long the decoder waits for each declared buffer message before
+#: calling the frame truncated (a peer that died mid-frame must yield
+#: a typed error, never a hang)
+DEFAULT_BUF_TIMEOUT_S = float(os.environ.get(
+    "THEANOMPI_TPU_WIRE_BUF_TIMEOUT_S", "30"))
+
+_FLAG_SKELETON_ZLIB = 1
+
+#: per-leaf options for :class:`RawArrays` members — raw transport no
+#: matter what the connection negotiated
+_RAW_OPTS = None  # filled in below WireOptions (forward declaration)
+
+
+class WireError(RuntimeError):
+    """Base class for wire-protocol failures."""
+
+
+class WireDecodeError(WireError, ConnectionError):
+    """A frame that cannot be decoded (truncated / corrupt /
+    oversized).  Subclasses ``ConnectionError`` so the service
+    client's reconnect-with-backoff loop treats a garbled *reply*
+    stream like any other transport failure (the at-most-once
+    discipline for destructive ops still applies)."""
+
+
+class WireProtocolError(WireError):
+    """Version/negotiation mismatch (not a per-frame problem)."""
+
+
+class ShmRefusal(WireDecodeError):
+    """A shared-memory descriptor or piggybacked ack this peer must
+    refuse: stale generation, foreign segment, double decref, expired
+    lease, or shm content on a connection that negotiated no lane.
+    The message leads with the underlying :mod:`.shm` error's class
+    name, so clients classify it the same way they classify
+    ``SessionDisplaced`` — and respond by disabling the lane and
+    retrying in-band, never by failing the caller."""
+
+
+@dataclasses.dataclass(frozen=True)
+class WireOptions:
+    """Per-connection defaults for frame encoding.
+
+    ``allow_pickle`` gates the DECODE side's last-resort pickle escape
+    for exotic structural leaves; the encoder only emits that escape
+    for objects neither JSON nor the namedtuple path can express.
+    Arrays never use it in either direction.
+    """
+
+    compression: str = "none"       # 'none' | 'zlib'
+    dtype: str = "f32"              # 'f32' | 'bf16'
+    allow_pickle: bool = True
+    #: the connection's negotiated shared-memory lane (an
+    #: ``shm.ShmChannel``), or None for plain in-band v2.  Excluded
+    #: from equality: two connections with the same codec options are
+    #: codec-equal regardless of their private lanes.
+    shm: Any = dataclasses.field(default=None, compare=False)
+
+    def __post_init__(self):
+        if self.compression not in ("none", "zlib"):
+            raise ValueError(
+                f"compression must be 'none' or 'zlib', "
+                f"got {self.compression!r}")
+        if self.dtype not in ("f32", "bf16"):
+            raise ValueError(
+                f"wire dtype must be 'f32' or 'bf16', got {self.dtype!r}")
+
+    @classmethod
+    def from_env(cls) -> "WireOptions":
+        return cls(
+            compression=os.environ.get(
+                "THEANOMPI_TPU_WIRE_COMPRESSION", "none"),
+            dtype=os.environ.get("THEANOMPI_TPU_WIRE_DTYPE", "f32"),
+        )
+
+
+_RAW_OPTS = WireOptions(compression="none", dtype="f32")
+
+
+class RawArrays(tuple):
+    """Marks a tuple of ndarrays as a **raw batch frame** (the ingest
+    uint8-batch op, docs/DESIGN.md "Distributed ingest"): each array
+    is sent as its own zero-copy buffer with the per-leaf options
+    FORCED to raw — no zlib attempt (level-1 zlib on a uint8
+    image batch costs real CPU per batch and essentially never
+    shrinks photographic content) and no bf16 re-dtype (uint8 pixels
+    and int32 labels must arrive bit-exact; the f32→bf16 wire dtype
+    only ever applied to f32 anyway, but the batch path must not
+    depend on that).  Decodes to a plain tuple of arrays, so the
+    consumer sees ``(x, y)`` with no wire-layer type leaking out."""
+
+    __slots__ = ()
+
+    def __new__(cls, *arrays: np.ndarray):
+        for a in arrays:
+            if not isinstance(a, np.ndarray):
+                raise TypeError(
+                    f"RawArrays carries ndarrays only, got {type(a)}")
+        return super().__new__(cls, arrays)
+
+    def __getnewargs__(self):
+        # pickle support: tuple subclasses pickle through __new__, and
+        # ours takes *arrays, not one iterable — without this a v1
+        # (pickle) connection crashes decoding a batch reply instead
+        # of delivering it (pinned by tests/test_wire.py)
+        return tuple(self)
+
+
+@dataclasses.dataclass
+class WireStats:
+    """Byte accounting for one frame: ``pre`` is the logical payload
+    (skeleton + every buffer at its ORIGINAL dtype), ``post`` the
+    bytes that actually hit the socket — the pre/post pair is what the
+    monitor's compression-ratio gauge is built from."""
+
+    pre_bytes: int = 0
+    post_bytes: int = 0
+    n_buffers: int = 0
+
+    @property
+    def ratio(self) -> float:
+        return self.post_bytes / self.pre_bytes if self.pre_bytes else 1.0
+
+
+# ---------------------------------------------------------------------------
+# bf16 without ml_dtypes
+# ---------------------------------------------------------------------------
+
+
+def f32_to_bf16_bits(arr: np.ndarray) -> np.ndarray:
+    """The bf16 bit patterns (uint16) of an f32 array, rounded to
+    nearest even; a NaN becomes ``0x7fc0`` with its sign bit, as
+    ``ml_dtypes`` rounds (subnormals, ties and infinities included)."""
+    u = np.ascontiguousarray(arr, dtype=np.float32).view(np.uint32)
+    rounded = ((u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1)))
+               >> 16).astype(np.uint16)
+    nan = (u & np.uint32(0x7FFFFFFF)) > np.uint32(0x7F800000)
+    if nan.any():
+        quiet = (((u >> 16) & np.uint32(0x8000)) | np.uint32(0x7FC0)
+                 ).astype(np.uint16)
+        rounded = np.where(nan, quiet, rounded)
+    return rounded
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """Widen bf16 bit patterns to f32 (exact: the low 16 bits are 0)."""
+    return (bits.astype(np.uint32) << np.uint32(16)).view(np.float32)
+
+
+def _is_bf16_tensor(obj: Any) -> bool:
+    return isinstance(obj, torch.Tensor) and obj.dtype == torch.bfloat16
+
+
+def _bf16_tensor_bits(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's bit patterns as a uint16 array (host copy when it
+    lies on a card)."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(
+        np.uint16)
+
+
+def _bf16_tensor(bits: np.ndarray) -> torch.Tensor:
+    """A CPU bf16 tensor that owns a copy of ``bits`` (uint16)."""
+    return torch.from_numpy(np.array(bits, dtype=np.uint16)).view(
+        torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# Skeleton encoding: message structure -> JSON-able tree + buffer list
+# ---------------------------------------------------------------------------
+
+
+def _encode_node(obj: Any, bufs: list, opts: WireOptions, stats: WireStats):
+    if obj is None:
+        return {"t": "none"}
+    if isinstance(obj, bool):
+        return {"t": "bool", "v": obj}
+    # explicit tags (not type(obj).__name__): an int/float/str SUBCLASS
+    # (IntEnum, ...) must still land on a tag the peer can decode
+    if isinstance(obj, int):
+        return {"t": "i", "v": int(obj)}
+    if isinstance(obj, float):
+        return {"t": "f", "v": float(obj)}
+    if isinstance(obj, str):
+        return {"t": "s", "v": str(obj)}
+    if isinstance(obj, bytes):
+        import base64
+
+        return {"t": "by", "v": base64.b64encode(obj).decode("ascii")}
+    if isinstance(obj, RawArrays):
+        # the raw batch frame: per-leaf options forced to raw transport
+        # regardless of what the connection negotiated (class docstring)
+        return {"t": "raw",
+                "v": [_encode_array(a, bufs, _RAW_OPTS, stats)
+                      for a in obj]}
+    if isinstance(obj, np.ndarray):
+        return _encode_array(obj, bufs, opts, stats)
+    if _is_bf16_tensor(obj):
+        return _encode_array(_bf16_tensor_bits(obj), bufs, opts, stats,
+                             name=BF16)
+    if isinstance(obj, np.generic):  # numpy scalar (np.float32(3), ...)
+        return {"t": "np0", "dtype": obj.dtype.name,
+                "v": obj.item() if obj.dtype.kind != "V" else None}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        # namedtuple (optax states): record the class by import path —
+        # rebuilt by validated import, never by pickle
+        cls = type(obj)
+        return {"t": "nt", "mod": cls.__module__,
+                "qual": cls.__qualname__,
+                "v": [_encode_node(v, bufs, opts, stats) for v in obj]}
+    if isinstance(obj, tuple):
+        return {"t": "tuple",
+                "v": [_encode_node(v, bufs, opts, stats) for v in obj]}
+    if isinstance(obj, list):
+        return {"t": "list",
+                "v": [_encode_node(v, bufs, opts, stats) for v in obj]}
+    if isinstance(obj, dict):
+        return {"t": "dict",
+                "v": [[_encode_node(k, bufs, opts, stats),
+                       _encode_node(v, bufs, opts, stats)]
+                      for k, v in obj.items()]}
+    # last resort for exotic structure (NOT arrays — handled above):
+    # a restricted pickle escape, decodable only when the peer allows
+    import base64
+    import pickle
+
+    return {"t": "pkl",
+            "v": base64.b64encode(
+                pickle.dumps(obj, protocol=2)).decode("ascii")}
+
+
+def _array_bytes_view(wire: np.ndarray):
+    """Zero-copy byte view of a C-contiguous array, via the
+    same-width-uint reinterpretation for dtypes outside the buffer
+    protocol (bfloat16)."""
+    try:
+        return memoryview(wire).cast("B")
+    except (ValueError, TypeError):
+        return memoryview(
+            wire.view(np.dtype(f"u{wire.dtype.itemsize}"))).cast("B")
+
+
+def _encode_array(arr: np.ndarray, bufs: list, opts: WireOptions,
+                  stats: WireStats, name: str | None = None) -> dict:
+    """``name`` overrides the skeleton's dtype name: a bf16 leaf is
+    encoded from its uint16 bit patterns under the name ``bfloat16``."""
+    orig_dtype = arr.dtype
+    orig_name = orig_dtype.name if name is None else name
+    stats.pre_bytes += arr.nbytes
+    # out-of-band lane: when this frame holds a lease (encode_frame
+    # allocated one off the connection's ShmChannel), large leaves are
+    # copied ONCE into the shared segment at their ORIGINAL dtype — no
+    # bf16 re-dtype, no zlib — so delivery is bit-exact and the
+    # receiver's mapping is the only other touch.  The lease rides
+    # WireStats because RawArrays leaves encode under _RAW_OPTS, not
+    # the connection's opts, and must still go out-of-band.
+    lease = getattr(stats, "_shm_lease", None)
+    if (lease is not None and arr.nbytes
+            and arr.nbytes >= stats._shm_min):
+        wire = arr if arr.flags["C_CONTIGUOUS"] \
+            else np.ascontiguousarray(arr)
+        off = lease.put(_array_bytes_view(wire))
+        if off is not None:
+            stats._shm_oob += arr.nbytes
+            stats.n_buffers += 1
+            return {"t": "nd", "dtype": orig_name,
+                    "shape": list(arr.shape), "rawlen": arr.nbytes,
+                    "comp": "none",
+                    "shm": [lease.name, off, arr.nbytes,
+                            lease.generation]}
+        # segment full (scan undercounted a non-eligible duplicate or
+        # the cap clipped the alloc): this leaf ships in-band
+    wire = arr
+    to_bf16 = (opts.dtype == "bf16" and orig_dtype == np.float32
+               and name is None)
+    if to_bf16:
+        wire = f32_to_bf16_bits(arr)
+    if not wire.flags["C_CONTIGUOUS"]:
+        wire = np.ascontiguousarray(wire)
+    if wire.nbytes == 0:
+        # memoryview cannot cast shapes with zeros; an empty leaf is
+        # an empty buffer
+        data: Any = b""
+    else:
+        try:
+            data = memoryview(wire).cast("B")
+        except (ValueError, TypeError):
+            # dtypes outside the buffer protocol (bfloat16):
+            # reinterpret as a same-width unsigned-int view — still
+            # zero-copy
+            data = memoryview(
+                wire.view(np.dtype(f"u{wire.dtype.itemsize}"))).cast("B")
+    rawlen = wire.nbytes
+    comp = "none"
+    if opts.compression == "zlib" and rawlen >= _MIN_COMPRESS_BYTES:
+        packed = zlib.compress(bytes(data), 1)
+        if len(packed) < rawlen:  # keep zlib only when it shrinks
+            data, comp = packed, "zlib"
+    node = {"t": "nd", "i": len(bufs), "dtype": orig_name,
+            "shape": list(arr.shape), "rawlen": rawlen, "comp": comp}
+    if to_bf16:
+        node["wire"] = BF16
+    bufs.append(data)
+    stats.post_bytes += len(data) if isinstance(data, bytes) \
+        else data.nbytes
+    stats.n_buffers += 1
+    return node
+
+
+def _decode_node(node: Any, bufs: list, opts: WireOptions) -> Any:
+    try:
+        t = node["t"]
+    except (TypeError, KeyError) as e:
+        raise WireDecodeError(f"malformed skeleton node: {node!r}") from e
+    if t == "none":
+        return None
+    if t in ("bool", "i", "f", "s"):
+        return node["v"]
+    if t == "by":
+        import base64
+
+        return base64.b64decode(node["v"])
+    if t == "np0":
+        try:
+            return np.dtype(node["dtype"]).type(node["v"])
+        except TypeError as e:  # bfloat16 has no numpy dtype here
+            raise WireDecodeError(
+                f"cannot decode a {node['dtype']!r} scalar: {e}") from e
+    if t == "nd":
+        return _decode_array(node, bufs, opts)
+    if t == "raw":
+        # a raw batch frame decodes to a plain tuple of arrays; each
+        # element must be an array node (malformed ones raise the same
+        # typed error as any corrupt skeleton)
+        return tuple(_decode_array(v, bufs, opts) for v in node["v"])
+    if t == "shmenv":
+        # the lane's piggybacked decref acks: applied to OUR arena
+        # before the payload decodes.  Refusals (double decref, stale
+        # generation, foreign segment) are typed and per-frame — the
+        # connection survives, the client disables its lane.
+        ch = getattr(opts, "shm", None)
+        if ch is None:
+            raise ShmRefusal(
+                "frame piggybacks shared-memory acks but this "
+                "connection negotiated no shm lane")
+        try:
+            ch.apply_acks(node.get("acks"))
+        except _shm.ShmError as e:
+            raise ShmRefusal(f"{type(e).__name__}: {e}") from e
+        return _decode_node(node["v"], bufs, opts)
+    if t == "tuple":
+        return tuple(_decode_node(v, bufs, opts) for v in node["v"])
+    if t == "list":
+        return [_decode_node(v, bufs, opts) for v in node["v"]]
+    if t == "dict":
+        return {_decode_node(k, bufs, opts): _decode_node(v, bufs, opts)
+                for k, v in node["v"]}
+    if t == "nt":
+        cls = _resolve_namedtuple(node["mod"], node["qual"])
+        vals = [_decode_node(v, bufs, opts) for v in node["v"]]
+        return cls(*vals)
+    if t == "pkl":
+        if not opts.allow_pickle:
+            raise WireDecodeError(
+                "frame carries a pickled structural leaf but this peer "
+                "decodes with allow_pickle=False")
+        import base64
+        import pickle
+
+        return pickle.loads(base64.b64decode(node["v"]))
+    raise WireDecodeError(f"unknown skeleton node type {t!r}")
+
+
+def _resolve_namedtuple(mod: str, qual: str):
+    """Validated import of a namedtuple class — the structural escape
+    hatch that replaces pickle for structural leaves.  Anything that is
+    not an importable namedtuple class is refused (no arbitrary
+    callables, no ``__reduce__`` execution), and so is any module of
+    :data:`REFUSED_MODULES`, before anything is imported."""
+    if not isinstance(mod, str) or not isinstance(qual, str):
+        raise WireDecodeError(
+            f"malformed namedtuple node: {mod!r}.{qual!r}")
+    if mod.split(".", 1)[0] in REFUSED_MODULES:
+        raise WireDecodeError(
+            f"refusing namedtuple {mod}.{qual}: module {mod!r} belongs to "
+            "JAX or the JAX package, which this package never imports")
+    try:
+        obj: Any = importlib.import_module(mod)
+        for part in qual.split("."):
+            obj = getattr(obj, part)
+    except Exception as e:
+        raise WireDecodeError(
+            f"cannot resolve namedtuple {mod}.{qual}: {e}") from e
+    if not (isinstance(obj, type) and issubclass(obj, tuple)
+            and hasattr(obj, "_fields")):
+        raise WireDecodeError(
+            f"{mod}.{qual} is not a namedtuple class; refusing to call it")
+    return obj
+
+
+def _decode_shm_array(node: dict, desc: Any,
+                      opts: WireOptions | None) -> np.ndarray:
+    """Decode one out-of-band leaf: map its segment read-only via the
+    connection's lane (the map queues the decref ack) and view the
+    descriptor's byte range zero-copy.  Every lane failure is a typed
+    :class:`ShmRefusal` naming the underlying refusal class."""
+    ch = getattr(opts, "shm", None) if opts is not None else None
+    if ch is None:
+        raise ShmRefusal(
+            "frame carries shared-memory descriptors but this "
+            "connection negotiated no shm lane")
+    try:
+        name, off, length, gen = desc
+        name, off, length, gen = str(name), int(off), int(length), int(gen)
+        shape = tuple(int(d) for d in node["shape"])
+        is_bf16 = node["dtype"] == BF16
+        dtype = np.dtype(np.uint16) if is_bf16 else np.dtype(node["dtype"])
+    except (KeyError, TypeError, ValueError) as e:
+        raise ShmRefusal(f"malformed shm descriptor node: {node!r}") from e
+    if length > MAX_BUFFER_BYTES or off < 0:
+        raise ShmRefusal(
+            f"shm descriptor range [{off}, {off + length}) refused")
+    try:
+        m = ch.map_for_read(name, gen)
+    except _shm.ShmError as e:
+        raise ShmRefusal(f"{type(e).__name__}: {e}") from e
+    if off + length > len(m):
+        raise ShmRefusal(
+            f"shm descriptor [{off}, {off + length}) exceeds the "
+            f"{len(m)}-byte segment {name}")
+    if dtype.itemsize == 0 or length % dtype.itemsize:
+        raise ShmRefusal(
+            f"shm leaf of {length} bytes is not a whole number of "
+            f"{dtype} items")
+    try:
+        # PROT_READ mapping -> the view arrives read-only, matching
+        # the in-band frombuffer path; the mmap stays alive via the
+        # view's base chain even after the owner unlinks the name
+        arr = np.frombuffer(m, dtype=dtype, count=length // dtype.itemsize,
+                            offset=off).reshape(shape)
+    except ValueError as e:
+        raise ShmRefusal(
+            f"shm leaf does not reshape to {shape}: {e}") from e
+    if monitor.enabled():
+        monitor.inc("shm/oob_bytes_total", length, dir="recv")
+    return _bf16_tensor(arr) if is_bf16 else arr
+
+
+def _decode_array(node: dict, bufs: list,
+                  opts: WireOptions | None = None) -> np.ndarray:
+    desc = node.get("shm") if isinstance(node, dict) else None
+    if desc is not None:
+        return _decode_shm_array(node, desc, opts)
+    try:
+        idx = int(node["i"])
+        rawlen = int(node["rawlen"])
+        shape = tuple(int(d) for d in node["shape"])
+        is_bf16 = node["dtype"] == BF16
+        dtype = np.dtype(np.uint16) if is_bf16 else np.dtype(node["dtype"])
+        comp = node.get("comp", "none")
+        wire = node.get("wire")
+    except (KeyError, TypeError, ValueError) as e:
+        raise WireDecodeError(f"malformed array node: {node!r}") from e
+    if not 0 <= idx < len(bufs):
+        raise WireDecodeError(
+            f"array node references buffer {idx} of {len(bufs)}")
+    if rawlen > MAX_BUFFER_BYTES:
+        raise WireDecodeError(
+            f"array buffer declares {rawlen} bytes "
+            f"(> {MAX_BUFFER_BYTES}); refusing oversized frame")
+    data = bufs[idx]
+    if comp == "zlib":
+        # bounded decompress: a zlib bomb cannot expand past rawlen
+        d = zlib.decompressobj()
+        try:
+            data = d.decompress(data, rawlen)
+            tail = d.decompress(d.unconsumed_tail, 1)
+        except zlib.error as e:
+            raise WireDecodeError(f"corrupt zlib buffer {idx}: {e}") from e
+        if tail or not d.eof:
+            raise WireDecodeError(
+                f"zlib buffer {idx} does not decompress to its declared "
+                f"{rawlen} bytes")
+    elif comp != "none":
+        raise WireDecodeError(f"unknown buffer compression {comp!r}")
+    if len(data) != rawlen:
+        raise WireDecodeError(
+            f"buffer {idx} is {len(data)} bytes, header declared {rawlen}")
+    if wire is not None and (wire != BF16 or dtype != np.float32):
+        raise WireDecodeError(
+            f"buffer {idx}: wire dtype {wire!r} for a {dtype} leaf")
+    wire_dtype = np.dtype(np.uint16) if wire == BF16 else dtype
+    try:
+        arr = np.frombuffer(data, dtype=wire_dtype).reshape(shape)
+    except ValueError as e:
+        raise WireDecodeError(
+            f"buffer {idx} does not reshape to {shape}: {e}") from e
+    if wire == BF16:
+        # f32 restore: accumulation stays f32
+        return bf16_bits_to_f32(arr)
+    return _bf16_tensor(arr) if is_bf16 else arr
+
+
+# ---------------------------------------------------------------------------
+# Frame assembly / parsing
+# ---------------------------------------------------------------------------
+
+
+def _scan_shm_bytes(msg: Any, min_b: int) -> int:
+    """Segment size one frame needs: the 64-byte-aligned sum of every
+    lane-eligible leaf (``nbytes >= min_b``).  A pre-pass so the frame
+    leases exactly one segment, sized once."""
+    total = 0
+    for a in _iter_arrays(msg):
+        if a.nbytes >= min_b:
+            total += -(-a.nbytes // 64) * 64 + 64
+    return total
+
+
+def encode_frame(msg: Any, opts: WireOptions
+                 ) -> tuple[bytes, list, WireStats]:
+    """``msg`` (any pytree of JSON-ables + ndarrays) -> (header+skeleton
+    bytes, buffer list, stats).  Buffers are memoryviews into the
+    source arrays wherever the layout allows — the zero-copy path."""
+    stats = WireStats()
+    bufs: list = []
+    ch = getattr(opts, "shm", None)
+    lease = None
+    if ch is not None and ch.send_ok:
+        want = _scan_shm_bytes(msg, _shm.min_bytes())
+        if want:
+            lease = ch.alloc(want)
+        if lease is not None:
+            stats._shm_lease = lease
+            stats._shm_min = _shm.min_bytes()
+            stats._shm_oob = 0
+    try:
+        tree = _encode_node(msg, bufs, opts, stats)
+    except BaseException:
+        if lease is not None:
+            ch.cancel(lease)
+        raise
+    if lease is not None and not lease.used:
+        # every eligible leaf fell back in-band — return the segment
+        # now instead of waiting out its lease
+        ch.cancel(lease)
+    elif lease is not None and monitor.enabled():
+        monitor.inc("shm/oob_bytes_total", stats._shm_oob, dir="send")
+    if ch is not None:
+        # piggyback the decref acks for segments WE mapped since the
+        # last outgoing frame — the other half of the lane's refcount
+        acks = ch.drain_acks()
+        if acks:
+            tree = {"t": "shmenv", "acks": acks, "v": tree}
+    skeleton = json.dumps(
+        tree,
+        separators=(",", ":")).encode("utf-8")
+    stats.pre_bytes += len(skeleton)
+    flags = 0
+    if len(skeleton) >= _MIN_COMPRESS_BYTES and opts.compression == "zlib":
+        packed = zlib.compress(skeleton, 1)
+        if len(packed) < len(skeleton):
+            skeleton, flags = packed, _FLAG_SKELETON_ZLIB
+    if len(bufs) > MAX_BUFFERS:
+        raise WireError(f"{len(bufs)} array leaves exceed the frame "
+                        f"limit of {MAX_BUFFERS}")
+    header = _HEADER.pack(MAGIC, WIRE_VERSION, flags, len(bufs),
+                          len(skeleton))
+    stats.post_bytes += len(header) + len(skeleton)
+    return header + skeleton, bufs, stats
+
+
+def send_msg(conn, msg: Any, opts: WireOptions) -> WireStats:
+    """Send one framed message: header+skeleton, then each buffer as
+    its own length-prefixed chunk (``send_bytes`` accepts the
+    memoryview directly — no pickle, no concatenation copy)."""
+    head, bufs, stats = encode_frame(msg, opts)
+    conn.send_bytes(head)
+    for b in bufs:
+        conn.send_bytes(b)
+    if monitor.enabled():
+        monitor.inc("service/wire_bytes_pre", stats.pre_bytes, dir="send")
+        monitor.inc("service/wire_bytes_post", stats.post_bytes, dir="send")
+        monitor.set_gauge("service/wire_compression_ratio", stats.ratio,
+                          dir="send")
+    return stats
+
+
+def parse_header(head: bytes) -> tuple[int, int, bytes]:
+    """(flags, n_bufs, skeleton_bytes) from a header+skeleton chunk;
+    raises :class:`WireDecodeError` on anything malformed."""
+    if len(head) < _HEADER.size:
+        raise WireDecodeError(
+            f"frame header is {len(head)} bytes, need {_HEADER.size}")
+    magic, version, flags, n_bufs, skel_len = _HEADER.unpack_from(head)
+    if magic != MAGIC:
+        raise WireDecodeError(f"bad frame magic {magic!r}")
+    if version != WIRE_VERSION:
+        raise WireDecodeError(f"unsupported wire version {version}")
+    if n_bufs > MAX_BUFFERS:
+        raise WireDecodeError(f"frame declares {n_bufs} buffers "
+                              f"(> {MAX_BUFFERS})")
+    if skel_len > MAX_SKELETON_BYTES:
+        raise WireDecodeError(f"frame declares a {skel_len}-byte skeleton "
+                              f"(> {MAX_SKELETON_BYTES})")
+    skeleton = head[_HEADER.size:]
+    if len(skeleton) != skel_len:
+        raise WireDecodeError(
+            f"skeleton is {len(skeleton)} bytes, header declared "
+            f"{skel_len} (truncated frame)")
+    return flags, n_bufs, skeleton
+
+
+def decode_frame(head: bytes, bufs: list,
+                 opts: WireOptions | None = None) -> Any:
+    """Rebuild the message from a header+skeleton chunk and its
+    buffers.  All failures raise :class:`WireDecodeError`."""
+    opts = opts or WireOptions()
+    flags, n_bufs, skeleton = parse_header(head)
+    if n_bufs != len(bufs):
+        raise WireDecodeError(
+            f"frame declared {n_bufs} buffers, got {len(bufs)}")
+    if flags & _FLAG_SKELETON_ZLIB:
+        d = zlib.decompressobj()
+        try:
+            skeleton = d.decompress(skeleton, MAX_SKELETON_BYTES)
+        except zlib.error as e:
+            raise WireDecodeError(f"corrupt skeleton zlib: {e}") from e
+        if not d.eof:
+            raise WireDecodeError("skeleton exceeds the size ceiling")
+    try:
+        tree = json.loads(skeleton.decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise WireDecodeError(f"corrupt frame skeleton: {e}") from e
+    ch = getattr(opts, "shm", None)
+    if ch is None:
+        return _decode_node(tree, bufs, opts)
+    # frame-scope the lane's map cache: a (segment, generation) pair
+    # is referenced by exactly ONE frame, so once this decode returns
+    # the mapping's only owners are the decoded views — their death
+    # fires the decref ack that lets the sender recycle the segment
+    ch.begin_frame()
+    try:
+        return _decode_node(tree, bufs, opts)
+    finally:
+        ch.end_frame()
+
+
+def recv_msg(conn, opts: WireOptions | None = None,
+             buf_timeout_s: float | None = None,
+             first_chunk: bytes | None = None) -> Any:
+    """Receive one framed message.
+
+    ``first_chunk`` lets a caller that already pulled the first chunk
+    off the connection (the server's negotiation loop) hand it in.
+    After a valid header, each declared buffer must arrive within
+    ``buf_timeout_s`` — a peer that stops mid-frame produces a typed
+    :class:`WireDecodeError`, never a hang.  When the header was
+    parseable, the declared buffers are drained even if the skeleton
+    later proves corrupt, so the connection stays frame-aligned and
+    usable ('the connection survives').
+    """
+    timeout = DEFAULT_BUF_TIMEOUT_S if buf_timeout_s is None \
+        else buf_timeout_s
+    # the ceilings must bind at READ time, not after the allocation:
+    # recv_bytes(maxlength) makes a chunk whose own length prefix
+    # declares more raise OSError before the body is ever buffered
+    head = conn.recv_bytes(_HEADER.size + MAX_SKELETON_BYTES) \
+        if first_chunk is None else first_chunk
+    # an unparseable header raises with frame_drained=False: the peer's
+    # buffer chunks (if any) are unidentifiable, so the stream cannot
+    # be resynchronized — the caller should close this connection
+    flags, n_bufs, _ = parse_header(head)
+    bufs: list = []
+    pre = post = 0
+    for i in range(n_bufs):
+        if not conn.poll(timeout):
+            raise WireDecodeError(
+                f"truncated frame: buffer {i}/{n_bufs} never arrived "
+                f"within {timeout}s")
+        bufs.append(conn.recv_bytes(MAX_BUFFER_BYTES))
+        post += len(bufs[-1])
+    try:
+        msg = decode_frame(head, bufs, opts)
+    except WireDecodeError as e:
+        # header was valid and every declared buffer was consumed, so
+        # the stream is still frame-aligned — the connection survives
+        e.frame_drained = True
+        raise
+    if monitor.enabled():
+        for a in _iter_arrays(msg):
+            pre += a.nbytes
+        pre += len(head)
+        post += len(head)
+        monitor.inc("service/wire_bytes_pre", pre, dir="recv")
+        monitor.inc("service/wire_bytes_post", post, dir="recv")
+    return msg
+
+
+def account_send(stats: WireStats) -> None:
+    """Send-side byte accounting for a frame encoded with
+    :func:`encode_frame` but written by a caller-owned transport (the
+    selector loop's scatter-gather path) — same series as
+    :func:`send_msg`."""
+    if monitor.enabled():
+        monitor.inc("service/wire_bytes_pre", stats.pre_bytes, dir="send")
+        monitor.inc("service/wire_bytes_post", stats.post_bytes,
+                    dir="send")
+        monitor.set_gauge("service/wire_compression_ratio", stats.ratio,
+                          dir="send")
+
+
+def account_recv(msg: Any, head_len: int, post: int) -> None:
+    """Recv-side byte accounting for a frame decoded with
+    :func:`decode_frame` from caller-received chunks — same series as
+    :func:`recv_msg`."""
+    if monitor.enabled():
+        pre = head_len
+        for a in _iter_arrays(msg):
+            pre += a.nbytes
+        monitor.inc("service/wire_bytes_pre", pre, dir="recv")
+        monitor.inc("service/wire_bytes_post", post + head_len,
+                    dir="recv")
+
+
+def _iter_arrays(obj: Any):
+    if isinstance(obj, np.ndarray):
+        yield obj
+    elif _is_bf16_tensor(obj):
+        yield _bf16_tensor_bits(obj)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _iter_arrays(v)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _iter_arrays(v)
+
+
+# ---------------------------------------------------------------------------
+# Negotiation (rides the v1 pickle channel once per connection)
+# ---------------------------------------------------------------------------
+
+#: the op a v2-capable client sends as its FIRST request; a v2 server
+#: answers ("ok", {"version": 2, ...}) and switches the connection to
+#: framed mode, a legacy server answers ("err", "unknown op ...") and
+#: the client stays on v1 pickle.
+HELLO_OP = "wire_hello"
+
+#: trace-context envelope: a client that was granted ``trace`` in the
+#: hello may send ``(TRACE_OP, ctx_dict, real_op, *args)`` — the server
+#: unwraps the context and dispatches ``real_op`` under it, so its
+#: spans become children of the caller's span.  Never sent without the
+#: grant, so a legacy server (which would answer "unknown op") never
+#: sees it — the same silent-degradation contract as compression/dtype.
+TRACE_OP = "wire_trace_ctx"
+
+
+def hello_payload(opts: WireOptions, trace: bool | None = None,
+                  shm_offer: dict | None = None) -> dict:
+    """The client's hello.  ``trace=None`` (every existing caller)
+    auto-requests trace propagation when tracing is enabled in this
+    process — one switch lights up every client in the fleet.
+
+    ``shm_offer`` (``shm.client_offer()``) asks for the shared-memory
+    payload lane: it carries the same-host proof (boot-id + uid + a
+    nonce the grant must echo), riding the HMAC-authenticated hello.
+    A legacy server ignores the key; a remote server refuses it —
+    both silently, the same degradation contract as mux."""
+    out = {"version": WIRE_VERSION, "compression": opts.compression,
+           "dtype": opts.dtype}
+    if trace is None:
+        trace = _trace.enabled()
+    if trace:
+        out["trace"] = True
+    if shm_offer:
+        out["shm"] = shm_offer
+    return out
+
+
+def accept_hello(payload: Any, allow_mux: bool = False,
+                 allow_shm: bool = False) -> tuple[WireOptions, dict, bool]:
+    """Server side: validate a hello payload, returning the negotiated
+    options, the reply dict, and whether connection multiplexing was
+    granted.  Unknown/newer options degrade to the safe defaults
+    rather than failing the connection.
+
+    ``allow_shm``: a server loop that closes its connections' lane
+    channels on teardown may grant the shared-memory payload lane —
+    ``shm.server_grant`` checks the offer's same-host proof (boot-id
+    + uid) and the granted channel lands on the returned options'
+    ``shm`` field.  Refusal just omits the key from the reply: old
+    clients never sent the offer, old servers never echo it, and a
+    remote peer falls back to in-band bytes silently.
+
+    ``mux`` (``parallel/rpc.py``): a client may request stream
+    multiplexing — many logical request/reply streams framed over one
+    socket — by adding ``"mux": True`` to its hello.  Only a server
+    whose loop can demultiplex (the selector loop) passes
+    ``allow_mux=True``; everyone else omits ``mux`` from the reply and
+    the client falls back to one socket per stream, so an old client
+    (which never sends the key) and an old server (which never echoes
+    it) both keep working byte-compatibly."""
+    if not isinstance(payload, dict):
+        raise WireProtocolError(f"malformed wire_hello: {payload!r}")
+    version = payload.get("version")
+    if version != WIRE_VERSION:
+        raise WireProtocolError(
+            f"peer requested wire version {version!r}; this server "
+            f"speaks {WIRE_VERSION} (v1 pickle needs no hello)")
+    comp = payload.get("compression", "none")
+    dtype = payload.get("dtype", "f32")
+    if comp not in ("none", "zlib"):
+        comp = "none"
+    if dtype not in ("f32", "bf16"):
+        dtype = "f32"
+    shm_ch = shm_reply = None
+    if allow_shm and "shm" in payload:
+        shm_ch, shm_reply = _shm.server_grant(payload.get("shm"))
+    # the pickle escape stays OFF for frames the server decodes: an
+    # authenticated-but-hostile peer must not reach pickle.loads
+    opts = WireOptions(compression=comp, dtype=dtype, allow_pickle=False,
+                       shm=shm_ch)
+    mux = bool(allow_mux and payload.get("mux"))
+    # the grant is bilateral: the client asked AND this server has
+    # tracing on — a reply without the key tells the client to never
+    # send the TRACE_OP envelope on this connection
+    reply = hello_payload(opts, trace=bool(payload.get("trace")
+                                           and _trace.enabled()))
+    if mux:
+        reply["mux"] = True
+    if shm_reply is not None:
+        reply["shm"] = shm_reply
+    return opts, reply, mux

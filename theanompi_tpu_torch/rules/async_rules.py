@@ -27,10 +27,19 @@ device=...)``, ``rules.base.resolve_devices``), each with a model of its
 own on its device, training on its shard of every epoch
 (``shard_rank``/``shard_size``), on a CUDA stream of its own; several
 workers may share a card.  The stores are in-process
-(``parallel/server.py``); ``overlap=True`` runs each EASGD/ASGD worker's
-exchange on a pipe thread (``parallel/pipe.py``) while it computes on.
-A BSP checkpoint seeds any async rule, and an EASGD center checkpoint
-resumes under BSP (the payloads are the canonical ones).
+(``parallel/server.py``) unless ``server_addr`` names a parameter service
+(``parallel/service.py``; each worker then holds a connection of its own)
+or, comma-separated, a shard fleet (``parallel/shards.py``);
+``session_id`` scopes the service's store (default: a fresh id per
+session; hosts of one session pass the same).  GOSGD's
+``n_total_workers``/``rank_offset`` place this process's workers in the
+global rank space of a hub several processes share.
+``local_aggregation=True`` (EASGD, ASGD) sends one aggregate exchange a
+period for all of this process's workers (``parallel/aggregate.py``).
+``overlap=True`` runs each EASGD/ASGD worker's exchange on a pipe thread
+(``parallel/pipe.py``) while it computes on.  A BSP checkpoint seeds any
+async rule, and an EASGD center checkpoint resumes under BSP (the
+payloads are the canonical ones).
 
 Failure is fail-fast by default: a worker's exception aborts the
 session and ``wait()`` raises it.  ``max_restarts > 0`` supervises the
@@ -38,10 +47,6 @@ workers (``resilience/supervisor.py``): a failed EASGD/ASGD worker
 restarts from the center, at the epoch it died in; a failed GOSGD
 worker is deactivated in the hub; the session aborts when fewer than
 ``min_workers`` are left.
-
-The remote paths (``server_addr``, sharded addresses,
-``local_aggregation``, ``n_total_workers``/``rank_offset`` beyond this
-process, ``session_id``) are refused, naming ROADMAP item 15.
 
 A session can also be built without threads: ``prepare(...)`` makes the
 models, the store and the workers, and a caller drives each worker's
@@ -58,6 +63,7 @@ import os
 import re
 import threading
 import time
+import uuid
 
 import numpy as np
 import torch
@@ -65,6 +71,10 @@ import torch
 from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch.models.base import TorchModel
 from theanompi_tpu_torch.ops import _kernels
+from theanompi_tpu_torch.parallel.aggregate import (
+    AggregatedExchange,
+    LocalAggregator,
+)
 from theanompi_tpu_torch.parallel.exchanger import (
     easgd_apply_delta,
     gosgd_merge,
@@ -78,6 +88,18 @@ from theanompi_tpu_torch.parallel.server import (
     publish,
     receive,
 )
+from theanompi_tpu_torch.parallel.service import (
+    RemoteASGD,
+    RemoteEASGD,
+    RemoteGossipHub,
+    ServiceClient,
+    ShardedServiceClient,
+)
+from theanompi_tpu_torch.parallel.shards import (
+    ShardedASGD,
+    ShardedEASGD,
+    shard_addresses,
+)
 from theanompi_tpu_torch.resilience import faults
 from theanompi_tpu_torch.resilience.supervisor import WorkerSupervisor
 from theanompi_tpu_torch.rules.base import (
@@ -89,9 +111,10 @@ from theanompi_tpu_torch.utils.checkpoint import Checkpointer
 from theanompi_tpu_torch.utils.recorder import Recorder
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               "section A, item 15)")
+def _is_client(obj) -> bool:
+    """A connection to a parameter service (owned, closed by its owner)."""
+    return isinstance(obj, (ServiceClient, ShardedServiceClient,
+                            AggregatedExchange))
 
 
 def _prune_gosgd_sidecars(sidecar_dir: str, kept: set[int]) -> None:
@@ -154,6 +177,10 @@ class _Worker:
         self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
         self.pipe: _ExchangePipe | None = None
         self.pipe_stream = None
+        #: this worker's store handle while it runs (:meth:`open`): the
+        #: session's in-process store, a connection of its own to the
+        #: service, or its port on the local aggregator
+        self.srv = None
         # outlives one run(): a supervised restart resumes at the epoch
         # the worker died in (re-running finished epochs would retrain
         # them, and ASGD's rank 0 would push an early LR to the server)
@@ -218,6 +245,20 @@ class _Worker:
     def open(self) -> None:
         self.model.compile_iter_fns("avg")
         self.it_total = 0
+        self._open_store()
+
+    def _open_store(self) -> None:
+        s = self.s
+        if s.aggregator is not None:
+            self.srv = AggregatedExchange(s.aggregator, self.rank,
+                                          s.connect)
+        else:
+            self.srv = s.connect()
+
+    def _close_store(self) -> None:
+        srv, self.srv = self.srv, None
+        if _is_client(srv) and srv is not self.s.server:
+            srv.close()
 
     def _open_pipe(self, fn, name: str) -> None:
         """The overlap pipe and the side stream its thread launches on."""
@@ -236,9 +277,12 @@ class _Worker:
         pass
 
     def close(self) -> None:
-        if self.pipe is not None:
-            self.pipe.close()
-        self.model.cleanup()
+        try:
+            if self.pipe is not None:
+                self.pipe.close()
+            self.model.cleanup()
+        finally:
+            self._close_store()
 
 
 class _AsyncRule(Rule):
@@ -289,25 +333,42 @@ class _AsyncRule(Rule):
             self.close()
 
     def close(self) -> None:
-        """Stop every worker's threads and close the checkpointer."""
+        """Stop every worker's threads, close the checkpointer and the
+        session's own connection to a parameter service."""
         try:
             for w in getattr(self, "workers", ()):
                 w.close()
         finally:
-            if getattr(self, "ckpt", None) is not None:
-                self.ckpt.close()
+            try:
+                if getattr(self, "ckpt", None) is not None:
+                    self.ckpt.close()
+            finally:
+                store = getattr(self, "server", None)
+                if _is_client(store):
+                    store.close()
 
     # -- building ------------------------------------------------------------
 
-    @staticmethod
-    def _refuse_remote(server_addr, session_id) -> None:
-        if server_addr:
-            if "," in server_addr:
-                raise _unported("a sharded server_addr (the shard fleet)")
-            raise _unported("server_addr (the remote parameter service)")
-        if session_id is not None:
-            raise _unported("session_id (it scopes the remote parameter "
-                            "service)")
+    def _remote(self, server_addr, session_id) -> bool:
+        """Parse ``server_addr`` (one address, or a comma-separated shard
+        fleet) and the session id; True when the store is remote."""
+        self.addrs = shard_addresses(server_addr)
+        self.sharded = self.addrs is not None and len(self.addrs) > 1
+        self.session_id = session_id or uuid.uuid4().hex
+        self.aggregator = None
+        return self.addrs is not None
+
+    def _aggregate(self, kind: str, alpha: float | None = None) -> None:
+        """The local aggregator over the session's store, every worker
+        registered before any thread starts (JAX's wiring)."""
+        self.aggregator = LocalAggregator(kind, self.server, alpha=alpha)
+        for i in range(len(self.models)):
+            self.aggregator.register(i)
+
+    def _aggregate_result(self) -> dict:
+        if self.aggregator is None:
+            return {}
+        return {"aggregate": self.aggregator.counts()}
 
     def _build_workers(self, devs, modelfile, modelclass, config,
                        **kwargs) -> list[TorchModel]:
@@ -384,6 +445,13 @@ class _AsyncRule(Rule):
 
     def _restart_from_center(self, rank: int) -> None:
         self.workers[rank].adopt(self.server.get_center())
+
+    def connect(self):
+        """A store handle for one worker: the in-process store itself, or
+        a connection of its own that JOINS the session (no parameters
+        re-shipped; reading a worker's parameters from another thread
+        would race its step)."""
+        return self.server
 
     def _supervise(self, max_restarts: int, min_workers: int) -> None:
         """Supervised restarts from the center (``max_restarts > 0``)."""
@@ -466,7 +534,7 @@ class _EASGDWorker(_Worker):
             self.recorder.start()
             if self.pipe is None:
                 with monitor.span("easgd/exchange", worker=str(self.rank)):
-                    new = self.s.server.exchange(self.params)
+                    new = self.srv.exchange(self.params)
                 _assign(self.params, new)
             else:
                 if self.pipe.busy():
@@ -484,7 +552,7 @@ class _EASGDWorker(_Worker):
         snap, ready = payload
         with _on_stream(self.model.device, self.pipe_stream):
             receive(snap, ready)
-            new = self.s.server.exchange(snap)
+            new = self.srv.exchange(snap)
             return new, publish(new)
 
     def _collect_and_correct(self) -> None:
@@ -504,7 +572,7 @@ class _EASGDWorker(_Worker):
         if self.pipe is not None and self.pipe.busy():
             self._collect_and_correct()
         # the final elastic sync: the worker ends near the center
-        _assign(self.params, self.s.server.exchange(self.params))
+        _assign(self.params, self.srv.exchange(self.params))
 
 
 class EASGD(_AsyncRule):
@@ -519,7 +587,7 @@ class EASGD(_AsyncRule):
                  session_id: str | None = None, overlap: bool = False,
                  local_aggregation: bool = False, max_restarts: int = 0,
                  min_workers: int = 1, **kwargs):
-        self._refuse_remote(server_addr, session_id)
+        remote = self._remote(server_addr, session_id)
         if local_aggregation:
             if len(devs) * alpha > 1.0 + 1e-9:
                 raise ValueError(
@@ -531,7 +599,6 @@ class EASGD(_AsyncRule):
                     "oscillates/diverges.  Lower --alpha to <= "
                     f"1/{len(devs)} (the EASGD paper's beta = "
                     "N*alpha parameterization)")
-            raise _unported("local_aggregation (the hierarchical exchange)")
         if tau < 1:
             raise ValueError(f"tau must be >= 1, got {tau}")
         self.tau, self.alpha, self.overlap = tau, alpha, overlap
@@ -541,7 +608,19 @@ class EASGD(_AsyncRule):
             for m in self.models:
                 _load_params(m, payload["params"])
             self._fast_forward()
-        self.server = EASGDServer(_params(self.models[0]), alpha=alpha)
+        init = _params(self.models[0])
+        if not remote:
+            self.server = EASGDServer(init, alpha=alpha)
+        elif self.sharded:
+            # the session creator ships the initial center from this
+            # thread, before any worker's step changes it
+            self.server = ShardedEASGD(self.addrs, init, alpha=alpha,
+                                       session_id=self.session_id)
+        else:
+            self.server = RemoteEASGD(self.addrs[0], init, alpha=alpha,
+                                      session_id=self.session_id)
+        if local_aggregation:
+            self._aggregate("easgd", alpha)
         self._supervise(max_restarts, min_workers)
         self.epoch_done = threading.Semaphore(0)
         # validation owns a model of its own: worker 0's is being
@@ -556,6 +635,15 @@ class EASGD(_AsyncRule):
                             if devs[0].type == "cuda" else None)
         self.val_results: list[dict] = []
         self.workers = [_EASGDWorker(self, i) for i in range(len(devs))]
+
+    def connect(self):
+        if self.addrs is None:
+            return self.server
+        if self.sharded:
+            return ShardedEASGD(self.addrs, None, alpha=self.alpha,
+                                session_id=self.session_id)
+        return RemoteEASGD(self.addrs[0], None, alpha=self.alpha,
+                           session_id=self.session_id)
 
     def _orchestrate(self, abort: threading.Event) -> None:
         """Validate (and checkpoint) the center after each of worker 0's
@@ -596,7 +684,8 @@ class EASGD(_AsyncRule):
             "val": self.val_results[-1] if self.val_results else {},
             "val_curve": self.val_results,
             "n_exchanges": self.server.n_exchanges,
-            "center": dict(zip(names, self.server.get_center()))}
+            "center": dict(zip(names, self.server.get_center())),
+            **self._aggregate_result()}
 
 
 # -- ASGD -------------------------------------------------------------------
@@ -608,6 +697,7 @@ class _ASGDWorker(_Worker):
     def open(self) -> None:
         self.gstep = self.model.compile_grad_fn()
         self.it_total = 0
+        self._open_store()
         if self.s.overlap:
             self._open_pipe(self._push_on_pipe, "asgd/push_pull")
 
@@ -628,7 +718,7 @@ class _ASGDWorker(_Worker):
         grads = list(grads.values())
         if self.pipe is None:
             with monitor.span("asgd/push_pull", worker=str(self.rank)):
-                fresh = self.s.server.push_pull(grads)
+                fresh = self.srv.push_pull(grads)
             _assign(self.params, fresh)
         else:
             # take the PREVIOUS push's fresh center (it overlapped this
@@ -644,7 +734,7 @@ class _ASGDWorker(_Worker):
         grads, ready = payload
         with _on_stream(self.model.device, self.pipe_stream):
             receive(grads, ready)
-            fresh = self.s.server.push_pull(grads)
+            fresh = self.srv.push_pull(grads)
             return fresh, publish(fresh)
 
     def _collect(self) -> None:
@@ -660,7 +750,7 @@ class _ASGDWorker(_Worker):
             # must reach it; rank 0 forwards it when ITS epoch ends, so a
             # decay may reach other workers' last pushes of their epoch
             # up to one epoch early (JAX's rule, on purpose)
-            self.s.server.set_lr(new_lr)
+            self.srv.set_lr(new_lr)
             if self.s.ckpt is not None:
                 self.s.ckpt.save(epoch, self.s.checkpoint_payload(epoch))
 
@@ -681,33 +771,62 @@ class ASGD(_AsyncRule):
                  session_id: str | None = None, overlap: bool = False,
                  local_aggregation: bool = False, max_restarts: int = 0,
                  min_workers: int = 1, **kwargs):
-        self._refuse_remote(server_addr, session_id)
-        if local_aggregation:
-            raise _unported("local_aggregation (the hierarchical exchange)")
+        remote = self._remote(server_addr, session_id)
         self.overlap = overlap
         payload = self._setup(devs, modelfile, modelclass, config, resume,
                               checkpoint, max_epochs, **kwargs)
         if payload is not None:
             for m in self.models:
                 _load_params(m, payload["params"])
-        self.server = ASGDServer(_params(self.models[0]),
-                                 self.model.optimizer_hyperparams())
+        restored_opt = None if payload is None else payload["opt_state"]
+        if self.sharded and restored_opt is not None:
+            # per-shard optimizer states do not reassemble or scatter:
+            # the resume re-seeds the center exactly and restarts the
+            # server's momentum fresh (JAX's documented trade)
+            print("[asgd] sharded resume: center restored exactly; "
+                  "server optimizer momentum restarts fresh", flush=True)
+            restored_opt = None
+        init = _params(self.models[0])
+        self.opt_cfg = self.model.optimizer_hyperparams()
+        if not remote:
+            self.server = ASGDServer(init, self.opt_cfg)
+            if restored_opt is not None:
+                self.server.set_opt_state(restored_opt)
+        elif self.sharded:
+            self.server = ShardedASGD(self.addrs, init, self.opt_cfg,
+                                      session_id=self.session_id)
+        else:
+            self.server = RemoteASGD(self.addrs[0], init, self.opt_cfg,
+                                     opt_state=restored_opt,
+                                     session_id=self.session_id)
         if payload is not None:
             # the SERVER's center and optimizer state are ASGD's training
             # state; the restored state carries the old LR, so the
             # schedule is fast-forwarded onto the server
-            self.server.set_opt_state(payload["opt_state"])
             self.server.set_lr(self._fast_forward())
+        if local_aggregation:
+            self._aggregate("asgd")
         self._supervise(max_restarts, min_workers)
         self.workers = [_ASGDWorker(self, i) for i in range(len(devs))]
 
+    def connect(self):
+        if self.addrs is None:
+            return self.server
+        if self.sharded:
+            return ShardedASGD(self.addrs, None, self.opt_cfg,
+                               session_id=self.session_id)
+        return RemoteASGD(self.addrs[0], None, self.opt_cfg,
+                          session_id=self.session_id)
+
     def checkpoint_payload(self, epoch: int) -> dict:
         """Worker 0's canonical payload with the server's center and
-        optimizer state (the state ASGD trains)."""
+        optimizer state (the state ASGD trains; a shard fleet has no
+        single optimizer state, so worker 0's own is kept, as in JAX)."""
         payload = self.model.checkpoint_payload(epoch)
         names = list(payload["params"])
         payload["params"] = dict(zip(names, self.server.get_center()))
-        payload["opt_state"] = self.server.get_opt_state()
+        if getattr(self.server, "supports_opt_state", True):
+            payload["opt_state"] = self.server.get_opt_state()
         return payload
 
     def _run(self) -> None:
@@ -716,7 +835,8 @@ class ASGD(_AsyncRule):
         val = self._validate(center)
         names = [n for n, _ in self.model.module.named_parameters()]
         self.result = {"val": val, "n_updates": self.server.n_updates,
-                       "center": dict(zip(names, center))}
+                       "center": dict(zip(names, center)),
+                       **self._aggregate_result()}
 
 
 # -- GOSGD ------------------------------------------------------------------
@@ -727,7 +847,10 @@ class _GOSGDWorker(_Worker):
 
     def __init__(self, session: "GOSGD", rank: int):
         super().__init__(session, rank)
-        self.rng = np.random.default_rng(self.model.config.seed + 31 * rank)
+        #: this worker's rank among every process's workers
+        self.g_rank = rank + session.rank_offset
+        self.rng = np.random.default_rng(self.model.config.seed
+                                         + 31 * self.g_rank)
 
     def iteration(self, it: int) -> None:
         s, rank = self.s, self.rank
@@ -737,19 +860,20 @@ class _GOSGDWorker(_Worker):
         self.model.train_iter(it, self.recorder)
         if s.n_total > 1 and self.rng.random() < s.p_push:
             dst = int(self.rng.integers(0, s.n_total - 1))
-            dst = dst if dst < rank else dst + 1
+            dst = dst if dst < self.g_rank else dst + 1
             self.recorder.start()
             half = s.weights[rank] / 2.0
             with monitor.span("gosgd/push", worker=str(rank)):
-                if s.hub.push(dst, self.params, half):
+                if self.srv.push(dst, self.params, half):
                     s.weights[rank] = half
             self.recorder.end("comm")
 
-    def merge_inbox(self, scale_momentum: bool = True) -> None:
+    def merge_inbox(self, scale_momentum: bool = True, hub=None) -> None:
         """Merge everything gossiped to this worker (the session's final
-        drain merges the parameters only, as JAX's does)."""
+        drain, through the session's ``hub``, merges the parameters only,
+        as JAX's does)."""
         s, rank = self.s, self.rank
-        for recv, recv_w in s.hub.drain(rank):
+        for recv, recv_w in (hub or self.srv or s.hub).drain(rank):
             own_w = s.weights[rank]
             merged, new_w = gosgd_merge(self.params, own_w, recv, recv_w)
             _assign(self.params, merged)
@@ -777,7 +901,7 @@ class _GOSGDWorker(_Worker):
             _prune_gosgd_sidecars(s.ckpt_dir, s.ckpt.kept_epochs())
 
     def finish(self) -> None:
-        self.s.hub.deactivate(self.rank)
+        self.srv.deactivate(self.rank)
 
 
 class GOSGD(_AsyncRule):
@@ -793,6 +917,7 @@ class GOSGD(_AsyncRule):
                  merge_momentum: str = "scale",
                  local_aggregation: bool = False, max_restarts: int = 0,
                  min_workers: int = 1, **kwargs):
+        remote = self._remote(server_addr, session_id)
         if merge_momentum not in ("scale", "keep"):
             raise ValueError(f"merge_momentum must be 'scale' or 'keep', "
                              f"got {merge_momentum!r}")
@@ -803,26 +928,33 @@ class GOSGD(_AsyncRule):
                 "random peer — there is no per-period center op to "
                 "delta-sum or compose, so an intra-host aggregate has "
                 "nothing exact to send")
-        if server_addr and "," in server_addr:
+        if self.sharded:
             raise ValueError(
                 "GOSGD's gossip hub is unsharded — it rendezvouses WHOLE "
                 "param trees, not an accumulating center, so there is "
                 "nothing to leaf-range-partition; pass a single "
                 "--server-addr (sharding applies to the EASGD/ASGD center)")
-        self._refuse_remote(server_addr, session_id)
         n = len(devs)
-        if (n_total_workers is not None and n_total_workers != n) \
-                or rank_offset:
+        n_total = n_total_workers if n_total_workers is not None else n
+        if not remote and (n_total != n or rank_offset):
             raise ValueError("n_total_workers/rank_offset need server_addr "
-                             "(the shared gossip hub; ROADMAP.md section A, "
-                             "item 15)")
+                             "(the shared gossip hub)")
+        if not 0 <= rank_offset <= n_total - n:
+            raise ValueError(f"rank_offset {rank_offset} with {n} local "
+                             f"workers does not fit n_total_workers "
+                             f"{n_total}")
         self.p_push, self.merge_momentum = p_push, merge_momentum
-        self.n_total = n
+        self.n_total, self.rank_offset = n_total, rank_offset
         payload = self._setup(devs, modelfile, modelclass, config, resume,
                               checkpoint, max_epochs, **kwargs)
-        self.hub = GossipHub(n)
-        # the gossip weights (invariant: they sum to 1 over all workers)
-        self.weights = [1.0 / n] * n
+        self.hub = (RemoteGossipHub(self.addrs[0], n_total,
+                                    rank_offset=rank_offset,
+                                    session_id=self.session_id)
+                    if remote else GossipHub(n))
+        self.server = self.hub
+        # the gossip weights (invariant: they sum to 1 over every
+        # process's workers)
+        self.weights = [1.0 / n_total] * n
         if payload is not None:
             self._restore_workers(payload)
             self._fast_forward()
@@ -835,10 +967,18 @@ class GOSGD(_AsyncRule):
                 name=self.name)
         self.workers = [_GOSGDWorker(self, i) for i in range(n)]
 
+    def connect(self):
+        if self.addrs is None:
+            return self.hub
+        return RemoteGossipHub(self.addrs[0], self.n_total,
+                               rank_offset=self.rank_offset,
+                               session_id=self.session_id)
+
     def _restore_workers(self, payload: dict) -> None:
-        """Every worker's parameters and weight from the epoch's sidecars;
-        a checkpoint of another rule (or of another worker count) starts
-        every worker from its parameters at equal weights."""
+        """Every worker's parameters and weight from the epoch's sidecars
+        (this process's share of the total weight); a checkpoint of
+        another rule (or of another worker count) starts every worker
+        from its parameters at equal weights."""
         epoch, n = self.restored_epoch, len(self.models)
         meta_path = os.path.join(self.ckpt_dir, f"gosgd_meta_{epoch}.json")
         paths = [os.path.join(self.ckpt_dir, f"gosgd_w{i}_{epoch}.npz")
@@ -852,8 +992,9 @@ class GOSGD(_AsyncRule):
             # weight was in flight in peers' inboxes at the snapshot:
             # renormalize so the weights sum to 1 again
             restored = [float(w) for w in meta["weights"]]
+            share = n / self.n_total
             total = sum(restored)
-            self.weights[:] = [w / total for w in restored]
+            self.weights[:] = [w / total * share for w in restored]
             for m, p in zip(self.models, paths):
                 m.load(p)
         else:
@@ -869,7 +1010,7 @@ class GOSGD(_AsyncRule):
         gossip weight), fold the weighted consensus on the host and
         validate it."""
         for w in self.workers:
-            w.merge_inbox(scale_momentum=False)
+            w.merge_inbox(scale_momentum=False, hub=self.hub)
         consensus = [p.detach().cpu() for p in _params(self.models[0])]
         acc_w = self.weights[0]
         for m, w in zip(self.models[1:], self.weights[1:]):

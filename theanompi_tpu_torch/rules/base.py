@@ -78,8 +78,8 @@ def resolve_devices(devices=None, device: str | torch.device = "cuda",
             and dist.get_world_size() > 1):
         raise NotImplementedError(
             "async rules under multi-host launch need the DCN server "
-            "transport (ROADMAP.md section A, item 15); run them per-host, "
-            "or use BSP for multi-host")
+            "transport (parallel/service); run them per-host, or use BSP "
+            "for multi-host")
     if devices is None or isinstance(devices, int):
         kind = resolve_device(device).type
         n_cards = torch.cuda.device_count() if kind == "cuda" else None
