@@ -563,6 +563,10 @@ P22_BF16_LIMIT = 2.0 ** -7
 #: epoch) of phase 21 (b)'s, shortened: each remote exchange moves the
 #: whole parameter set both ways)
 P22_SCHEDULES = {"EASGD": (1, 2), "ASGD": (2, 1)}
+#: phase 23: readers in the ingest fleet; steps of (a)'s in-process runs
+#: (phase 16's shard tree holds CKPT_STEPS batches); the batch index of
+#: (d)'s injected ``ingest_pull`` fault; fenced-span repetitions of (c)
+P23_READERS, P23_STEPS, P23_FAULT_INDEX, P23_SPAN_REPS = 2, 8, 2, 3
 
 def _launches(**per_step) -> dict:
     return {**{k: 0 for k in TRAIN_LAUNCHES}, **per_step}
@@ -574,6 +578,9 @@ def _launches(**per_step) -> dict:
 #: 5 BatchNormAct and 2 LRN; ResNet-101 1 + 2 per block + 4 projections
 #: (71) and 1 per block (33) of K1, and the stem pool
 VGG_TRAIN_LAUNCHES = _launches(scale_bias_act=13, scale_bias_act_bwd=13)
+#: launches of a ResNet-50 validation batch
+RESNET_VAL_LAUNCHES = _launches(scale_bias_act=37, scale_bias_act_res=16,
+                                maxpool3x3s2=1)
 VGG_VAL_LAUNCHES = _launches(scale_bias_act=13)
 GOOGLENET_TRAIN_LAUNCHES = _launches(scale_bias_act=59,
                                      scale_bias_act_bwd=59, lrn=2, lrn_bwd=2)
@@ -4800,6 +4807,432 @@ def remote_phase(torch, workdir: str) -> dict:
             "seconds": seconds}
 
 
+# -- phase 23: the telemetry plane and distributed ingest -------------------
+
+def _exact_launches(got: dict, want: dict) -> bool:
+    """Every kernel of ``want`` launched exactly so often, and no kernel
+    it does not name."""
+    return ({k: got.get(k, 0) for k in want} == want
+            and not set(got) - set(want))
+
+
+def _digesting_prefetcher(digests: list, sizes: list):
+    """A stand-in for ``models.base.DevicePrefetcher`` that files the
+    sha256 of every host batch (images, then labels) in ``digests`` and
+    its images' bytes in ``sizes`` on the loader thread, where the batch
+    is staged, before it goes on."""
+    import hashlib
+
+    from theanompi_tpu_torch.data import prefetch
+
+    def tap(host_batches):
+        for x, y in host_batches:
+            h = hashlib.sha256(np.ascontiguousarray(x).data)
+            h.update(np.ascontiguousarray(y).data)
+            digests.append(h.hexdigest())
+            sizes.append(int(x.nbytes))
+            yield x, y
+
+    def make(host_batches, device, source="local"):
+        return prefetch.DevicePrefetcher(tap(host_batches), device,
+                                         source=source)
+
+    return make
+
+
+def p23_steps(torch, data_dir: str, ingest: str | None,
+              run_dir: str) -> dict:
+    """Phase 23 (a): ``P23_STEPS`` batch-128 ResNet-50 steps in this
+    process on ``data_dir`` through ``begin_epoch``, from the local
+    loader (``ingest`` None) or the fleet at ``ingest``
+    (``THEANOMPI_TPU_INGEST``), under a monitor session in ``run_dir``:
+    the per-batch digests and image bytes, the launches of the steps
+    (counts set to 0 just before them), the final state's digest, the
+    host wall a step over steps 2 on (a synchronize at each end) and
+    the bytes received out of band over the shm lane
+    (``shm/oob_bytes_total{dir=recv}``)."""
+    from theanompi_tpu_torch import monitor
+    from theanompi_tpu_torch.models import base as model_base
+    from theanompi_tpu_torch.models.resnet50 import ResNet50
+    from theanompi_tpu_torch.ops import _kernels
+    from theanompi_tpu_torch.utils.checkpoint import state_digest
+    from theanompi_tpu_torch.utils.recorder import Recorder
+
+    config = dataclasses.replace(
+        ResNet50.default_config(), batch_size=TRAIN_BATCH, n_epochs=1,
+        print_freq=P23_STEPS, data_dir=data_dir)
+    model = ResNet50(config=config, device="cuda")
+    model.compile_iter_fns()
+    digests: list[str] = []
+    sizes: list[int] = []
+    saved_env = os.environ.pop("THEANOMPI_TPU_INGEST", None)
+    saved_prefetcher = model_base.DevicePrefetcher
+    model_base.DevicePrefetcher = _digesting_prefetcher(digests, sizes)
+    try:
+        if ingest:
+            os.environ["THEANOMPI_TPU_INGEST"] = ingest
+        with monitor.session(run_dir, name="p23a"):
+            n_iters = model.begin_epoch(0)
+            source = model._train_prefetcher._source
+            recorder = Recorder(print_freq=0)
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            it = model.train_iter(0, recorder)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            while it < P23_STEPS:
+                it += model.train_iter(it, recorder)
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - t0) * 1e3 / (P23_STEPS - 1)
+            launches = _kernels.launch_counts()
+            model._flush_metrics(recorder)
+            digest = state_digest(model.checkpoint_payload(0))
+            oob = monitor.registry().value("shm/oob_bytes_total",
+                                           dir="recv") or 0
+    finally:
+        model.cleanup()
+        model_base.DevicePrefetcher = saved_prefetcher
+        os.environ.pop("THEANOMPI_TPU_INGEST", None)
+        if saved_env is not None:
+            os.environ["THEANOMPI_TPU_INGEST"] = saved_env
+    want = {k: v * P23_STEPS for k, v in TRAIN_LAUNCHES.items()}
+    if not _exact_launches(launches, want):
+        raise AssertionError(f"phase 23 (a) {source}: launches {launches} "
+                             f"!= {want}")
+    losses = recorder.train_losses
+    if len(losses) != P23_STEPS or not all(math.isfinite(v)
+                                           for v in losses):
+        raise AssertionError(f"phase 23 (a) {source}: losses {losses}")
+    return {"source": source, "n_iters": n_iters,
+            "digests": digests[:P23_STEPS], "image_bytes": sizes[:P23_STEPS],
+            "state_digest": digest, "launches": launches, "losses": losses,
+            "ms_per_step": ms, "oob_recv_bytes": oob}
+
+
+def p23_spans(torch, model, workdir: str) -> dict:
+    """Phase 23 (c): ``P23_SPAN_REPS`` batch-128 steps of ``model`` (a
+    ResNet-50) each under a span fenced on the parameters
+    (``bsp/step``) and under an unfenced one (``bsp/enqueue``), each
+    step also timed by CUDA events recorded around its enqueue; every
+    fenced span must last at least its step's event time."""
+    from theanompi_tpu_torch import monitor
+
+    model.compile_iter_fns()
+    model.begin_epoch(0)
+    params = list(model.module.parameters())
+    out: dict = {"fenced_ms": [], "unfenced_ms": [], "event_ms": [],
+                 "event_ms_unfenced": []}
+    try:
+        with monitor.session(os.path.join(workdir, "p23_spans"),
+                             name="p23spans"):
+            reg = monitor.registry()
+            for name, fence in (("bsp/step", params),
+                                ("bsp/enqueue", None)):
+                for _ in range(P23_SPAN_REPS):
+                    batch = next(model._train_iter)
+                    torch.cuda.synchronize()
+                    ev0 = torch.cuda.Event(enable_timing=True)
+                    ev1 = torch.cuda.Event(enable_timing=True)
+                    before = reg.get("span_ms", span=name)
+                    s0 = before.sum if before is not None else 0.0
+                    with monitor.span(name, fence=fence):
+                        ev0.record()
+                        model.train_step(model.state, batch, model._rng)
+                        ev1.record()
+                    span_ms = reg.get("span_ms", span=name).sum - s0
+                    torch.cuda.synchronize()
+                    key = "fenced" if fence is not None else "unfenced"
+                    out[f"{key}_ms"].append(span_ms)
+                    out["event_ms" if fence is not None
+                        else "event_ms_unfenced"].append(
+                        ev0.elapsed_time(ev1))
+    finally:
+        model.cleanup()
+    short = [(f, e) for f, e in zip(out["fenced_ms"], out["event_ms"])
+             if f < e]
+    if short:
+        raise AssertionError(f"phase 23 (c): a fenced span shorter than "
+                             f"its step's CUDA-event time: {short}")
+    return out
+
+
+def p23_fault(model, ingest: str, workdir: str) -> dict:
+    """Phase 23 (d): ``run_bsp_session`` of ``model`` fed by the fleet
+    with a fault plan raising at ``ingest_pull`` index
+    ``P23_FAULT_INDEX``: the session must fail with ``FaultInjected``
+    and leave a postmortem."""
+    from theanompi_tpu_torch.resilience import faults
+    from theanompi_tpu_torch.rules.bsp import run_bsp_session
+
+    run_dir = os.path.join(workdir, "p23_fault")
+    faults.install([{"site": "ingest_pull", "index": P23_FAULT_INDEX,
+                     "action": "raise"}])
+    os.environ["THEANOMPI_TPU_INGEST"] = ingest
+    raised = None
+    try:
+        run_bsp_session(model, checkpoint=False, monitor_dir=run_dir)
+    except faults.FaultInjected as e:
+        raised = e
+    finally:
+        faults.clear()
+        os.environ.pop("THEANOMPI_TPU_INGEST", None)
+        model.cleanup()
+    path = os.path.join(run_dir, "postmortem_rank0.json")
+    if raised is None or not os.path.exists(path):
+        raise AssertionError(f"phase 23 (d): raised {raised!r}, "
+                             f"postmortem {os.path.exists(path)}")
+    with open(path) as f:
+        pm = json.load(f)
+    if pm["exception"]["type"] != "FaultInjected":
+        raise AssertionError(f"phase 23 (d): postmortem {pm['exception']}")
+    return {"exception": pm["exception"]["type"],
+            "message": pm["exception"]["message"],
+            "recent_step_ms": pm.get("recent_step_ms"),
+            "open_spans": [sp["name"] for sp in pm["open_spans"]],
+            "metrics": len(pm.get("metrics", []))}
+
+
+def p23_fleet_records(run_dir: str) -> dict:
+    """Phase 23 (b)'s reading of ``fleet.jsonl``: spans by role (the
+    exporter's suffix without a trailing pid: ``rank0``,
+    ``ingest_reader<i>``, ``ingest_coord``), the traces that link the
+    trainer with each reader and with the coordinator, each reader's
+    ``rpc_handle`` spans whose parent is one of the trainer's
+    ``ingest_request`` spans, and the orphans (spans whose parent is
+    absent from the file)."""
+    from theanompi_tpu_torch.monitor.collector import read_fleet
+
+    recs = read_fleet(os.path.join(run_dir, "fleet.jsonl"))
+    spans = [r for r in recs if r.get("event") == "span"]
+
+    def role(r: dict) -> str:
+        return re.sub(r"_\d+$", "", str(r.get("role")))
+
+    roles: dict = {}
+    for r in spans:
+        roles[role(r)] = roles.get(role(r), 0) + 1
+    ids = {r["span"] for r in spans}
+    orphans = [r for r in spans if r.get("parent") not in (None, *ids)]
+    by_trace: dict = {}
+    for r in spans:
+        by_trace.setdefault(r["trace"], []).append(r)
+
+    def links(peer: str) -> int:
+        return sum(1 for t in by_trace.values()
+                   if any(role(x) == "rank0" for x in t)
+                   and any(role(x) == peer for x in t))
+
+    readers = [f"ingest_reader{i}" for i in range(P23_READERS)]
+    pulls = {r["span"] for r in spans if r["name"] == "ingest_request"
+             and role(r) == "rank0"}
+    served = {name: 0 for name in readers}
+    for r in spans:
+        if r["name"] == "rpc_handle" and r.get("parent") in pulls:
+            served[role(r)] = served.get(role(r), 0) + 1
+    return {"records": len(recs), "spans": len(spans), "roles": roles,
+            "orphans": len(orphans), "traces": len(by_trace),
+            "linked_reader_traces": {name: links(name) for name in readers},
+            "linked_coordinator_traces": links("ingest_coord"),
+            "ingest_requests": len(pulls), "served_pulls": served,
+            "metrics_events": sum(1 for r in recs
+                                  if r.get("event") == "metrics")}
+
+
+def _metric_value(path: str, name: str, **labels) -> float:
+    """The value of one series in a ``metrics_<suffix>.jsonl`` snapshot
+    (0 when the file lacks it)."""
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec["name"] == name and rec["labels"] == labels:
+                return rec["value"]
+    return 0
+
+
+def ingest_phase(torch, workdir: str, data_dir: str) -> dict:
+    """Phase 23: (a) in-process steps fed by the local loader and by a
+    two-reader fleet, in the order local, ingest, ingest, local, all
+    bit-identical, the fleet's batches out of band over the shm lane;
+    (b) ``launcher BSP -D 1 --ingest --collector --monitor-dir`` from
+    the same fleet, one fleet.jsonl, its batches over the shm lane too;
+    (c) fenced spans against CUDA events; (d) an ``ingest_pull``
+    fault's postmortem.  The shm lane is at its default (on) for the
+    whole phase, as a user of ``--ingest`` gets it."""
+    from theanompi_tpu_torch.ingest.fleet import IngestProcessGroup
+    from theanompi_tpu_torch.models.resnet50 import ResNet50
+    from theanompi_tpu_torch.monitor import trace
+    from theanompi_tpu_torch.monitor.collector import CollectorProcess
+
+    t_phase = time.monotonic()
+    run_dir = os.path.join(workdir, "p23_monitor")
+    seed = ResNet50.default_config().seed
+    # the fleet's own collector, started first so every reader and the
+    # coordinator ship to it; the launcher's --collector writes the same
+    # fleet.jsonl (a fleet started before a run cannot know the run's)
+    saved = {k: os.environ.get(k) for k in (
+        trace.ENV_VAR, trace.COLLECTOR_ENV_VAR, "THEANOMPI_TPU_MONITOR",
+        "THEANOMPI_TPU_SERVICE_KEY", "THEANOMPI_TPU_WIRE_SHM")}
+    os.environ.setdefault("THEANOMPI_TPU_SERVICE_KEY", "chip-smoke-p23")
+    os.environ.pop("THEANOMPI_TPU_WIRE_SHM", None)
+    fleet_collector = fleet = None
+    try:
+        fleet_collector = CollectorProcess(run_dir)
+        os.environ[trace.ENV_VAR] = "1"
+        os.environ["THEANOMPI_TPU_MONITOR"] = run_dir
+        t0 = time.monotonic()
+        fleet = IngestProcessGroup(P23_READERS, data_dir, seed=seed)
+        start_s = time.monotonic() - t0
+        # this process's own runs do not ship: (a)-(d) measure the steps
+        for k in (trace.ENV_VAR, trace.COLLECTOR_ENV_VAR,
+                  "THEANOMPI_TPU_MONITOR"):
+            os.environ.pop(k, None)
+        log(f"  (fleet) {P23_READERS} readers and a coordinator up in "
+            f"{start_s:.1f} s: --ingest {fleet.ingest_addr}")
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            # ABBA: a drift over the four runs weighs on both feeds alike
+            runs = []
+            for k, label in enumerate(("local", "ingest", "ingest",
+                                       "local")):
+                run = p23_steps(
+                    torch, data_dir,
+                    fleet.ingest_addr if label == "ingest" else None,
+                    os.path.join(workdir, f"p23_a{k}"))
+                runs.append((label, run))
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        local = [r for label, r in runs if label == "local"]
+        remote = [r for label, r in runs if label == "ingest"]
+        log(f"  (a) {P23_STEPS} steps a run, in the order "
+            f"{[label for label, _ in runs]}: "
+            f"{[round(r['ms_per_step'], 2) for _, r in runs]} ms a step "
+            f"(host wall, steps 2-{P23_STEPS}); launches "
+            f"{remote[0]['launches']}; shm lane bytes received "
+            f"{[r['oob_recv_bytes'] for _, r in runs]}")
+        ref = local[0]
+        for label, r in runs:
+            if (r["digests"] != ref["digests"]
+                    or len(r["digests"]) != P23_STEPS
+                    or r["state_digest"] != ref["state_digest"]
+                    or r["losses"] != ref["losses"]
+                    or r["source"] != ("remote" if label == "ingest"
+                                       else "local")):
+                raise AssertionError(f"phase 23 (a): {label} {r} != local "
+                                     f"{ref}")
+        # every ingest-fed batch's images came over the lane, out of band
+        lane_short = [r["oob_recv_bytes"] for r in remote
+                      if r["oob_recv_bytes"] < sum(r["image_bytes"])]
+        if lane_short or any(r["oob_recv_bytes"] for r in local):
+            raise AssertionError(
+                f"phase 23 (a): shm lane bytes received "
+                f"{[r['oob_recv_bytes'] for _, r in runs]} against "
+                f"{sum(ref['image_bytes'])} image bytes a run")
+        log(f"  (a) {P23_STEPS} batch digests, losses and the state digest "
+            f"{ref['state_digest'][:16]} equal over the four runs; each "
+            f"ingest run received >= {sum(ref['image_bytes'])} bytes "
+            "over the shm lane")
+
+        # (b) runs beside (c) and (d), which time nothing against it
+        launched: dict = {}
+
+        def launch() -> None:
+            try:
+                launched.update(ckpt_runs(workdir, data_dir, {
+                    "p23-launcher": (
+                        "p23snap", ["--epochs", "1", "--ingest",
+                                    fleet.ingest_addr, "--collector",
+                                    "--monitor-dir", run_dir],
+                        ("theanompi_tpu_torch.models.resnet50",
+                         "ResNet50"), None)}))
+            except BaseException as e:  # raised after the join below
+                launched["error"] = e
+
+        launcher_thread = threading.Thread(target=launch, daemon=True,
+                                           name="p23-launcher")
+        launcher_thread.start()
+        config = dataclasses.replace(
+            ResNet50.default_config(), batch_size=TRAIN_BATCH, n_epochs=1,
+            print_freq=1, data_dir=data_dir,
+            snapshot_dir=os.path.join(workdir, "p23_snap"))
+        model = ResNet50(config=config, device="cuda")
+        try:
+            spans = p23_spans(torch, model, workdir)
+            log(f"  (c) fenced bsp/step "
+                f"{[round(v, 2) for v in spans['fenced_ms']]} ms >= its "
+                f"CUDA events {[round(v, 2) for v in spans['event_ms']]}; "
+                f"unfenced bsp/enqueue "
+                f"{[round(v, 2) for v in spans['unfenced_ms']]} against "
+                f"{[round(v, 2) for v in spans['event_ms_unfenced']]} "
+                "(beside (b))")
+            fault = p23_fault(model, fleet.ingest_addr, workdir)
+        finally:
+            model.cleanup()
+            del model
+        log(f"  (d) ingest_pull fault at index {P23_FAULT_INDEX}: "
+            f"{fault['exception']} ({fault['message']}), postmortem with "
+            f"{len(fault['recent_step_ms'] or [])} recent steps, open spans "
+            f"{fault['open_spans']}, {fault['metrics']} series")
+        launcher_thread.join()
+        if "error" in launched:
+            raise launched["error"]
+        res = launched["p23-launcher"]
+        (rec,) = res["records"]
+        want_train = {k: v * CKPT_STEPS for k, v in TRAIN_LAUNCHES.items()}
+        want_val = {k: v * CKPT_VAL_BATCHES
+                    for k, v in RESNET_VAL_LAUNCHES.items()}
+        if (rec["train_steps"] != CKPT_STEPS
+                or not _exact_launches(rec["launches"]["train"], want_train)
+                or not _exact_launches(rec["launches"]["val"], want_val)):
+            raise AssertionError(f"phase 23 (b): steps {rec['train_steps']}"
+                                 f", launches {rec['launches']} (want "
+                                 f"{want_train}, {want_val})")
+        files = sorted(os.listdir(run_dir))
+        missing = [f for f in ("metrics_rank0.jsonl", "metrics_rank0.prom",
+                               "heartbeat_rank0.json", "fleet.jsonl")
+                   if f not in files]
+        fleet_view = p23_fleet_records(run_dir)
+        lane_b = (0 if missing else _metric_value(
+            os.path.join(run_dir, "metrics_rank0.jsonl"),
+            "shm/oob_bytes_total", dir="recv"))
+        log(f"  (b) launcher: {rec['train_steps']} steps + "
+            f"{rec['val_batches']} validation batches, train_s "
+            f"{rec['train_s']:.2f}, launches exact; shm lane bytes "
+            f"received {lane_b}; fleet.jsonl {fleet_view}")
+        readers = fleet_view["served_pulls"]
+        if (missing or fleet_view["orphans"]
+                or not {"rank0", "ingest_coord", *readers}
+                <= set(fleet_view["roles"])
+                or not all(fleet_view["linked_reader_traces"].values())
+                or not all(readers.values())
+                or sum(readers.values()) < CKPT_STEPS
+                or not fleet_view["linked_coordinator_traces"]
+                or lane_b < CKPT_STEPS * ref["image_bytes"][0]):
+            raise AssertionError(f"phase 23 (b): files {files}, shm lane "
+                                 f"bytes {lane_b}, {fleet_view}")
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        if fleet_collector is not None:
+            fleet_collector.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.monotonic() - t_phase
+    log(f"  phase 23: {seconds:.1f} s")
+    return {"order": [label for label, _ in runs],
+            "ms_per_step": [r["ms_per_step"] for _, r in runs],
+            "local": local, "ingest": remote, "launcher": {
+        "train_steps": rec["train_steps"], "val_batches": rec["val_batches"],
+        "train_s": rec["train_s"], "launches": rec["launches"],
+        "wall_s": res["wall_s"], "oob_recv_bytes": lane_b},
+        "fleet": fleet_view, "spans": spans,
+        "fault": fault, "fleet_start_s": start_s, "seconds": seconds}
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -4977,6 +5410,13 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             phase20 = sharded_phase(torch, tmp,
                                     os.path.join(shards_tmp, "data"))
+        torch.cuda.empty_cache()
+
+        log("phase 23: the telemetry plane and distributed ingest "
+            "(reader fleet, coordinator, collector)")
+        with tempfile.TemporaryDirectory() as tmp:
+            phase23 = ingest_phase(torch, tmp,
+                                   os.path.join(shards_tmp, "data"))
     torch.cuda.empty_cache()
 
     log("phase 21: the async rules (EASGD, ASGD, GOSGD) on one card")
@@ -5038,6 +5478,13 @@ def main() -> int:
                                  for rule, run in
                                  phase21["sessions"].items()
                                  if run["launches"].get(k["name"])})
+        if k["name"] in TRAIN_LAUNCHES and (
+                TRAIN_LAUNCHES[k["name"]] or RESNET_VAL_LAUNCHES[k["name"]]):
+            p23 = phase23["launcher"]["launches"]
+            k["ingest_launches"] = {
+                "in_process": phase23["ingest"][0]["launches"][k["name"]],
+                "launcher_train": p23["train"][k["name"]],
+                "launcher_val": p23["val"][k["name"]]}
         if k["name"] in ("lrn", "lrn_bwd"):
             k["remote_launches"] = {
                 **{f"launcher_{label}": run["launches"][k["name"]]
@@ -5069,7 +5516,7 @@ def main() -> int:
                    "lm_step_trace": lm_trace, "checkpoint": ckpt,
                    "rest_of_bsp": rest, "zoo": zoo, "phase19": phase19,
                    "phase20": phase20, "phase21": phase21,
-                   "phase22": phase22,
+                   "phase22": phase22, "phase23": phase23,
                    "seconds": time.monotonic() - _STARTED,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
@@ -5105,7 +5552,10 @@ def main() -> int:
                            "iterations + 1 validation batch), the "
                            "aggregated two-worker EASGD session, and the "
                            "remote round-robin schedules (no "
-                           "validation)"},
+                           "validation); ingest_launches (K1, K2): "
+                           "phase 23's in-process ingest-fed steps and "
+                           "its launcher run's train and validation "
+                           "launches"},
                   f, indent=1)
     log(f"whole script: {time.monotonic() - _STARTED:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -147,9 +147,10 @@ def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
 
 @pytest.mark.parametrize("argv,item", [
     (["BSP", "--seq-parallel", "2"], 18),
-    (["ASGD", "--ingest", "h:1"], 17),
+    (["ASGD", "--serve-replicas", "2"], 19),
     (["GOSGD", "--compilation-cache-dir", "d"], 22), (["SERVE"], 19),
-    (["BSP", "--collector"], 16), (["EASGD", "--disaggregate"], 21),
+    (["BSP", "--expert-parallel", "2"], 18),
+    (["EASGD", "--disaggregate"], 21),
     (["BSP", "--model-parallel=2"], 18), (["BSP", "--decode-max-seqs", "4"],
                                           20)])
 def test_unported_rules_and_options_name_their_roadmap_item(argv, item):

@@ -240,6 +240,36 @@ def test_port_serves_its_selector_loop_whatever_the_knob(knob, monkeypatch,
         t.close()
 
 
+def test_mux_close_leaves_the_fd_to_its_reader(servers, monkeypatch):
+    """``MuxConnection.close()`` only shuts the socket down; the reader
+    thread, woken by it, is the one closer of the fd, and ``close()``
+    returns after it.  A second closer raced the reader: the fd number,
+    reused by the next connection, was closed or read from under it
+    (a client connecting right after a closed transport saw "bad
+    message length" or EBADF)."""
+    srv = servers(rpc)
+    t = rpc.MuxConnection(srv.addr)
+    c = service.ServiceClient(srv.addr, transport=t)
+    assert c.call("echo", 7) == 7
+    reader, conn = t._reader, t._conn
+    closes: list = []
+    fd_close = conn._close
+
+    def counting_close():
+        closes.append(threading.current_thread().name)
+        fd_close()
+
+    conn._close = counting_close
+    t.close()
+    assert not reader.is_alive()
+    assert closes == [reader.name] and conn.closed
+    c.close()
+    for _ in range(3):  # the next connections are whole
+        c2 = service.ServiceClient(srv.addr)
+        assert c2.call("echo", 8) == 8
+        c2.close()
+
+
 def test_port_mux_falls_back_against_jax_threaded_loop(monkeypatch,
                                                        servers):
     """JAX's threaded loop grants no multiplexing: the port's transport

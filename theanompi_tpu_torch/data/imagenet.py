@@ -337,6 +337,21 @@ class ImageNet_data(Dataset):
                                  size)
         return sum(self._file_sizes[f] for f in files) // global_batch
 
+    def ingest_signature(self) -> dict:
+        """What a remote ingest reader must agree on for its stream to
+        be byte-identical to this dataset's (``ingest/``): the seed
+        (every rng above derives from it) and the exact shard set,
+        compared with the reader's ``ingest_meta`` when a
+        ``RemoteBatchSource`` is built.  Synthetic data has no shard
+        tree to serve and raises."""
+        if self.synthetic:
+            raise RuntimeError(
+                "synthetic datasets have no shard tree to serve "
+                "remotely; distributed ingest needs a prepared "
+                "data_dir (data.imagenet.prepare_imagenet_shards)")
+        return shard_tree_signature(self.train_files, self._file_sizes,
+                                    self.seed)
+
 
 # -- shard preparation -------------------------------------------------------
 

@@ -10,26 +10,39 @@ with ``record_stream``, so the caching allocator never hands the
 memory of a batch still in use to another.  The thread only copies:
 all training work stays on the consumer's thread.  On the CPU the
 arrays are wrapped as tensors and nothing is pinned.
+
+With monitoring on, the loader thread keeps the ``ingest/loader_*``
+series labelled ``source='local'|'remote'`` (JAX's), so a run fed by
+the in-process loader and one fed by a reader fleet (``ingest/``) sit
+on the same dashboard rows.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
 import torch
 
+from theanompi_tpu_torch import monitor
+
 
 class DevicePrefetcher:
     """Wrap a host batch iterator; yield device batches (tuples of
     tensors), two staged ahead.  ``close()`` (or leaving the ``with``
-    block) stops the thread early."""
+    block) stops the thread early.  ``source`` labels the loader series
+    (``'local'`` or ``'remote'``); ``stats`` holds the loader thread's
+    busy seconds, batches and images."""
 
     _SENTINEL = object()
 
-    def __init__(self, host_batches: Iterable, device: torch.device):
+    def __init__(self, host_batches: Iterable, device: torch.device,
+                 source: str = "local"):
+        self._source = source
+        self.stats = {"busy_s": 0.0, "batches": 0, "images": 0}
         self.device = torch.device(device)
         self._cuda = self.device.type == "cuda"
         if self._cuda and self.device.index is None:
@@ -47,7 +60,12 @@ class DevicePrefetcher:
         self._thread.start()
 
     def _stage(self, arr: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(arr))
+        arr = np.ascontiguousarray(arr)
+        if not arr.flags.writeable:
+            # a batch off the wire lies in a read-only receive buffer; a
+            # tensor must own memory it may write
+            arr = arr.copy()
+        t = torch.from_numpy(arr)
         if not self._cuda:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
@@ -57,6 +75,7 @@ class DevicePrefetcher:
             if self._cuda:
                 torch.cuda.set_device(self.device)
             while not self._stop.is_set():
+                t0 = time.perf_counter()
                 try:
                     batch = next(it)
                 except StopIteration:
@@ -66,6 +85,20 @@ class DevicePrefetcher:
                         staged = tuple(self._stage(a) for a in batch)
                 else:
                     staged = tuple(self._stage(a) for a in batch)
+                s = self.stats
+                s["busy_s"] += time.perf_counter() - t0
+                s["batches"] += 1
+                s["images"] += len(batch[0]) if len(batch) else 0
+                if monitor.enabled():
+                    monitor.set_gauge("ingest/loader_img_s",
+                                      s["images"] / s["busy_s"]
+                                      if s["busy_s"] else 0.0,
+                                      source=self._source)
+                    monitor.set_gauge("ingest/loader_queue_depth",
+                                      self._q.qsize(),
+                                      source=self._source)
+                    monitor.inc("ingest/loader_batches_total",
+                                source=self._source)
                 while not self._stop.is_set():
                     try:
                         self._q.put(staged, timeout=0.1)

@@ -1,0 +1,283 @@
+"""Ingest fleet supervision — spawn + relaunch the reader processes
+(copy of ``theanompi_tpu/ingest/fleet.py``).
+
+``IngestProcessGroup`` is the ingest analogue of
+``parallel/shards.ShardProcessGroup``: K real reader processes (plus,
+by default, one coordinator) on free local ports, a watcher thread
+that relaunches a dead process on its port within a per-process
+restart budget, and the shared ``THEANOMPI_TPU_SERVICE_KEY`` exported
+to every child.  A relaunched reader re-derives every epoch order
+from (seed, epoch) — there is no state to restore — and the
+coordinator's probe loop returns it to the assignment pool; the
+trainers' client failover covers the gap in between.
+
+``python -m theanompi_tpu_torch.ingest.fleet`` runs a fleet in the
+foreground for operators; tests and ``chip_smoke.py`` drive the class
+directly.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import threading
+import time
+
+from theanompi_tpu_torch import monitor
+from theanompi_tpu_torch.analysis.lockgraph import make_lock
+from theanompi_tpu_torch.ingest import protocol
+from theanompi_tpu_torch.parallel.shards import _free_port, child_env
+
+
+class IngestProcessGroup:
+    """Spawn and supervise K reader processes (+ coordinator)."""
+
+    def __init__(self, n_readers: int, data_dir: str, seed: int = 0,
+                 host: str = "127.0.0.1", max_restarts: int = 1,
+                 coordinator: bool = True,
+                 max_inflight: int | None = None,
+                 ready_timeout_s: float = 180.0):
+        if n_readers < 1:
+            raise ValueError(f"n_readers must be >= 1, got {n_readers}")
+        from theanompi_tpu_torch.parallel.service import _authkey
+
+        self.host = host
+        self.data_dir = data_dir
+        self.seed = int(seed)
+        self.max_restarts = int(max_restarts)
+        self.max_inflight = max_inflight
+        _authkey(generate=True)  # ensure + export the shared key
+        self._lock = make_lock("IngestProcessGroup._lock")
+        self._stopping = threading.Event()
+        self._ports: list[int] = [_free_port() for _ in range(n_readers)]
+        self._procs: list[subprocess.Popen] = []  # guarded_by: self._lock
+        self._restarts: dict[int, int] = {}       # guarded_by: self._lock
+        self._coord_port: int | None = None
+        self._coord_proc: subprocess.Popen | None = None  # guarded_by: self._lock
+        for i, port in enumerate(self._ports):
+            self._procs.append(self._spawn_reader(i, port))
+        self._wait_ready(ready_timeout_s)
+        if coordinator:
+            self._coord_port = _free_port()
+            with self._lock:
+                self._coord_proc = self._spawn_coordinator(
+                    self._coord_port)
+            self._wait_coordinator(ready_timeout_s)
+        self._watcher = threading.Thread(
+            target=self._watch, daemon=True, name="ingest-fleet-watcher")
+        self._watcher.start()
+
+    # -- addresses ------------------------------------------------------
+
+    @property
+    def reader_addresses(self) -> list[str]:
+        return [f"{self.host}:{p}" for p in self._ports]
+
+    @property
+    def coordinator_address(self) -> str | None:
+        return (None if self._coord_port is None
+                else f"{self.host}:{self._coord_port}")
+
+    @property
+    def ingest_addr(self) -> str:
+        """The value trainers pass as ``--ingest``: the coordinator
+        when there is one, else the comma-joined static reader list."""
+        coord = self.coordinator_address
+        return coord if coord else ",".join(self.reader_addresses)
+
+    # -- lifecycle ------------------------------------------------------
+
+    def _spawn_reader(self, index: int, port: int) -> subprocess.Popen:
+        cmd = [sys.executable, "-m", "theanompi_tpu_torch.ingest.reader",
+               "--host", self.host, "--port", str(port),
+               "--data-dir", self.data_dir, "--seed", str(self.seed),
+               "--reader-id", str(index)]
+        if self.max_inflight is not None:
+            cmd += ["--max-inflight", str(self.max_inflight)]
+        return subprocess.Popen(cmd, env=child_env())
+
+    def _spawn_coordinator(self, port: int) -> subprocess.Popen:
+        cmd = [sys.executable, "-m", "theanompi_tpu_torch.ingest.coordinator",
+               "--host", self.host, "--port", str(port),
+               "--readers", ",".join(self.reader_addresses)]
+        return subprocess.Popen(cmd, env=child_env())
+
+    def _probe(self, addr: str) -> dict | None:
+        from theanompi_tpu_torch.parallel.service import ServiceClient
+
+        c = None
+        try:
+            c = ServiceClient(addr)
+            info = c.call(protocol.OP_INFO)
+            # callers validate kind/index themselves (they need the
+            # wrong answer for their diagnostics, not a bare None)
+            return info
+        except Exception:
+            return None
+        finally:
+            if c is not None:
+                c.close()
+
+    def _wait_ready(self, timeout_s: float) -> None:
+        deadline = time.monotonic() + timeout_s
+        for i, addr in enumerate(self.reader_addresses):
+            while True:
+                info = self._probe(addr)
+                if info is not None:
+                    if (info.get("kind") != "reader"
+                            or info.get("reader") != i):
+                        self.stop()
+                        raise RuntimeError(
+                            f"address {addr} answered as {info!r}, "
+                            f"expected reader {i} — another process "
+                            "is listening on that port")
+                    break
+                with self._lock:
+                    rc = self._procs[i].poll()
+                if rc is not None:
+                    self.stop()
+                    raise RuntimeError(
+                        f"ingest reader {i} died during startup "
+                        f"(rc={rc})")
+                if time.monotonic() > deadline:
+                    self.stop()
+                    raise RuntimeError(
+                        f"ingest reader {i} at {addr} never came up "
+                        f"within {timeout_s}s")
+                time.sleep(0.3)
+
+    def _wait_coordinator(self, timeout_s: float) -> None:
+        deadline = time.monotonic() + timeout_s
+        addr = self.coordinator_address
+        while True:
+            info = self._probe(addr)
+            if info is not None and info.get("kind") == "coordinator":
+                return
+            with self._lock:
+                rc = self._coord_proc.poll()
+            if rc is not None:
+                self.stop()
+                raise RuntimeError(
+                    f"ingest coordinator died during startup (rc={rc})")
+            if time.monotonic() > deadline:
+                self.stop()
+                raise RuntimeError(
+                    f"ingest coordinator at {addr} never came up "
+                    f"within {timeout_s}s")
+            time.sleep(0.3)
+
+    def _watch(self) -> None:
+        while not self._stopping.wait(0.5):
+            with self._lock:
+                procs = list(self._procs)
+                coord = self._coord_proc
+            for i, proc in enumerate(procs):
+                if proc.poll() is None or self._stopping.is_set():
+                    continue
+                with self._lock:
+                    n = self._restarts.get(i, 0)
+                    if n >= self.max_restarts:
+                        continue  # budget spent: leave the corpse
+                    self._restarts[i] = n + 1
+                    self._procs[i] = self._spawn_reader(i, self._ports[i])
+                print(f"[ingest] reader {i} died (rc={proc.returncode});"
+                      f" relaunched on port {self._ports[i]} "
+                      f"({n + 1}/{self.max_restarts})",
+                      file=sys.stderr, flush=True)
+                monitor.inc("ingest/reader_restarts_total", reader=i)
+            if (coord is not None and coord.poll() is not None
+                    and not self._stopping.is_set()):
+                with self._lock:
+                    n = self._restarts.get("coord", 0)
+                    if n < self.max_restarts:
+                        self._restarts["coord"] = n + 1
+                        self._coord_proc = self._spawn_coordinator(
+                            self._coord_port)
+                        print(f"[ingest] coordinator died "
+                              f"(rc={coord.returncode}); relaunched "
+                              f"({n + 1}/{self.max_restarts})",
+                              file=sys.stderr, flush=True)
+                        monitor.inc("ingest/coordinator_restarts_total")
+
+    def restart_counts(self) -> dict:
+        with self._lock:
+            return dict(self._restarts)
+
+    def kill_reader(self, index: int) -> None:
+        """Hard-kill one reader (fault-matrix smoke); the watcher
+        relaunches it within a poll interval if budget remains."""
+        with self._lock:
+            self._procs[index].kill()
+
+    def wait_restarted(self, index: int, timeout_s: float = 60.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        addr = self.reader_addresses[index]
+        while True:
+            info = self._probe(addr)
+            if info is not None and info.get("reader") == index:
+                return
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"ingest reader {index} did not come back within "
+                    f"{timeout_s}s")
+            time.sleep(0.3)
+
+    def stop(self) -> None:
+        self._stopping.set()
+        if getattr(self, "_watcher", None) is not None \
+                and self._watcher.is_alive():
+            self._watcher.join(timeout=5)
+        with self._lock:
+            procs = list(self._procs)
+            if self._coord_proc is not None:
+                procs.append(self._coord_proc)
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in procs:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=5)
+
+    def __enter__(self) -> "IngestProcessGroup":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python -m theanompi_tpu_torch.ingest.fleet",
+        description="theanompi-tpu ingest fleet (PyTorch port) — spawn + "
+                    "supervise N reader processes and a coordinator")
+    ap.add_argument("--readers", type=int, default=2, metavar="N")
+    ap.add_argument("--data-dir", required=True)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--max-restarts", type=int, default=1)
+    ap.add_argument("--no-coordinator", action="store_true",
+                    help="static fleet: trainers get the comma-joined "
+                         "reader list and derive the plan client-side")
+    args = ap.parse_args(argv)
+    group = IngestProcessGroup(
+        args.readers, args.data_dir, seed=args.seed, host=args.host,
+        max_restarts=args.max_restarts,
+        coordinator=not args.no_coordinator)
+    print(f"[ingest] fleet up — pass to trainers:  "
+          f"--ingest {group.ingest_addr}", flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        group.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

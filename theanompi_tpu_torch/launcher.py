@@ -41,7 +41,21 @@ world size.  The JAX options with their semantics:
 
 * ``--sync-type avg|cdd``: average or sum the exchanged gradients;
 * ``--monitor-dir DIR``: exported to the workers as
-  ``THEANOMPI_TPU_MONITOR`` (metrics, crash markers);
+  ``THEANOMPI_TPU_MONITOR`` (metrics snapshot and Prometheus dump,
+  heartbeat, postmortem, crash markers);
+* ``--collector`` (needs ``--monitor-dir``; single host): starts and
+  supervises a telemetry collector (``monitor/collector.py``) before the
+  workers and stops it after them; every process of the run (workers,
+  shards, their children) ships its span and metric events to ONE
+  ``fleet.jsonl`` under the monitor dir (``THEANOMPI_TPU_COLLECTOR``),
+  with tracing on (``THEANOMPI_TPU_TRACE=1`` unless set);
+* ``--ingest ADDR[,ADDR...]``: the training batches come from a reader
+  fleet (``python -m theanompi_tpu_torch.ingest.fleet``): one
+  coordinator address or a comma-separated list of readers, exported
+  as ``THEANOMPI_TPU_INGEST`` and read by each epoch's ``begin_epoch``;
+  refused with ``SERVE``, ``--multihost``, a malformed or ``unix:``
+  address, and BSP over more than one process (each rank of a group
+  feeds its own block of every global batch);
 * ``--fault-plan PATH|JSON``: exported as ``THEANOMPI_TPU_FAULTS``,
   which each worker's ``resilience.faults`` installs when imported (so
   afresh in every life of the group);
@@ -115,7 +129,6 @@ ASYNC_RULES = ("EASGD", "ASGD", "GOSGD")
 UNPORTED_OPTIONS = {
     **dict.fromkeys(("--model-parallel", "--seq-parallel", "--pipe-parallel",
                      "--expert-parallel"), 18),
-    "--collector": 16, "--ingest": 17,
     **dict.fromkeys(("--export-dir", "--port", "--serve-host",
                      "--serve-replicas", "--max-batch", "--max-delay-ms",
                      "--serve-buckets", "--max-queue", "--reload-poll-s"),
@@ -166,6 +179,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--monitor-dir", default=None, metavar="DIR",
                    help="telemetry and crash markers under DIR (exported "
                         "to the workers as THEANOMPI_TPU_MONITOR)")
+    p.add_argument("--collector", action="store_true",
+                   help="start a telemetry collector for this run: every "
+                        "process ships its span and metric events to ONE "
+                        "fleet.jsonl under --monitor-dir (required); "
+                        "turns tracing on (THEANOMPI_TPU_TRACE=1 unless "
+                        "set); read it with tools/traces.py")
+    p.add_argument("--ingest", default=None, metavar="ADDR[,ADDR...]",
+                   help="feed the training batches from an ingest fleet: "
+                        "one coordinator host:port or a comma-separated "
+                        "reader list (exported as THEANOMPI_TPU_INGEST)")
     p.add_argument("--fault-plan", default=None, metavar="PATH|JSON",
                    help="deterministic fault injection (exported to the "
                         "workers as THEANOMPI_TPU_FAULTS)")
@@ -237,6 +260,9 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     """Parse ``argv``; an unported rule or option exits non-zero naming
     its ROADMAP item."""
     args, extra = build_parser().parse_known_args(argv)
+    if args.ingest and args.rule == "SERVE":
+        raise SystemExit("--ingest feeds TRAINING batches; the SERVE rule "
+                         "has no train loader")
     if args.rule not in RULES:
         raise SystemExit(f"unknown rule {args.rule!r} (want one of "
                          f"{', '.join(RULES)})")
@@ -255,6 +281,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     if args.max_restarts < 0:
         raise SystemExit("--max-restarts must be >= 0")
     _check_rule_options(args)
+    _check_telemetry_and_ingest(args)
     hosts = (args.coordinator, args.nhosts, args.host_id)
     if args.multihost:
         if None in hosts:
@@ -325,6 +352,35 @@ def _check_rule_options(args: argparse.Namespace) -> None:
                 "not both")
         if args.shards < 1:
             raise SystemExit("--shards must be >= 1")
+
+
+def _check_telemetry_and_ingest(args: argparse.Namespace) -> None:
+    """JAX's refusals of ``--collector`` and ``--ingest``."""
+    if args.collector:
+        if args.multihost:
+            # one collector per RUN, not per host
+            raise SystemExit(
+                "--collector is single-host (the launcher spawns the "
+                "collector process); multi-host runs start one collector "
+                "(python -m theanompi_tpu_torch.monitor.collector) and "
+                "export THEANOMPI_TPU_COLLECTOR=host:port on every host")
+        if not args.monitor_dir:
+            raise SystemExit("--collector requires --monitor-dir (the "
+                             "merged fleet.jsonl lands there)")
+    if args.ingest:
+        if args.multihost:
+            # silently ignoring the flag would let the user believe the
+            # fleet feeds the run when it does not
+            raise SystemExit(
+                "--ingest is single-host for now (each host feeds its own "
+                "slice); run the readers co-located with each host "
+                "instead")
+        from theanompi_tpu_torch.ingest.protocol import ingest_addresses
+
+        try:
+            ingest_addresses(args.ingest)  # fail fast on a bad spec
+        except ValueError as e:
+            raise SystemExit(f"--ingest: {e}") from None
 
 
 def _parse_config_sets(pairs: list[str]) -> dict:
@@ -564,18 +620,41 @@ def spawn(args: argparse.Namespace, argv: list[str]) -> int:
     host), else the failed worker's exit code is returned.  ``--shards
     K`` starts the shard fleet here, for every life of the group, and
     hands the workers its ``--server-addr``; the shards hold their
-    ranges on the workers' ``--platform``."""
-    if args.shards is None:
-        return _spawn(args, argv)
-    from theanompi_tpu_torch.parallel.shards import ShardProcessGroup
+    ranges on the workers' ``--platform``.  ``--collector`` starts the
+    collector first (every process started after it ships to it) and
+    stops it after the last worker's session has flushed."""
+    collector = None
+    set_trace = False
+    if getattr(args, "collector", False):
+        from theanompi_tpu_torch.monitor import trace
+        from theanompi_tpu_torch.monitor.collector import CollectorProcess
 
-    group = ShardProcessGroup(args.shards, device=args.platform,
-                              max_restarts=args.max_restarts or 1)
+        # exported before the spawn, so the collector's own artifacts
+        # land under the run dir too
+        os.environ["THEANOMPI_TPU_MONITOR"] = args.monitor_dir
+        collector = CollectorProcess(args.monitor_dir)
+        # the flag's point is the one-timeline view: tracing on unless
+        # the operator pinned it (=0 ships metrics only)
+        set_trace = trace.ENV_VAR not in os.environ
+        if set_trace:
+            os.environ[trace.ENV_VAR] = "1"
     try:
-        return _spawn(args, _without_shards(argv)
-                      + ["--server-addr", group.server_addr])
+        if args.shards is None:
+            return _spawn(args, argv)
+        from theanompi_tpu_torch.parallel.shards import ShardProcessGroup
+
+        group = ShardProcessGroup(args.shards, device=args.platform,
+                                  max_restarts=args.max_restarts or 1)
+        try:
+            return _spawn(args, _without_shards(argv)
+                          + ["--server-addr", group.server_addr])
+        finally:
+            group.stop()
     finally:
-        group.stop()
+        if collector is not None:
+            collector.stop()
+            if set_trace:
+                os.environ.pop("THEANOMPI_TPU_TRACE", None)
 
 
 def _spawn(args: argparse.Namespace, argv: list[str]) -> int:
@@ -594,6 +673,11 @@ def _spawn(args: argparse.Namespace, argv: list[str]) -> int:
         n = args.devices or 1
     if args.rule in ASYNC_RULES:
         n = 1  # one process; its -D worker threads
+    elif getattr(args, "ingest", None) and n > 1:
+        raise SystemExit(
+            f"--ingest feeds one training process; BSP -D {n} runs {n} "
+            "ranks, each taking its block of every global batch from its "
+            "own loader (run -D 1, or an async rule's worker threads)")
     model_config(args)  # fail here, before any worker starts
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -603,6 +687,8 @@ def _spawn(args: argparse.Namespace, argv: list[str]) -> int:
         env["THEANOMPI_TPU_MONITOR"] = args.monitor_dir
     if args.fault_plan:
         env["THEANOMPI_TPU_FAULTS"] = args.fault_plan
+    if getattr(args, "ingest", None):
+        env["THEANOMPI_TPU_INGEST"] = args.ingest
     for opt, var in WIRE_ENV.items():
         if getattr(args, opt):
             env[var] = getattr(args, opt)

@@ -223,6 +223,8 @@ class TorchModel:
         self.eval_step = None
         self._rng: torch.Generator | None = None
         self._train_prefetcher: DevicePrefetcher | None = None
+        #: the epoch's ingest/client.RemoteBatchSource under --ingest
+        self._ingest_source = None
         self._train_iter: Iterator | None = None
         self._pending: list[tuple[int, dict]] = []
         self.exchanger: BSP_Exchanger | None = None
@@ -722,7 +724,33 @@ class TorchModel:
         self.cleanup_iter()
         self.current_epoch = epoch
         self._rng = self._epoch_rng(epoch)
-        if self.shard_size > 1:
+        # distributed ingest (ingest/): with THEANOMPI_TPU_INGEST set
+        # (the launcher's --ingest) a single-process run takes the
+        # epoch's host batches from the reader fleet, byte-identical to
+        # the local loader and into the same prefetcher.  A rank of a
+        # process group takes its block of every global batch from its
+        # own loader, so the variable is refused there rather than
+        # ignored (JAX keeps the per-host slicing of a multi-host
+        # program).
+        from theanompi_tpu_torch.ingest.client import ingest_addresses
+
+        ingest = ingest_addresses()
+        if ingest and self.n_workers > 1:
+            raise ValueError(
+                f"THEANOMPI_TPU_INGEST feeds one training process; this "
+                f"process group has {self.n_workers} ranks, each taking "
+                "its block of every global batch from its own loader "
+                "(run one process, or an async rule's worker threads)")
+        if ingest:
+            from theanompi_tpu_torch.ingest.client import RemoteBatchSource
+
+            self._ingest_source = RemoteBatchSource(
+                ingest, data=self.data, epoch=epoch,
+                global_batch=self.global_batch, rank=self.shard_rank,
+                size=self.shard_size)
+            host_iter = self._ingest_source
+            n_iters = self._ingest_source.n_batches
+        elif self.shard_size > 1:
             host_iter = self.data.train_batches(
                 epoch, self.global_batch, self.shard_rank, self.shard_size)
             n_iters = self.data.n_train_batches_for(
@@ -745,7 +773,8 @@ class TorchModel:
                     f"grad_accum_steps)) — every epoch would train "
                     f"NOTHING; shrink the stack or grow the dataset/"
                     f"batch ratio")
-        self._train_prefetcher = DevicePrefetcher(host_iter, self.device)
+        self._train_prefetcher = DevicePrefetcher(
+            host_iter, self.device, source="remote" if ingest else "local")
         self._train_iter = iter(self._train_prefetcher)
         return n_iters
 
@@ -861,6 +890,11 @@ class TorchModel:
             self._train_prefetcher.close()
             self._train_prefetcher = None
             self._train_iter = None
+        if self._ingest_source is not None:
+            # the prefetcher abandons its host iterator; the remote
+            # source's fetch thread and connections close explicitly
+            self._ingest_source.close()
+            self._ingest_source = None
 
     def cleanup(self) -> None:
         self.cleanup_iter()

@@ -1,10 +1,10 @@
 """One-in-flight exchange thread: the async rules' comm/compute overlap.
 
-Copy of ``theanompi_tpu/parallel/pipe.py``.  ``monitor`` spans stand in
-for JAX's ``monitor.trace`` context hand-off, which is not ported yet:
-the exchange runs under its own span (``<name>_rpc``) on the pipe's
-thread, and the worker's wait is the caller's ``<name>_collect`` span.
-``close()`` joins the thread.
+Copy of ``theanompi_tpu/parallel/pipe.py``.  The exchange runs under its
+own span (``<name>_rpc``) on the pipe's thread, inside the trace context
+the submitting thread captured (``monitor.trace``), so an overlapped
+exchange stays a child of the worker's span; the worker's wait is the
+caller's ``<name>_collect`` span.  ``close()`` joins the thread.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import threading
 
 from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch.analysis.lockgraph import make_lock
+from theanompi_tpu_torch.monitor import trace
 
 #: _ExchangePipe shutdown sentinel
 _STOP = object()
@@ -54,12 +55,17 @@ class _ExchangePipe:
             item = self._req.get()
             if item is _STOP:
                 return
+            payload, ctx = item
             try:
-                with monitor.span(self._span, worker=self._worker):
-                    out = (self._fn(item), None)
+                # the submitter's trace context re-attaches here, so the
+                # exchange span and the RPC it wraps stay children of
+                # the submitting worker's span
+                with trace.attach_wire(ctx), \
+                        monitor.span(self._span, worker=self._worker):
+                    out = (self._fn(payload), None)
             except BaseException as e:  # surfaced at collect()
                 out = (None, e)
-            self._res.put((item, out))
+            self._res.put((payload, out))
 
     def busy(self) -> bool:
         """Locked read of the barrier flag."""
@@ -78,7 +84,9 @@ class _ExchangePipe:
                     "one exchange may be outstanding; collect() first")
             self.outstanding = True
         try:
-            self._req.put(payload)
+            # the context is captured here, on the submitting thread,
+            # where the caller's span is still open
+            self._req.put((payload, trace.capture()))
         except BaseException:
             with self._lock:
                 self.outstanding = False

@@ -1286,21 +1286,19 @@ class MuxStream:
             self._q.put_err(EOFError("stream closed"))
 
 
-def _shutdown_close(conn) -> None:
-    """Shut a connection's socket down, then close it: the shutdown
-    wakes a reader thread blocked on it (closing the fd alone leaves a
-    blocked ``recv`` parked until the peer hangs up)."""
+def _shutdown(conn) -> None:
+    """Shut a connection's socket down without closing its fd: a reader
+    thread blocked on it wakes with EOF and closes the fd itself.  The
+    reader is the fd's only closer: a second thread closing it could
+    close (or leave the reader reading from) a socket that reused the
+    fd number meanwhile."""
     try:
         s = socket.socket(fileno=os.dup(conn.fileno()))
         try:
             s.shutdown(socket.SHUT_RDWR)
         finally:
             s.close()
-    except OSError:
-        pass
-    try:
-        conn.close()
-    except OSError:
+    except (OSError, TypeError, ValueError):
         pass
 
 
@@ -1344,6 +1342,8 @@ class MuxConnection:
         self._next_sid = 1          # guarded_by: self._lock
         self._gen = 0               # guarded_by: self._lock
         self._closed = False        # guarded_by: self._lock
+        #: the current connection's reader thread, its fd's one closer
+        self._reader: threading.Thread | None = None  # guarded_by: self._lock
         with self._lock:
             self._connect_locked()
 
@@ -1385,11 +1385,11 @@ class MuxConnection:
         # ServiceClient reads it when it skips its own hello
         self._trace = bool(payload.get("trace"))
         self._gen += 1
-        threading.Thread(
+        self._reader = threading.Thread(
             target=self._read_loop, args=(conn, self._gen),
             daemon=True,
-            name=f"rpc-mux-reader-{self.address[1]}-g{self._gen}",
-        ).start()
+            name=f"rpc-mux-reader-{self.address[1]}-g{self._gen}")
+        self._reader.start()
 
     @property
     def mux(self) -> bool:
@@ -1429,7 +1429,9 @@ class MuxConnection:
             return MuxStream(self, sid, q, self._gen), self._wire
 
     def _read_loop(self, conn, gen: int) -> None:
-        """The one reader: envelope chunk → payload chunk → route."""
+        """The one reader: envelope chunk → payload chunk → route.  It
+        alone closes ``conn``'s fd, when the connection ends (a
+        :func:`_shutdown` from ``close()`` ends it too)."""
         try:
             while True:
                 env = conn.recv_bytes(4)
@@ -1440,13 +1442,12 @@ class MuxConnection:
                 if q is not None:
                     q.put(chunk)
         except (EOFError, OSError, TypeError) as e:
-            # TypeError: close() pulled the handle out from under a
-            # blocked recv (the stdlib quirk service.py documents)
             err = (e if isinstance(e, (EOFError, OSError))
                    else EOFError("transport closed"))
             with self._lock:
-                if self._gen != gen:
-                    return  # a newer transport owns the streams now
+                if self._gen != gen or self._conn is not conn:
+                    return  # dropped by close()/disable_shm(), or a
+                    # newer connection owns the streams now
                 self._conn = None
                 streams, self._streams = self._streams, {}
                 w, self._wire = self._wire, None
@@ -1456,6 +1457,7 @@ class MuxConnection:
             for q in streams.values():
                 q.put_err(ConnectionResetError(
                     f"mux transport to {self.address} lost: {err}"))
+        finally:
             try:
                 conn.close()
             except OSError:
@@ -1512,21 +1514,26 @@ class MuxConnection:
             q.put_err(ConnectionResetError(
                 f"shm lane to {self.address} disabled; reconnect"))
         if conn is not None:
-            _shutdown_close(conn)
+            _shutdown(conn)  # its reader closes the fd
 
     def close(self) -> None:
+        """Drop the connection and wait (bounded) for its reader, which
+        closes the fd once the shutdown wakes it."""
         with self._lock:
             self._closed = True
             conn, self._conn = self._conn, None
             streams, self._streams = self._streams, {}
             w, self._wire = self._wire, None
+            reader = self._reader
         ch = getattr(w, "shm", None)
         if ch is not None:
             ch.close()
         for q in streams.values():
             q.put_err(EOFError("transport closed"))
         if conn is not None:
-            _shutdown_close(conn)
+            _shutdown(conn)
+        if reader is not None and reader is not threading.current_thread():
+            reader.join(timeout=5)
 
     def __enter__(self):
         return self

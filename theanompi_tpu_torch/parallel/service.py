@@ -1390,7 +1390,8 @@ def main(argv=None) -> int:
     # heartbeat still shows time since the last served request.
     # distinct file suffix: a tmserver sharing THEANOMPI_TPU_MONITOR
     # with a trainer on the same host must not clobber rank0's files
-    with monitor.session(name=f"service{os.getpid()}"):
+    with monitor.session(stall_after=float("inf"),
+                         name=f"service{os.getpid()}"):
         monitor.progress(phase="serving")
         serve(args.host, args.port, service=service)
     return 0

@@ -679,12 +679,7 @@ class ShardProcessGroup:
         cmd = [sys.executable, "-m", "theanompi_tpu_torch.parallel.shards",
                "--host", self.host, "--port", str(port),
                "--shard-index", str(index), "--device", self.device]
-        root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))))
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
-                os.pathsep) if p]))
-        return subprocess.Popen(cmd, env=env)
+        return subprocess.Popen(cmd, env=child_env())
 
     def _wait_ready(self, timeout_s: float) -> None:
         deadline = time.monotonic() + timeout_s
@@ -800,6 +795,17 @@ class ShardProcessGroup:
         self.stop()
 
 
+def child_env() -> dict:
+    """This process's environment with the package's root first on
+    ``PYTHONPATH``, for a ``python -m theanompi_tpu_torch...`` child
+    started from any working directory."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+
+
 def _free_port() -> int:
     import socket
 
@@ -828,7 +834,8 @@ def main(argv=None) -> int:
     # same telemetry posture as a standalone tmserver: request-driven
     # progress, no stall watchdog, a per-process file suffix so K
     # shards sharing a monitor dir never clobber each other
-    with monitor.session(name=f"shard{args.shard_index}_{os.getpid()}"):
+    with monitor.session(stall_after=float("inf"),
+                         name=f"shard{args.shard_index}_{os.getpid()}"):
         monitor.progress(phase="serving")
         serve_shard(args.host, args.port, args.shard_index, device=device)
     return 0

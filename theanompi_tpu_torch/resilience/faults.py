@@ -2,7 +2,7 @@
 faults.py``).
 
 A fault plan is a JSON list of specs, each naming a ``site``, coordinate
-matchers and an ``action``; this package wires four sites:
+matchers and an ``action``; this package wires these sites:
 
 * ``worker_step``: one iteration of an async-rule worker (coords
   ``rule`` = ``easgd``/``asgd``/``gosgd``, ``worker``, ``step``: the
@@ -15,7 +15,12 @@ matchers and an ``action``; this package wires four sites:
   checkpointer's background worker (coord ``epoch``); the ``truncate``
   action then halves the step directory's largest file, so the epoch
   fails verification at the next resume (utils/checkpoint.py).  A
-  ``raise`` there is logged by the worker, never fatal.
+  ``raise`` there is logged by the worker, never fatal;
+* ``ingest_batch``: one batch pull served by an ingest reader (coords
+  ``reader``, ``epoch``, ``index``; ``ingest/reader.py``);
+* ``ingest_pull``: one pull request a trainer's ``RemoteBatchSource``
+  sends (coords ``index``, ``rank``; ``ingest/client.py``); a ``raise``
+  there fails the epoch's stream in the trainer.
 
     [{"site": "worker_step", "rule": "easgd", "worker": 1, "step": 3}]
     [{"site": "exchange", "kind": "asgd", "action": "delay",

@@ -154,7 +154,7 @@ class Rule:
         def run():
             try:
                 rank = dist.get_rank() if dist.is_initialized() else 0
-                with monitor.session(name=f"rank{rank}"):
+                with monitor.session(rank=rank):
                     try:
                         self._session(device, modelfile, modelclass,
                                       config, resume, sync_type, **kwargs)

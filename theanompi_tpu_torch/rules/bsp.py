@@ -111,7 +111,7 @@ def run_bsp_session(model: TorchModel, sync_type: str = "avg",
     ckpt = None
     restored = None
     saves: list[dict] = []
-    with monitor.session(monitor_dir, name=f"rank{model.rank}"):
+    with monitor.session(monitor_dir, rank=model.rank):
         monitor.progress(phase="compile")
         with monitor.span("bsp/compile"):
             model.compile_iter_fns(sync_type)
