@@ -293,6 +293,25 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    ``P22_BF16_LIMIT`` of the f32 wire's parameters and not at 0, and
    a threaded two-worker EASGD with ``local_aggregation`` through the
    service: one aggregate wire exchange a period, zero fallbacks.
+24. The LM family's parallel variants, at ``LM_DIMS`` on a one-rank NCCL
+   group with a mesh whose axes all have degree 1 (no collective of the
+   mesh is issued).  (a) ``sequence_attention`` for each strategy at
+   ``P24_ATTN`` bf16 causal, forward and backward: all-gather and
+   Ulysses launch K4a 1 and one of each K4b pass, ring none; each
+   within ``ops/attention.tolerance_excess`` of K4's plain twins (ring:
+   of the f32 plain path).  (b) ``TransformerLM_TP`` (tp 1) and
+   ``TransformerLM_PP`` (one stage, ``P24_MICRO`` microbatches) from the
+   DP model's weights, ``P24_STEPS`` f32 SGD steps: losses and the first
+   gradient within ``P24_LIMITS`` of DP's, K4 launches per step exactly
+   ``P24_LAUNCHES``.  (c) ``TransformerLM_MoE`` (8 experts) cut to
+   ``P24_MOE_LAYERS`` layers at full width, one f32 step on the card, on
+   the CPU and on the CPU replaying the card's routes and ReLU gates:
+   the decisions that flipped, the replayed step within ``P24_LIMITS`` of
+   the card's, the CPU's own within them too unless a decision flipped,
+   then within ``P24_MOE_LIMITS``.  (d) ``remat`` against plain,
+   bf16: every gradient and updated parameter bit for bit, K4a 24 a
+   step.  (e) ms a step (CUDA events) and peak memory of DP, remat, TP,
+   PP and MoE at the recipe, their K4 launches per step exact.
 
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
@@ -300,7 +319,8 @@ their own); 16 runs after it, then 17 on a one-rank group of its own
 (its launcher runs after that group ends), then 18 (18a before its own
 one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
 its own one-rank group, (c) on it), then 20 ((a) on its own one-rank
-group, (b) after it, on phase 16's shard files), then 21 and 22 (no group).  Phase 9 checkpoints each
+group, (b) after it, on phase 16's shard files), then 21 and 22 (no group),
+then 24 on a one-rank group of its own.  Phase 9 checkpoints each
 epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
 checkpoints.
 
@@ -5233,6 +5253,483 @@ def ingest_phase(torch, workdir: str, data_dir: str) -> dict:
         "fault": fault, "fleet_start_s": start_s, "seconds": seconds}
 
 
+# -- phase 24: the LM family's parallel variants ---------------------------
+
+#: phase 24 (a): sequence_attention's shape (B, T, H, D), bf16, causal
+P24_ATTN = (8, 1024, 12, 64)
+#: (b): checked f32 steps of TP and PP against DP, and their limits
+#: (the loss relative to DP's; the flattened gradient's relative L2)
+P24_STEPS = 3
+P24_LIMITS = {"loss_rel": 1e-5, "grad_rel_l2": 1e-4}
+#: PP's microbatches (one stage)
+P24_MICRO = 4
+#: (c): the MoE cut to P24_MOE_LAYERS layers at full width, 8 experts,
+#: one step of P24_MOE_TOKENS on the card and on the CPU, both f32.  A
+#: CPU step replayed on the card's routes and ReLU gates is held to
+#: (b)'s P24_LIMITS, and so is the CPU's step on its own decisions where
+#: none flipped; where one did (a pre-activation within rounding of 0
+#: moves a whole token's gradient), that step is held to P24_MOE_LIMITS
+P24_MOE_LAYERS, P24_MOE_TOKENS = 2, (2, 1024)
+P24_MOE_LIMITS = {"loss_rel": 1e-4, "grad_rel_l2": 1e-3}
+#: (e): timed bf16 steps of each variant (after one untimed)
+P24_TIMED = 3
+_K4 = ("attention", "attention_bwd_dq", "attention_bwd_dkdv")
+#: K4 launches per training step of each variant at 12 layers
+P24_LAUNCHES = {"dp": (12, 12, 12), "tp": (12, 12, 12),
+                "pp": (12 * P24_MICRO * 2, 12 * P24_MICRO, 12 * P24_MICRO),
+                "moe": (12, 12, 12), "remat": (24, 12, 12)}
+
+
+def _k4_counts(counts: dict) -> tuple:
+    return tuple(counts.get(k, 0) for k in _K4)
+
+
+def p24_attention(torch, mesh) -> dict:
+    """(a) Each strategy on the (one-rank) seq group at ``P24_ATTN``,
+    forward and backward: K4 launches (all-gather and Ulysses 1 + 1 + 1,
+    ring none), and the output and gradients against the plain twins of
+    K4 (``ops/attention.tolerance_excess`` at most 1; ring against the
+    f32 plain path)."""
+    from theanompi_tpu_torch.ops import _kernels
+    from theanompi_tpu_torch.ops.attention import (
+        attention_bwd_plain,
+        attention_fwd_plain,
+        tolerance_excess,
+    )
+    from theanompi_tpu_torch.parallel.sequence import (
+        STRATEGIES,
+        attention_reference,
+        sequence_attention,
+    )
+
+    b, t, h, d = P24_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v, g = (torch.randn((b, t, h, d), generator=gen, device="cuda")
+                  .to(torch.bfloat16) for _ in range(4))
+    pos = torch.arange(t, device="cuda", dtype=torch.int32)
+    scale = d ** -0.5
+    seq = mesh.axis("seq")
+    out = {}
+    for name in STRATEGIES:
+        f32 = name == "ring"
+        ins = tuple(x.float() for x in (q, k, v)) if f32 else (q, k, v)
+        want_o, lse = attention_fwd_plain(*ins, pos, pos, scale, True)
+        want = attention_bwd_plain(*ins, pos, pos, lse,
+                                   g.float() if f32 else g, scale, True)
+        for _ in range(2):   # the second call is counted and timed
+            leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            o = sequence_attention(*leaves, seq, causal=True, strategy=name)
+            o.backward(g)
+            e1.record()
+            torch.cuda.synchronize()
+        launches = _k4_counts(_kernels.launch_counts())
+        excess = {"o": tolerance_excess("o", o.detach(), want_o,
+                                        (q, k, v, pos, pos, scale, True))}
+        for n, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+            excess[n] = tolerance_excess(n, leaf.grad, w)
+        ref = attention_reference(q, k, v, causal=True)
+        out[name] = {"launches": launches, "excess": excess,
+                     "ms_fwd_bwd": e0.elapsed_time(e1),
+                     "rel_l2_vs_reference": rel_l2(torch, o.detach().float(),
+                                                   ref.float())}
+        log(f"  {name}: K4 launches {launches}, tolerance excess "
+            + ", ".join(f"{n} {x:.3g}" for n, x in excess.items())
+            + f"; {out[name]['ms_fwd_bwd']:.2f} ms fwd+bwd; rel L2 vs "
+            f"attention_reference {out[name]['rel_l2_vs_reference']:.3g}")
+        want_l = (0, 0, 0) if f32 else (1, 1, 1)
+        if launches != want_l or max(excess.values()) > 1:
+            raise AssertionError(f"phase 24 (a) {name}: launches "
+                                 f"{launches} != {want_l} or excess "
+                                 f"{excess} over 1")
+        del o, leaves, ref, want, want_o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def p24_config(dtype: str = "bfloat16", **kw):
+    """The variants' recipe: bench_lm's (``lm_model``), print-free."""
+    from theanompi_tpu_torch.models.base import ModelConfig
+
+    base = dict(batch_size=LM_BATCH, n_epochs=1, optimizer="adamw",
+                learning_rate=1e-3, weight_decay=0.01,
+                lr_schedule="constant", compute_dtype=dtype, print_freq=0)
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def p24_model(torch, kind: str, mesh, dtype: str = "bfloat16",
+              dims=None, data=None, **cfg):
+    """One variant at ``LM_DIMS`` (``dims`` overrides): 'dp' (no mesh),
+    'remat', 'tp', 'pp' (``P24_MICRO`` microbatches) or 'moe' (8
+    experts)."""
+    from theanompi_tpu_torch.models import transformer as T
+
+    dims = dict(LM_DIMS, **(dims or {}))
+    if kind == "remat":
+        cfg["remat"] = True
+    cls = {"dp": T.TransformerLM, "remat": T.TransformerLM,
+           "tp": T.TransformerLM_TP, "pp": T.TransformerLM_PP,
+           "moe": T.TransformerLM_MoE}[kind]
+    extra = ({"n_microbatches": P24_MICRO} if kind == "pp" else
+             {"n_experts": 8} if kind == "moe" else {})
+    return cls(config=p24_config(dtype, **cfg), device="cuda", data=data,
+               mesh=None if kind in ("dp", "remat") else mesh, **dims,
+               **extra)
+
+
+def p24_batches(torch, n: int, rows: int, seed: int = 24):
+    from theanompi_tpu_torch.data.lm import SeqLM_data
+
+    data = SeqLM_data(vocab=LM_DIMS["vocab"], seq_len=LM_DIMS["seq_len"],
+                      n_train=n * rows, n_val=rows, seed=seed)
+    return data, [tuple(torch.from_numpy(x).cuda() for x in bt)
+                  for bt in data.train_batches(0, rows)]
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().float().reshape(-1).clone()
+            for n, p in model.module.named_parameters()}
+
+
+def p24_vs_dp(torch, mesh) -> dict:
+    """(b) TP (tp 1) and PP (one stage, ``P24_MICRO`` microbatches) from
+    the DP model's weights, f32, ``P24_STEPS`` SGD steps on the same
+    batches: each step's loss within ``P24_LIMITS['loss_rel']`` of DP's,
+    the first step's flattened gradient within ``grad_rel_l2``, and K4's
+    launches per step exactly ``P24_LAUNCHES``."""
+    from theanompi_tpu_torch.models.bridge import pipeline_state_dict_from_lm
+    from theanompi_tpu_torch.ops import _kernels
+
+    data, batches = p24_batches(torch, P24_STEPS, LM_BATCH)
+    cfg = dict(optimizer="sgd", learning_rate=1e-2, weight_decay=0.0)
+    dp = p24_model(torch, "dp", mesh, "float32", data=data, **cfg)
+    whole = {k: v.detach().clone() for k, v in dp.module.state_dict().items()}
+    runs = {}
+    for kind in ("dp", "tp", "pp"):
+        model = dp if kind == "dp" else p24_model(torch, kind, mesh,
+                                                  "float32", data=data, **cfg)
+        if kind == "tp":
+            model.load_whole_state_dict(whole)
+        elif kind == "pp":
+            model.load_whole_state_dict(pipeline_state_dict_from_lm(
+                whole, LM_DIMS["seq_len"]))
+        model.compile_iter_fns()
+        losses, first, per_step = [], None, []
+        for batch in batches:
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts()
+            losses.append(float(model.train_step(model.state, batch,
+                                                 None)["loss"]))
+            per_step.append(_k4_counts(_kernels.launch_counts()))
+            if first is None:
+                first = _grads(model)
+        if kind == "pp":
+            back = {"embed.embedding": "Embed_0.embedding",
+                    "ln_f.scale": "LayerNorm_0.scale",
+                    "ln_f.bias": "LayerNorm_0.bias",
+                    "head.weight": "Dense_0.weight",
+                    "head.bias": "Dense_0.bias"}
+            first = {back.get(n, n): g for n, g in first.items()}
+            pe = first["pos_emb"]
+            first["pos_emb"] = torch.cat([pe, torch.zeros(
+                runs["dp"]["grads"]["pos_emb"].numel() - pe.numel(),
+                device=pe.device)])
+        runs[kind] = {"losses": losses, "grads": first,
+                      "launches_per_step": per_step}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    out = {"limits": P24_LIMITS, "steps": P24_STEPS}
+    ref = runs["dp"]
+    for kind in ("tp", "pp"):
+        r = runs[kind]
+        names = list(ref["grads"])
+        g = torch.cat([r["grads"][n] for n in names])
+        g0 = torch.cat([ref["grads"][n] for n in names])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                          ref["losses"]))
+        out[kind] = {"losses": r["losses"], "loss_rel": loss_rel,
+                     "grad_rel_l2": rel_l2(torch, g, g0),
+                     "launches_per_step": r["launches_per_step"]}
+        log(f"  {kind} vs dp (f32, {P24_STEPS} steps): losses "
+            f"{[round(x, 6) for x in r['losses']]} vs "
+            f"{[round(x, 6) for x in ref['losses']]}, loss rel "
+            f"{loss_rel:.3g}, gradient rel L2 {out[kind]['grad_rel_l2']:.3g};"
+            f" K4 launches per step {r['launches_per_step']}")
+        want = [P24_LAUNCHES[kind]] * P24_STEPS
+        if (loss_rel > P24_LIMITS["loss_rel"]
+                or not out[kind]["grad_rel_l2"] <= P24_LIMITS["grad_rel_l2"]
+                or r["launches_per_step"] != want):
+            raise AssertionError(f"phase 24 (b) {kind}: {out[kind]} over "
+                                 f"{P24_LIMITS} or launches != {want}")
+    out["dp"] = {"losses": ref["losses"],
+                 "launches_per_step": ref["launches_per_step"]}
+    return out
+
+
+class _DecisionTap:
+    """Stands in for parallel/expert.py's ``top1_dispatch`` and
+    ``apply_experts`` while entered, to record the MoE's discrete
+    decisions: each layer's routes (every token's first-max expert), the
+    tokens that fit their expert's capacity, and the experts' ReLU gates
+    (pre-activation > 0).  Recording calls the port's own functions.
+    Given ``replay`` (another run's tap) it takes that run's routes and
+    gates instead, with the port's arithmetic otherwise (the
+    probabilities, queue positions, capacity drop and aux loss of
+    ``top1_dispatch``; the experts' products)."""
+
+    def __init__(self, torch, replay=None):
+        from theanompi_tpu_torch.parallel import expert
+
+        self.torch, self.expert, self.replay = torch, expert, replay
+        self.routes, self.kept, self.gates = [], [], []
+
+    def __enter__(self):
+        self.real = (self.expert.top1_dispatch, self.expert.apply_experts)
+        self.expert.top1_dispatch = self.dispatch
+        self.expert.apply_experts = self.experts
+        return self
+
+    def __exit__(self, *exc):
+        self.expert.top1_dispatch, self.expert.apply_experts = self.real
+
+    def dispatch(self, router_logits, capacity):
+        torch = self.torch
+        F = torch.nn.functional
+        probs = torch.softmax(router_logits.float(), dim=-1)
+        idx = probs.max(dim=-1).indices
+        if self.replay is None:
+            out = self.real[0](router_logits, capacity)
+        else:
+            idx = self.replay.routes[len(self.routes)].to(idx.device)
+            e = probs.shape[1]
+            onehot = F.one_hot(idx, e).to(torch.int32)
+            pos = (torch.cumsum(onehot, dim=0, dtype=torch.int32) * onehot
+                   - 1).amax(dim=-1)
+            keep = pos < capacity
+            aux = e * torch.sum(onehot.float().mean(dim=0)
+                                * probs.mean(dim=0))
+            slot = torch.where(keep, pos, torch.zeros_like(pos))
+            dispatch = (onehot.float()[:, :, None]
+                        * F.one_hot(slot.long(), capacity).float()[:, None]
+                        * keep.float()[:, None, None])
+            combine = dispatch * probs.gather(1, idx[:, None])[:, :, None]
+            out = dispatch.permute(1, 2, 0), combine, aux
+        self.routes.append(idx.detach().cpu())
+        self.kept.append(int(out[0].sum()))
+        return out
+
+    def experts(self, p, tok):
+        pre = self.torch.bmm(tok, p["up_kernel"]) + p["up_bias"][:, None]
+        if self.replay is None:
+            self.gates.append((pre > 0).cpu())
+            return self.real[1](p, tok)
+        gate = self.replay.gates[len(self.gates)]
+        self.gates.append(gate)
+        h = pre * gate.to(pre.device, pre.dtype)
+        return self.torch.bmm(h, p["down_kernel"]) + p["down_bias"][:, None]
+
+
+def p24_moe_vs_cpu(torch, mesh) -> dict:
+    """(c) The MoE cut to ``P24_MOE_LAYERS`` layers at full width, f32,
+    one step on ``P24_MOE_TOKENS`` from the same seeded weights on the
+    card, on the CPU, and on the CPU replaying the card's routes and ReLU
+    gates (``_DecisionTap``): the routes and gates that flipped between
+    card and CPU and the tokens each layer kept; the replayed step's loss
+    and flattened gradient within ``P24_LIMITS`` of the card's, and the
+    CPU's own step within them too unless a decision flipped, then within
+    ``P24_MOE_LIMITS``."""
+    from theanompi_tpu_torch.data.lm import SeqLM_data
+    from theanompi_tpu_torch.models.transformer import TransformerLM_MoE
+
+    n, t = P24_MOE_TOKENS
+    data = SeqLM_data(vocab=LM_DIMS["vocab"], seq_len=t, n_train=n,
+                      n_val=n, seed=25)
+    tokens, targets = next(iter(data.train_batches(0, n)))
+    steps, taps = {}, {}
+    for run, dev in (("card", "cuda"), ("cpu", "cpu"),
+                     ("replayed", "cpu")):
+        t0 = time.monotonic()
+        model = TransformerLM_MoE(
+            config=p24_config("float32", batch_size=n, optimizer="sgd",
+                              learning_rate=1e-2, weight_decay=0.0),
+            device=dev, data=data, n_experts=8, mesh=mesh,
+            **dict(LM_DIMS, n_layers=P24_MOE_LAYERS, seq_len=t))
+        model.compile_iter_fns()
+        with _DecisionTap(torch, taps.get("card") if run == "replayed"
+                          else None) as taps[run]:
+            m = model.train_step(model.state, (
+                torch.from_numpy(tokens).to(dev),
+                torch.from_numpy(targets).to(dev)), None)
+        steps[run] = {"loss": float(m["loss"]), "aux": float(m["aux"]),
+                      "grads": torch.cat([p.grad.float().reshape(-1).cpu()
+                                          for p in model.module.parameters()]),
+                      "s": time.monotonic() - t0}
+        del model
+        gc.collect()
+    card = steps["card"]
+
+    def flipped(what: str) -> list:
+        return [int((a != b).sum()) for a, b in zip(
+            getattr(taps["card"], what), getattr(taps["cpu"], what))]
+
+    r = {"layers": P24_MOE_LAYERS, "tokens": [n, t],
+         "loss_card": card["loss"], "aux_card": card["aux"],
+         "kept_card": taps["card"].kept,
+         "flipped_routes": flipped("routes"),
+         "flipped_gates": flipped("gates"),
+         "gates_per_layer": [g.numel() for g in taps["card"].gates]}
+    for run in ("cpu", "replayed"):
+        s = steps[run]
+        r[run] = {"loss": s["loss"], "aux": s["aux"], "kept": taps[run].kept,
+                  "loss_rel": abs(s["loss"] - card["loss"]) / abs(s["loss"]),
+                  "grad_rel_l2": rel_l2(torch, card["grads"], s["grads"]),
+                  "limits": P24_LIMITS, "s": s["s"]}
+    if any(r["flipped_routes"]) or any(r["flipped_gates"]):
+        r["cpu"]["limits"] = P24_MOE_LIMITS
+    log(f"  MoE cut to {P24_MOE_LAYERS} layers (full width, 8 experts), "
+        f"{n}x{t} tokens, f32: flipped card vs CPU per layer: routes "
+        f"{r['flipped_routes']}, ReLU gates {r['flipped_gates']} of "
+        f"{r['gates_per_layer']}; tokens kept card {r['kept_card']} CPU "
+        f"{r['cpu']['kept']}")
+    for run in ("cpu", "replayed"):
+        x = r[run]
+        log(f"    {run:8s}: loss card {card['loss']:.6f} cpu "
+            f"{x['loss']:.6f} (rel {x['loss_rel']:.3g}), aux "
+            f"{card['aux']:.6f}/{x['aux']:.6f}, gradient rel L2 "
+            f"{x['grad_rel_l2']:.3g} (limits {x['limits']}; cpu step "
+            f"{x['s']:.1f} s)")
+        if not (x["loss_rel"] <= x["limits"]["loss_rel"]
+                and x["grad_rel_l2"] <= x["limits"]["grad_rel_l2"]):
+            raise AssertionError(f"phase 24 (c) {run}: {x}")
+    if r["replayed"]["kept"] != r["kept_card"]:
+        raise AssertionError(f"phase 24 (c): the replayed step kept "
+                             f"{r['replayed']['kept']} tokens, the card "
+                             f"{r['kept_card']}")
+    return r
+
+
+def p24_remat(torch) -> dict:
+    """(d) The DP model with and without ``remat`` from the same weights,
+    bf16, one step on the same batch: every gradient and every updated
+    parameter bit for bit."""
+    from theanompi_tpu_torch.ops import _kernels
+
+    data, (batch,) = p24_batches(torch, 1, LM_BATCH, seed=26)
+    out, seen = {}, {}
+    for kind in ("dp", "remat"):
+        model = p24_model(torch, kind, None, data=data)
+        model.compile_iter_fns()
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        loss = float(model.train_step(model.state, batch, None)["loss"])
+        out[kind] = {"loss": loss,
+                     "launches": _k4_counts(_kernels.launch_counts())}
+        seen[kind] = ({n: p.grad.clone() for n, p in
+                       model.module.named_parameters()},
+                      {n: p.detach().clone() for n, p in
+                       model.module.named_parameters()})
+        del model
+        gc.collect()
+    (g0, p0), (g1, p1) = seen["dp"], seen["remat"]
+    differ = [n for n in g0 if not (torch.equal(g0[n], g1[n])
+                                    and torch.equal(p0[n], p1[n]))]
+    out["same_bits"] = not differ and out["dp"]["loss"] == out["remat"]["loss"]
+    out["differ"] = differ[:8]
+    log(f"  remat vs plain (bf16, one step): loss {out['dp']['loss']:.6f} / "
+        f"{out['remat']['loss']:.6f}, gradients and parameters bit for bit "
+        f"{out['same_bits']} ({len(differ)} of {len(g0)} tensors differ); "
+        f"K4 launches {out['dp']['launches']} / {out['remat']['launches']}")
+    if not out["same_bits"] or (out["remat"]["launches"], out["dp"][
+            "launches"]) != (P24_LAUNCHES["remat"], P24_LAUNCHES["dp"]):
+        raise AssertionError(f"phase 24 (d): {out}")
+    del seen
+    torch.cuda.empty_cache()
+    return out
+
+
+def p24_timing(torch, mesh) -> dict:
+    """(e) Each variant at the recipe (bf16, batch 8, AdamW): ms a step
+    over ``P24_TIMED`` steps after one untimed, the peak memory of those
+    steps, and K4's launches per step (exactly ``P24_LAUNCHES``)."""
+    from theanompi_tpu_torch.ops import _kernels
+
+    data, batches = p24_batches(torch, P24_TIMED + 1, LM_BATCH, seed=27)
+    out = {}
+    for kind in ("dp", "remat", "tp", "pp", "moe"):
+        t0 = time.monotonic()
+        model = p24_model(torch, kind, mesh, data=data)
+        model.compile_iter_fns()
+        model.train_step(model.state, batches[0], None)
+        torch.cuda.synchronize()
+        setup_s = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _kernels.reset_launch_counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t1 = time.monotonic()
+        e0.record()
+        losses = [model.train_step(model.state, b, None)["loss"]
+                  for b in batches[1:]]
+        e1.record()
+        torch.cuda.synchronize()
+        host_ms = (time.monotonic() - t1) * 1e3 / P24_TIMED
+        counts = _k4_counts(_kernels.launch_counts())
+        per_step = tuple(c // P24_TIMED for c in counts)
+        losses = [float(x) for x in losses]
+        out[kind] = {"ms_per_step": e0.elapsed_time(e1) / P24_TIMED,
+                     "host_ms_per_step": host_ms,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches_per_step": per_step, "losses": losses,
+                     "setup_s": setup_s}
+        log(f"  {kind}: {out[kind]['ms_per_step']:.2f} ms a step (event), "
+            f"{host_ms:.2f} host, peak {out[kind]['peak_gib']:.2f} GiB, K4 "
+            f"launches per step {per_step}, losses "
+            f"{[round(x, 4) for x in losses]} (set-up {setup_s:.1f} s)")
+        if (counts != tuple(c * P24_TIMED for c in P24_LAUNCHES[kind])
+                or not all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"phase 24 (e) {kind}: launches {counts} "
+                                 f"over {P24_TIMED} steps != "
+                                 f"{P24_LAUNCHES[kind]} each, or losses "
+                                 f"{losses}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_variants_phase(torch) -> dict:
+    """Phase 24 on a one-rank NCCL group: (a) the SP strategies, (b) TP
+    and PP against DP, (c) the MoE against the CPU, (d) remat, (e) ms a
+    step and peak memory of each variant.  Every axis of the mesh has
+    degree 1: no collective of the mesh is issued."""
+    import torch.distributed as dist
+
+    from theanompi_tpu_torch.parallel.mesh import MeshSpec, make_training_mesh
+
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_training_mesh(MeshSpec())
+        for part, label, fn, args in (
+                ("a", "attention", p24_attention, (mesh,)),
+                ("b", "vs_dp", p24_vs_dp, (mesh,)),
+                ("c", "moe_vs_cpu", p24_moe_vs_cpu, (mesh,)),
+                ("d", "remat", p24_remat, ()),
+                ("e", "timing", p24_timing, (mesh,))):
+            t0 = time.monotonic()
+            log(f"  phase 24 ({part}) {label}")
+            out[label] = fn(torch, *args)
+            out[label + "_s"] = time.monotonic() - t0
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -5428,6 +5925,11 @@ def main() -> int:
         "local aggregation) on one card")
     with tempfile.TemporaryDirectory() as tmp:
         phase22 = remote_phase(torch, tmp)
+    torch.cuda.empty_cache()
+
+    log("phase 24: the LM family's parallel variants (SP strategies, TP, "
+        "PP, MoE, remat) on a one-rank NCCL group")
+    phase24 = lm_variants_phase(torch)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -5485,6 +5987,14 @@ def main() -> int:
                 "in_process": phase23["ingest"][0]["launches"][k["name"]],
                 "launcher_train": p23["train"][k["name"]],
                 "launcher_val": p23["val"][k["name"]]}
+        if k["name"] in _K4:
+            i = _K4.index(k["name"])
+            k["lm_variant_launches_per_step"] = {
+                kind: r["launches_per_step"][i]
+                for kind, r in phase24["timing"].items()}
+            k["sp_strategy_launches"] = {
+                name: r["launches"][i]
+                for name, r in phase24["attention"].items()}
         if k["name"] in ("lrn", "lrn_bwd"):
             k["remote_launches"] = {
                 **{f"launcher_{label}": run["launches"][k["name"]]
@@ -5517,6 +6027,7 @@ def main() -> int:
                    "rest_of_bsp": rest, "zoo": zoo, "phase19": phase19,
                    "phase20": phase20, "phase21": phase21,
                    "phase22": phase22, "phase23": phase23,
+                   "phase24": phase24,
                    "seconds": time.monotonic() - _STARTED,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
@@ -5555,7 +6066,12 @@ def main() -> int:
                            "validation); ingest_launches (K1, K2): "
                            "phase 23's in-process ingest-fed steps and "
                            "its launcher run's train and validation "
-                           "launches"},
+                           "launches; lm_variant_launches_per_step (K4): "
+                           "phase 24 (e)'s launches per bf16 step of each "
+                           "LM variant (dp, remat, tp, pp, moe) at 12 "
+                           "layers; sp_strategy_launches (K4): phase 24 "
+                           "(a)'s launches of one forward and backward "
+                           "of each sequence-parallel strategy"},
                   f, indent=1)
     log(f"whole script: {time.monotonic() - _STARTED:.1f} s")
     log(json.dumps({"kernels": kernels}))

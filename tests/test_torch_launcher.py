@@ -6,9 +6,10 @@ loss is finite, and the two ranks end with equal parameters; the
 TransformerLM trains at its default dims through the same command; a worker
 that fails stops its sibling and the launcher exits non-zero; two ranks
 stopped and resumed end as two unbroken ranks; ``--multihost`` joins two
-launchers of one rank each into one world; unported rules and options
-(SERVE, the async rules' remote paths, ...) exit non-zero naming their
-ROADMAP item.
+launchers of one rank each into one world; the four mesh degrees
+(``--seq/--model/--pipe/--expert-parallel``) run the LM family on two
+ranks and the async rules refuse them; unported rules and options
+(SERVE, ...) exit non-zero naming their ROADMAP item.
 
 This file imports no JAX: it is also the model module the launched
 workers import (``-m test_torch_launcher -c TinyAlexNet``).  Every
@@ -146,17 +147,61 @@ def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["BSP", "--seq-parallel", "2"], 18),
     (["ASGD", "--serve-replicas", "2"], 19),
     (["GOSGD", "--compilation-cache-dir", "d"], 22), (["SERVE"], 19),
-    (["BSP", "--expert-parallel", "2"], 18),
     (["EASGD", "--disaggregate"], 21),
-    (["BSP", "--model-parallel=2"], 18), (["BSP", "--decode-max-seqs", "4"],
-                                          20)])
+    (["BSP", "--decode-max-seqs", "4"], 20)])
 def test_unported_rules_and_options_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP.md "
                                          rf"section A, item {item}\)"):
         launcher.main(argv + ["-m", "x", "-c", "y"])
+
+
+@pytest.mark.parametrize("flag,cls", [
+    ("--seq-parallel", "TransformerLM"), ("--model-parallel", "TransformerLM_TP"),
+    ("--pipe-parallel", "TransformerLM_PP"),
+    ("--expert-parallel", "TransformerLM_MoE")])
+def test_bsp_mesh_degree_on_two_gloo_ranks(tmp_path, monkeypatch, capfd,
+                                           flag, cls):
+    """``BSP -D 2 --<axis>-parallel 2`` at the tests' tiny LM
+    (tests/_torch_lm_ranks.py): the launcher builds the mesh, one epoch
+    runs, every loss is finite, and the two ranks' checkpoint payloads
+    (the whole tree, gathered from the shards) are the same."""
+    monkeypatch.setenv("PYTHONPATH", TESTS)
+    out = tmp_path / "result.json"
+    rc = _launch(["BSP", "-D", "2", "--platform", "cpu", flag, "2", "-m",
+                  "_torch_lm_ranks", "-c", cls, "--snapshot-dir",
+                  str(tmp_path), "--result-json", str(out)], timeout=150)
+    stdout, stderr = capfd.readouterr()
+    assert rc == 0, stdout[-3000:] + stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert res["world_size"] == 2 and res["epochs_run"] == 1
+    rec = res["records"][0]
+    assert rec["train_steps"] > 0
+    assert math.isfinite(rec["train_loss"]) and math.isfinite(rec["val_loss"])
+    assert len(set(res["state_digests"])) == 1
+
+
+@pytest.mark.parametrize("rule", ["EASGD", "ASGD", "GOSGD"])
+def test_async_rules_refuse_a_mesh_degree(rule):
+    with pytest.raises(SystemExit, match="are BSP options \\(async rules "
+                                         "are data-parallel per worker\\)"):
+        launcher.main([rule, "--pipe-parallel", "2", "-m", "x", "-c", "y"])
+
+
+@pytest.mark.parametrize("modelfile,cls", [
+    ("test_torch_launcher", "TinyAlexNet"),
+    ("theanompi_tpu_torch.models.cifar10", "Cifar10_model")])
+def test_a_mesh_degree_needs_an_lm(tmp_path, workers_import_this_file, capfd,
+                                   modelfile, cls):
+    """A model that sets no ``batch_partition`` (the zoo) refuses the
+    degrees by name, whether it has its own constructor (TinyAlexNet) or
+    the base's, which takes ``mesh=`` (Cifar10_model)."""
+    rc = _launch(["BSP", "-D", "2", "--platform", "cpu", "--seq-parallel",
+                  "2", "-m", modelfile, "-c", cls,
+                  "--snapshot-dir", str(tmp_path)], timeout=120)
+    assert rc != 0
+    assert f"{cls} trains on the data axis alone" in capfd.readouterr().err
 
 
 def _resilience_run(tmp_path, name, *extra, devices="2"):

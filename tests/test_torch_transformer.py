@@ -12,6 +12,8 @@ takes its plain versions on CPU tensors.
 * one BSP step under sgd and under adamw on a one-device mesh: the loss,
   every gradient and every parameter after the update, against
   ``jax.grad`` of the JAX model's own ``loss_fn`` and its ``train_step``;
+  the same with ``ModelConfig.remat`` on both sides, and the remat net
+  against the plain one bit for bit (loss and gradients);
 * ``SeqLM_data``'s streams (train by epoch, rank blocks, validation),
   byte-identical; ``_lm_train_flops``, equal.
 
@@ -235,6 +237,11 @@ def test_train_flops_equal_jax(dims):
 
 
 def test_recipe_and_refusals():
+    """The recipe, and the variants that once refused: ``remat`` builds
+    under the non-remat names, the TP, PP and MoE models build on one
+    process (every axis of degree 1) with JAX's names and batch
+    partitions, and an unknown SP strategy and an over-long sequence
+    still refuse."""
     assert T.TransformerLM.default_config() == ModelConfig(
         batch_size=16, n_epochs=5, learning_rate=0.1, momentum=0.9,
         weight_decay=0.0, lr_schedule="constant", print_freq=20)
@@ -242,13 +249,82 @@ def test_recipe_and_refusals():
     assert model._net_cfg == dict(vocab=32, seq_len=32, n_layers=2,
                                   d_model=64, n_heads=4)
     assert model.module.max_len == 2048
-    msg = r"not ported yet \(ROADMAP.md section A, item 18\)"
-    with pytest.raises(NotImplementedError, match=msg):
-        port_model(remat=True)
-    for cls in (T.TransformerLM_TP, T.TransformerLM_PP, T.TransformerLM_MoE):
-        with pytest.raises(NotImplementedError, match=msg):
-            cls(device="cpu")
-    with pytest.raises(NotImplementedError, match=msg):
-        T.sequence_attention()
+    remat = port_model(remat=True)
+    assert remat.module.remat and [n for n, _ in
+                                   remat.module.named_parameters()] == [
+        n for n, _ in model.module.named_parameters()]
+    assert (T.TransformerLM.batch_partition, T.TransformerLM.seq_axis) == (
+        ("data", "seq"), "seq")
+    for cls, name, part in (
+            (T.TransformerLM_TP, "transformer_lm_tp", ("data",)),
+            (T.TransformerLM_PP, "transformer_lm_pp", ("data",)),
+            (T.TransformerLM_MoE, "transformer_lm_moe", (("data", "expert"),))):
+        m = cls(device="cpu", data=SeqLM_data(vocab=256, seq_len=128,
+                                              n_train=64, n_val=16))
+        assert (m.name, m.batch_partition) == (name, part)
+        assert m.train_flops_per_sample > 0
+    with pytest.raises(ValueError, match="unknown sequence-parallel "
+                                         "strategy 'tree'"):
+        T.sequence_attention(*[torch.zeros(1, 4, 2, 4)] * 3, strategy="tree")
     with pytest.raises(ValueError, match="max_len"):
         model.module.eval()(torch.zeros(1, 2049, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_remat_same_loss_and_grads_bit_for_bit(dtype):
+    """``ModelConfig.remat`` (each block under ``checkpoint``): the same
+    parameter names, and the same loss and gradients bit for bit as the
+    plain net (the recompute runs the same ops on the same inputs), in
+    f32 and in bf16 compute (JAX's ``test_remat_identical_params_and_
+    grads`` holds its two programs to 1e-5: XLA may fuse them apart)."""
+    sd = transformer_state_dict_from_flax(random_params(seed=6))
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, DIMS["vocab"], (2, 32)).astype(np.int32))
+    out = {}
+    for remat in (False, True):
+        net = T.TransformerLMNet(seq_len=32, dtype=dtype, remat=remat,
+                                 **DIMS).train()
+        net.load_state_dict(sd)
+        loss = (net(tokens, train=True) ** 2).mean()
+        loss.backward()
+        out[remat] = (loss.detach(), {n: p.grad for n, p in
+                                      net.named_parameters()})
+    assert torch.equal(out[False][0], out[True][0])
+    assert out[False][1].keys() == out[True][1].keys()
+    for n, g in out[False][1].items():
+        assert torch.equal(g, out[True][1][n]), n
+
+
+def test_remat_step_matches_jax_remat_step(pallas_attention):
+    """One BSP step of the remat model against JAX's remat model on a
+    one-device mesh, under the step test's limits."""
+    seq_len = 32
+    jcfg = JaxConfig(batch_size=2, n_epochs=1, learning_rate=0.1,
+                     weight_decay=0.0, lr_schedule="constant",
+                     print_freq=10**9, remat=True)
+    mesh = data_mesh(1, jax.devices()[:1])
+    jm = JaxLM(config=jcfg, mesh=mesh, seq_len=seq_len, verbose=False,
+               **DIMS)
+    params = random_params(seed=8, seq_len=seq_len)
+    data = SeqLM_data(vocab=DIMS["vocab"], seq_len=seq_len, n_train=8,
+                      n_val=4)
+    tokens, targets = next(iter(data.train_batches(0, 2)))
+    batch = (jnp.asarray(tokens), jnp.asarray(targets))
+    jm.compile_iter_fns("avg")
+    state = jm.state.replace(params=jax.tree.map(jnp.asarray, params),
+                             opt_state=jm.tx.init(params))
+    state, metrics = jm.train_step(
+        state, shard_batch(batch, mesh, spec=jm.batch_partition),
+        jax.random.key(0))
+    jm.cleanup()
+    model = port_model(seq_len, remat=True)
+    model.module.load_state_dict(transformer_state_dict_from_flax(params))
+    model.compile_iter_fns()
+    out = model.train_step(model.state, (torch.from_numpy(tokens),
+                                         torch.from_numpy(targets)), None)
+    assert_close(float(out["loss"]), float(metrics["loss"]), msg="loss")
+    want_p = transformer_state_dict_from_flax(
+        jax.tree.map(np.asarray, state.params))
+    for name, p in model.module.named_parameters():
+        assert_close(p.detach().numpy(), want_p[name].numpy(), floor=1e-4,
+                     msg=f"param {name}")

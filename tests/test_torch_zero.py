@@ -30,8 +30,13 @@ backward ends" (eager PyTorch has no program to lower).  Its donation
 tests (``test_zero_stacked_cadence_donates_staged_batch``,
 ``test_zero_bucketed_donation_unchanged``) have no counterpart: an
 eager step allocates no output for its inputs to alias, so there is
-nothing to donate.  ``test_zero_composes_with_sequence_parallel`` waits
-for the port's sequence parallelism (ROADMAP.md section A, item 18).
+nothing to donate.  ``test_zero_composes_with_sequence_parallel`` has
+its counterpart on four more gloo ranks (a second spawn): the
+TransformerLM over (data 2 x seq 2) with and without ZeRO from JAX's
+initial weights, two steps: the ZeRO run's losses and parameters within
+JAX's ``rtol=2e-5, atol=1e-6`` of the plain SP run's and of JAX's own
+ZeRO-over-seq run, the optimizer state cut over ``data`` only (each
+rank's momentum half the flat vector, equal across the ``seq`` pair).
 
 The file is also the rank program: ``python test_torch_zero.py RANK
 WORLD PORT DIR``.
@@ -719,6 +724,98 @@ def test_launcher_resume_and_a_resume_under_other_buckets(tmp_path):
     assert not torch.equal(residual[0], residual[1])
 
 
+def _seq_rank_main(rank: int, world: int, port: int, workdir: str) -> None:
+    """The ZeRO-over-seq ranks: plain SP and ZeRO SP, two steps each."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _torch_lm_ranks import init_ranks, save_rank, train_port
+    from theanompi_tpu_torch.models.transformer import TransformerLM
+
+    init_ranks(rank, world, port)
+    try:
+        whole = torch.load(os.path.join(workdir, "weights.pt"))
+        out = {}
+        for zero in (False, True):
+            out[zero], model = train_port(TransformerLM, dict(data=2, seq=2),
+                                          whole, steps=2, zero_sharding=zero)
+        shard = model.state.sharding
+        (mom,) = [v for v in model.state.optimizer.state[shard.shard]
+                  .values() if torch.is_tensor(v) and v.dim() == 1]
+        out["momentum"] = mom.numpy().copy()
+        out["layout"] = (shard.n, shard.layout.per_shard,
+                         sum(p.numel() for p in model.module.parameters()))
+        save_rank(workdir, rank, out)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def seq_ranks(tmp_path_factory):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _torch_lm_ranks import jax_model, jax_tree, load_ranks
+    from test_torch_exchange import spawn_ranks
+    from theanompi_tpu.models.transformer import TransformerLM as JaxLM
+    from theanompi_tpu_torch.models.bridge import (
+        transformer_state_dict_from_flax,
+    )
+
+    tmp = tmp_path_factory.mktemp("zero_seq")
+    torch.save(transformer_state_dict_from_flax(jax_tree(jax_model(
+        JaxLM, dict(data=2, seq=2), 4))), tmp / "weights.pt")
+    spawn_ranks(os.path.abspath(__file__), tmp, world=4, extra=("seq",),
+                timeout=240)
+    return load_ranks(tmp, 4)
+
+
+def test_zero_composes_with_sequence_parallel(seq_ranks):
+    from _torch_lm_ranks import (
+        assert_params_close,
+        jax_model,
+        train_jax,
+    )
+    from theanompi_tpu.models.transformer import TransformerLM as JaxLM
+
+    want = train_jax(jax_model(JaxLM, dict(data=2, seq=2), 4,
+                               zero_sharding=True), steps=2)
+    for o in seq_ranks:
+        np.testing.assert_allclose(o[True]["losses"], o[False]["losses"],
+                                   rtol=2e-5, atol=1e-6)
+        np.testing.assert_allclose(o[True]["losses"], want["losses"],
+                                   rtol=2e-5, atol=1e-6)
+        assert_params_close(o[True]["params"], o[False]["params"])
+    # rank r sits at (data r // 2, seq r % 2): the shard is data's
+    n, per_shard, total = seq_ranks[0]["layout"]
+    assert n == 2 and per_shard == -(-total // 2)
+    for r in (0, 2):
+        np.testing.assert_array_equal(seq_ranks[r]["momentum"],
+                                      seq_ranks[r + 1]["momentum"])
+    assert not np.array_equal(seq_ranks[0]["momentum"],
+                              seq_ranks[2]["momentum"])
+
+
+def test_fsdp_and_error_feedback_over_seq_refused_as_jax():
+    """JAX composes neither with a (data x seq) reduce: FSDP is the
+    pure-DP path, and the error-feedback residual is per data shard."""
+    from theanompi_tpu_torch.data.lm import SeqLM_data
+    from theanompi_tpu_torch.models.base import ModelConfig
+    from theanompi_tpu_torch.models.transformer import TransformerLM
+
+    kw = dict(device="cpu", data=SeqLM_data(vocab=32, seq_len=16,
+                                            n_train=16, n_val=8),
+              vocab=32, seq_len=16, d_model=32)
+    m = TransformerLM(config=ModelConfig(fsdp_sharding=True), **kw)
+    with pytest.raises(ValueError, match="fsdp_sharding is the pure-DP "
+                       "parameter-sharding path .* this model reduces "
+                       "over \\('data', 'seq'\\)"):
+        m.compile_iter_fns()
+    m = TransformerLM(config=ModelConfig(exchange_dtype="bf16",
+                                         exchange_error_feedback=True), **kw)
+    with pytest.raises(ValueError, match="exchange_error_feedback keeps one "
+                                         "residual per DATA shard"):
+        m.compile_iter_fns()
+
+
 if __name__ == "__main__":
-    _rank_main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-               sys.argv[4])
+    main = _seq_rank_main if sys.argv[5:] == ["seq"] else _rank_main
+    main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

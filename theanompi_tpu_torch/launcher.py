@@ -127,8 +127,6 @@ ASYNC_RULES = ("EASGD", "ASGD", "GOSGD")
 #: options of the JAX launcher this one does not take yet -> the ROADMAP
 #: item porting each; ``--decode-*`` are matched by prefix (item 20)
 UNPORTED_OPTIONS = {
-    **dict.fromkeys(("--model-parallel", "--seq-parallel", "--pipe-parallel",
-                     "--expert-parallel"), 18),
     **dict.fromkeys(("--export-dir", "--port", "--serve-host",
                      "--serve-replicas", "--max-batch", "--max-delay-ms",
                      "--serve-buckets", "--max-queue", "--reload-poll-s"),
@@ -162,6 +160,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "visible card; 1 on --platform cpu)")
     p.add_argument("--epochs", type=int, default=None,
                    help="cap the number of epochs")
+    for axis, what in (("model", "tensor"), ("seq", "sequence"),
+                       ("pipe", "pipeline"), ("expert", "expert")):
+        p.add_argument(f"--{axis}-parallel", type=int, default=1,
+                       help=f"BSP: {what}-parallel degree (ranks on the "
+                            f"mesh's '{axis}' axis; the rest go to 'data')")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--snapshot-dir", default=None)
@@ -280,6 +283,15 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
         raise SystemExit("-D must be >= 1")
     if args.max_restarts < 0:
         raise SystemExit("--max-restarts must be >= 0")
+    degrees = (args.model_parallel, args.seq_parallel, args.pipe_parallel,
+               args.expert_parallel)
+    if min(degrees) < 1:
+        raise SystemExit("--model/--seq/--pipe/--expert-parallel must be "
+                         ">= 1")
+    if args.rule != "BSP" and max(degrees) > 1:
+        raise SystemExit("--model-parallel/--seq-parallel/--pipe-parallel/"
+                         "--expert-parallel are BSP options (async rules "
+                         "are data-parallel per worker)")
     _check_rule_options(args)
     _check_telemetry_and_ingest(args)
     hosts = (args.coordinator, args.nhosts, args.host_id)
@@ -525,7 +537,11 @@ def run_worker(args: argparse.Namespace) -> int:
         rule = BSP().init(device=device, modelfile=args.modelfile,
                           modelclass=args.modelclass, config=config,
                           resume=args.resume, sync_type=args.sync_type,
-                          max_epochs=args.epochs)
+                          max_epochs=args.epochs,
+                          model_parallel=args.model_parallel,
+                          seq_parallel=args.seq_parallel,
+                          pipe_parallel=args.pipe_parallel,
+                          expert_parallel=args.expert_parallel)
         result = rule.wait()
         world = dist.get_world_size()
         digests = [None] * world

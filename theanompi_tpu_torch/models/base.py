@@ -27,6 +27,15 @@ One process trains on one card; the rank and worker count come from
 ``torch.distributed``.  An async rule's worker threads each hold a model
 of their own with ``shard_rank``/``shard_size``: the worker trains on
 its shard of each epoch, and its random stream is keyed by the shard.
+
+A model built with a ``mesh`` (parallel/mesh.py; the transformer family
+under the BSP rule's ``model/seq/pipe/expert`` degrees) takes JAX's
+``batch_partition``: every axis the batch is cut over is a gradient and
+metric reduce axis (``_batch_axes``, JAX's ``TpuModel._batch_axes``),
+reduced over that set's process group; the workers are the ``data``
+axis; each rank cuts its block out of every global batch
+(``shard_batch``).  Without a mesh every rank is a ``data`` rank, as
+before the mesh existed.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from theanompi_tpu_torch.parallel.fsdp import (
     make_bsp_fsdp_step,
     per_param_opt_state,
 )
+from theanompi_tpu_torch.parallel.mesh import AXIS_DATA, shard_batch
 from theanompi_tpu_torch.parallel.zero import (
     init_zero_exchange_residual,
     init_zero_opt_state,
@@ -184,16 +194,26 @@ class TorchModel:
     train_flops_per_sample: float | None = None
     #: most un-synced validation batches in flight
     VAL_SYNC_WINDOW = 8
+    #: the mesh axes each batch dimension is cut over (JAX's
+    #: ``batch_partition``); None: the rows over ``data``
+    batch_partition: tuple | None = None
 
     def __init__(self, config: ModelConfig | None = None,
                  device: str | torch.device = "cuda", data=None,
-                 shard_rank: int = 0, shard_size: int = 1):
+                 shard_rank: int = 0, shard_size: int = 1, mesh=None):
         self.device = resolve_device(device)
         self.config = config or self.default_config()
         dist = torch.distributed
         initialized = dist.is_available() and dist.is_initialized()
         self.rank = dist.get_rank() if initialized else 0
         self.n_workers = dist.get_world_size() if initialized else 1
+        #: parallel/mesh.py ``Mesh``, or None: every rank on ``data``
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.world != self.n_workers or mesh.rank != self.rank:
+                raise ValueError(f"{mesh!r} is not this process group's "
+                                 f"(rank {self.rank} of {self.n_workers})")
+            self.n_workers = mesh.shape[AXIS_DATA]
         # async-rule data sharding: this model instance (one worker
         # thread's) sees shard ``shard_rank`` of ``shard_size`` of every
         # epoch; BSP leaves 0/1 (the ranks split each global batch)
@@ -253,6 +273,33 @@ class TorchModel:
         return (torch.bfloat16 if self.config.compute_dtype == "bfloat16"
                 else torch.float32)
 
+    # -- the mesh ------------------------------------------------------------
+
+    def _batch_axes(self) -> tuple:
+        """(partition, reduce_axes) from ``batch_partition``: every mesh
+        axis the batch is cut over is also a gradient/metric reduce axis
+        (JAX's ``_batch_axes``)."""
+        part = (self.batch_partition if self.batch_partition is not None
+                else (AXIS_DATA,))
+        axes = []
+        for entry in part:
+            if entry is not None:
+                axes.extend((entry,) if isinstance(entry, str) else entry)
+        return tuple(part), tuple(axes)
+
+    def _reduce_group(self):
+        """The process group of the reduce axes (None without a mesh:
+        every rank)."""
+        if self.mesh is None:
+            return None
+        return self.mesh.axis(self._batch_axes()[1]).group
+
+    def _host_batches(self, batches):
+        """This rank's block of each global host batch under the mesh's
+        ``batch_partition``."""
+        part = self._batch_axes()[0]
+        return (shard_batch(b, self.mesh, part) for b in batches)
+
     # -- optimizer / loss ----------------------------------------------------
 
     def _optimizer_kwargs(self) -> dict:
@@ -288,8 +335,15 @@ class TorchModel:
                                              cfg.exchange_buckets)
             elif cfg.zero_sharding:
                 self._check_zero_supported()
+                data = extra = None
+                if self.mesh is not None:
+                    axes = self._batch_axes()[1]
+                    data = self.mesh.axis(AXIS_DATA)
+                    others = tuple(a for a in axes if a != AXIS_DATA)
+                    extra = self.mesh.axis(others) if others else None
                 optimizer, shard = init_zero_opt_state(
-                    self.module, self._make_optimizer, cfg.exchange_buckets)
+                    self.module, self._make_optimizer, cfg.exchange_buckets,
+                    data=data, extra=extra)
                 self.state = TrainState(
                     self.module, optimizer, sharding=shard,
                     exchange_residual=self._init_residual())
@@ -310,6 +364,12 @@ class TorchModel:
         if cfg.exchange_dtype != "bf16":
             raise ValueError("exchange_error_feedback compensates bf16 "
                              "quantization; set exchange_dtype='bf16'")
+        axes = self._batch_axes()[1]
+        if axes != (AXIS_DATA,):
+            raise ValueError(
+                "exchange_error_feedback keeps one residual per DATA "
+                f"shard; this model reduces over {axes} — per-shard "
+                "error state is only defined for the pure-data mesh")
         if cfg.zero_sharding:
             return init_zero_exchange_residual(self.module,
                                                cfg.exchange_buckets)
@@ -338,6 +398,11 @@ class TorchModel:
 
     def _check_zero_supported(self) -> None:
         """JAX's refusals under ``zero_sharding``, with its messages."""
+        axes = self._batch_axes()[1]
+        if AXIS_DATA not in axes:
+            raise ValueError("zero_sharding shards the optimizer over "
+                             f"the '{AXIS_DATA}' axis, which is not "
+                             f"among this model's reduce axes {axes}")
         if self.config.optimizer == "lars":
             raise ValueError("zero_sharding needs an ELEMENTWISE "
                              "optimizer; lars computes layerwise trust "
@@ -353,6 +418,12 @@ class TorchModel:
             raise ValueError("fsdp_sharding already shards params AND "
                              "optimizer state; combining it with "
                              "zero_sharding is meaningless")
+        axes = self._batch_axes()[1]
+        if axes != (AXIS_DATA,):
+            raise ValueError(
+                f"fsdp_sharding is the pure-DP parameter-sharding path "
+                f"(GSPMD over '{AXIS_DATA}'); this model reduces over "
+                f"{axes} — use the family's own sharded step instead")
         self._check_psum_grads_only(
             "fsdp_sharding", "collectives run at full precision")
 
@@ -672,7 +743,8 @@ class TorchModel:
             exchange_dtype=(None if cfg.exchange_dtype == "f32"
                             else cfg.exchange_dtype),
             error_feedback=cfg.exchange_error_feedback,
-            exchange_buckets=cfg.exchange_buckets)
+            exchange_buckets=cfg.exchange_buckets,
+            group=self._reduce_group())
         self._ensure_state()
         self.exchanger = exchanger
         if cfg.fsdp_sharding or cfg.zero_sharding:
@@ -695,7 +767,8 @@ class TorchModel:
                 if cfg.grad_accum_steps > 1 else None)
         self.eval_step = (make_bsp_fsdp_eval_step(self.eval_fn)
                           if cfg.fsdp_sharding
-                          else make_bsp_eval_step(self.eval_fn))
+                          else make_bsp_eval_step(self.eval_fn,
+                                                  self._reduce_group()))
         self.module.train()
 
     def _epoch_rng(self, epoch: int) -> torch.Generator:
@@ -750,6 +823,11 @@ class TorchModel:
                 size=self.shard_size)
             host_iter = self._ingest_source
             n_iters = self._ingest_source.n_batches
+        elif self.mesh is not None:
+            host_iter = self._host_batches(
+                self.data.train_batches(epoch, self.global_batch))
+            n_iters = self.data.n_train_batches_for(epoch,
+                                                    self.global_batch)
         elif self.shard_size > 1:
             host_iter = self.data.train_batches(
                 epoch, self.global_batch, self.shard_rank, self.shard_size)
@@ -840,7 +918,10 @@ class TorchModel:
         once per ``VAL_SYNC_WINDOW`` batches and copies the metrics to
         the host once at the end."""
         pending: list[dict] = []
-        if self.n_workers > 1:
+        if self.mesh is not None:
+            host_iter = self._host_batches(
+                self.data.val_batches(self.global_batch))
+        elif self.n_workers > 1:
             host_iter = self.data.host_val_batches(
                 self.global_batch, self.rank, self.n_workers)
         else:

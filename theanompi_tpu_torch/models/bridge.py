@@ -8,6 +8,16 @@ bias-free ``q/k/v/o_proj`` and the ``mlp_up``/``mlp_down`` kernels (in,
 out) -> weights (out, in), with their biases), then the final
 ``LayerNorm_0`` and ``Dense_0``.
 
+The LM family's other trees (:func:`state_dict_from_flax_tree` and
+:func:`flax_from_state_dict`, by family): ``"lm"`` is the tree above
+(the tensor-parallel model's too: each rank takes its block of it by
+parallel/tensor.py ``transformer_tp_specs``); ``"pp"`` is JAX's pipeline
+tree (``embed/embedding``, a ``(seq_len, d)`` ``pos_emb``, ``blocks``
+stacked on a leading layer axis, ``ln_f``, ``head``) onto
+``PipelineLMNet``'s ``blocks.<layer>``; ``"moe"`` is JAX's MoE tree (the
+lists ``attn``, ``moe_ln``, ``router`` and ``experts``, the expert stacks
+in JAX's ``(E, d, ff)`` layout as they are) onto ``MoELMNet``.
+
 A JAX ResNet's ``params`` and ``batch_stats`` (nested dicts of numpy
 arrays) map leaf by leaf onto :class:`~theanompi_tpu_torch.models.
 resnet50.ResNet`:
@@ -364,3 +374,142 @@ def module_params_from_flax(module: nn.Module,
         raise KeyError("bridge keys differ from the module's parameters: "
                        f"{sorted(set(out) ^ names)[:8]}")
     return _to_torch(pool, out)
+
+
+# -- the LM family's trees ---------------------------------------------------
+
+
+def _flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """Leaves of a tree of dicts, lists and tuples by ``/``-joined path
+    (a list index is its decimal key, as the npz snapshots name it)."""
+    if isinstance(tree, (list, tuple)):
+        tree = {str(i): v for i, v in enumerate(tree)}
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, (dict, list, tuple)) or hasattr(v, "items"):
+            out.update(_flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def _attn_leaves(port: str, scope: str):
+    for name in ("scale", "bias"):
+        yield f"{port}.LayerNorm_0.{name}", f"{scope}/LayerNorm_0/{name}", \
+            "same"
+    for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        yield f"{port}.{name}.weight", f"{scope}/{name}/kernel", "dense"
+
+
+def _block_leaves(port: str, scope: str):
+    yield from _attn_leaves(port, scope)
+    for name in ("scale", "bias"):
+        yield f"{port}.LayerNorm_1.{name}", f"{scope}/LayerNorm_1/{name}", \
+            "same"
+    for name in ("mlp_up", "mlp_down"):
+        yield f"{port}.{name}.weight", f"{scope}/{name}/kernel", "dense"
+        yield f"{port}.{name}.bias", f"{scope}/{name}/bias", "same"
+
+
+def _ends(embed: str):
+    """(embedding, positional table, final norm, head) leaves."""
+    yield embed + ".embedding", embed + "/embedding", "same"
+    yield "pos_emb", "pos_emb", "same"
+    for name in ("scale", "bias"):
+        yield f"ln_f.{name}", f"ln_f/{name}", "same"
+    yield "head.weight", "head/kernel", "dense"
+    yield "head.bias", "head/bias", "same"
+
+
+def _family_leaves(family: str, n_layers: int):
+    """``(port name, flax path, layout, stacked index or None)``."""
+    if family == "lm":
+        for port, path, layout in _transformer_param_leaves(n_layers):
+            yield port, path, layout, None
+    elif family == "pp":
+        for port, path, layout in _ends("embed"):
+            yield port, path, layout, None
+        for i in range(n_layers):
+            for port, path, layout in _block_leaves(f"blocks.{i}", "blocks"):
+                yield port, path, layout, i
+    elif family == "moe":
+        for port, path, layout in _ends("embed"):
+            yield port, path, layout, None
+        for i in range(n_layers):
+            for leaf in _attn_leaves(f"attn.{i}", f"attn/{i}"):
+                yield (*leaf, None)
+            for name in ("scale", "bias"):
+                yield f"moe_ln.{i}.{name}", f"moe_ln/{i}/{name}", "same", None
+            yield f"router.{i}", f"router/{i}", "same", None
+            for name in ("up_kernel", "up_bias", "down_kernel", "down_bias"):
+                yield (f"experts.{i}.{name}", f"experts/{i}/{name}", "same",
+                       None)
+    else:
+        raise ValueError(f"unknown LM family {family!r} (lm, pp, moe)")
+
+
+def _n_layers(family: str, names) -> int:
+    key = {"lm": "Block_", "pp": "blocks.", "moe": "attn/"}[family]
+    if family == "pp":
+        return len({n.split(".")[1] for n in names if n.startswith(key)})
+    if family == "lm":
+        return len({n.split("/")[0] for n in names if n.startswith(key)})
+    return len({n.split("/")[1] for n in names if n.startswith(key)})
+
+
+def state_dict_from_flax_tree(family: str, tree) -> dict[str, torch.Tensor]:
+    """The whole port state dict (f32 tensors) of an LM family's flax
+    tree (module docstring); every leaf used once."""
+    pool = {("params", k): v for k, v in _flatten_tree(tree).items()}
+    paths = [p for _, p in pool]
+    if family == "pp":
+        n_layers = len(pool[("params", "blocks/LayerNorm_0/scale")])
+    else:
+        n_layers = _n_layers(family, paths)
+    out, stacked = {}, {}
+    for port, path, layout, i in _family_leaves(family, n_layers):
+        if i is None:
+            out[port] = _FROM_FLAX[layout](_pop_leaf(pool, "params", path))
+        else:
+            if path not in stacked:
+                stacked[path] = _pop_leaf(pool, "params", path)
+            out[port] = _FROM_FLAX[layout](stacked[path][i])
+    return _to_torch(pool, out)
+
+
+def flax_from_state_dict(family: str, sd: dict) -> dict:
+    """An LM family's flax tree (numpy f32, lists as ``"0", "1", ...``
+    keys) from the whole port state dict; every parameter used once."""
+    pool = {k: v.detach().float().cpu().numpy() for k, v in sd.items()}
+    n_layers = _n_layers(family, pool) if family == "pp" else len(
+        {k.split(".")[1] for k in pool
+         if k.startswith("blocks." if family == "lm" else "attn.")})
+    leaves, stacked = [], {}
+    for port, path, layout, i in _family_leaves(family, n_layers):
+        try:
+            leaf = _TO_FLAX[layout](pool.pop(port))
+        except KeyError:
+            raise KeyError(f"port parameter {port} is missing") from None
+        if i is None:
+            leaves.append((path, np.array(leaf, order="C")))
+        else:
+            stacked.setdefault(path, []).append(leaf)
+    leaves += [(path, np.stack(v)) for path, v in stacked.items()]
+    if pool:
+        raise KeyError(f"{len(pool)} port parameters left unmapped: "
+                       f"{sorted(pool)[:8]}")
+    return nest_paths(leaves)
+
+
+def pipeline_state_dict_from_lm(sd: dict, seq_len: int) -> dict:
+    """The pipeline LM's whole state dict from a TransformerLMNet's: the
+    same tensors under JAX's PP names, the positional table cut to its
+    first ``seq_len`` rows (the PP model's ``(seq_len, d)``)."""
+    out = {"embed.embedding": sd["Embed_0.embedding"],
+           "pos_emb": sd["pos_emb"][:seq_len],
+           "ln_f.scale": sd["LayerNorm_0.scale"],
+           "ln_f.bias": sd["LayerNorm_0.bias"],
+           "head.weight": sd["Dense_0.weight"],
+           "head.bias": sd["Dense_0.bias"]}
+    out.update({k: v for k, v in sd.items() if k.startswith("blocks.")})
+    return out

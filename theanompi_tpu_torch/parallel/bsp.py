@@ -94,12 +94,13 @@ def running_stats(module: nn.Module) -> list[torch.Tensor]:
     return [b for b in module.buffers() if b.is_floating_point()]
 
 
-def mean_metrics(metrics: dict) -> dict:
-    """Each metric averaged over the ranks, with one collective."""
+def mean_metrics(metrics: dict, group=None) -> dict:
+    """Each metric averaged over the ranks of ``group`` (default: every
+    rank), with one collective."""
     names = sorted(metrics)
     stacked = torch.stack([metrics[k].detach().float().reshape(())
                            for k in names])
-    all_reduce_mean([stacked])
+    all_reduce_mean([stacked], group)
     return dict(zip(names, stacked.unbind()))
 
 
@@ -136,7 +137,7 @@ def average_params(exchanger: BSP_Exchanger, state: TrainState) -> None:
     all_reduce_mean([v for p, per in state.optimizer.state.items()
                      for v in per.values()
                      if torch.is_tensor(v) and v.is_floating_point()
-                     and v.device == p.device])
+                     and v.device == p.device], exchanger.group)
 
 
 def make_bsp_train_step(loss_fn: LossFn,
@@ -169,14 +170,14 @@ def make_bsp_train_step(loss_fn: LossFn,
             zero_missing_grads(module.parameters())
             if buckets is not None:
                 buckets.finish()
-            all_reduce_mean(running_stats(module))
+            all_reduce_mean(running_stats(module), exchanger.group)
             if exchanger.exchange_what == "grads" and buckets is None:
                 exchange_grads(exchanger, state)
         apply_update(state)
         if exchanger.exchange_what == "params":
             with torch.no_grad():
                 average_params(exchanger, state)
-        return mean_metrics(metrics)
+        return mean_metrics(metrics, exchanger.group)
 
     return step
 
@@ -237,18 +238,20 @@ def make_bsp_accum_step(loss_fn: LossFn,
             zero_missing_grads(module.parameters())
             for p in module.parameters():
                 p.grad.div_(a)
-            all_reduce_mean(running_stats(module))
+            all_reduce_mean(running_stats(module), exchanger.group)
             exchange_grads(exchanger, state)
         apply_update(state)
-        return mean_metrics(metrics)
+        return mean_metrics(metrics, exchanger.group)
 
     return accum_step
 
 
-def make_bsp_eval_step(eval_fn: Callable[[nn.Module, Any], dict]):
+def make_bsp_eval_step(eval_fn: Callable[[nn.Module, Any], dict],
+                       group=None):
     """``step(state, batch) -> metrics``: the module in eval mode (the
     running statistics) without autograd, metrics averaged over the
-    ranks; the module's mode is restored after."""
+    ranks of ``group`` (default: every rank); the module's mode is
+    restored after."""
 
     def step(state: TrainState, batch) -> dict:
         module = state.module
@@ -259,6 +262,6 @@ def make_bsp_eval_step(eval_fn: Callable[[nn.Module, Any], dict]):
                 metrics = eval_fn(module, batch)
         finally:
             module.train(was_training)
-        return mean_metrics(metrics)
+        return mean_metrics(metrics, group)
 
     return step

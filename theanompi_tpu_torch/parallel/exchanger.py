@@ -36,12 +36,14 @@ of tensors that return new tensors.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from theanompi_tpu_torch import monitor
+from theanompi_tpu_torch.parallel.mesh import LOCAL
 from theanompi_tpu_torch.parallel.partition import balanced_ranges
 
 # Reference strategy names -> numeric strategy.
@@ -106,21 +108,31 @@ def resolve_strategy(name: str) -> str:
             f"expected one of {sorted(_STRATEGY_ALIASES)}") from None
 
 
-def world_size() -> int:
-    """Ranks in the default process group (1 without one)."""
-    return dist.get_world_size() if dist.is_initialized() else 1
+def issues(group=None) -> bool:
+    """Whether a collective over ``group`` is issued: a process group
+    exists and ``group`` is not the one-rank :data:`~theanompi_tpu_torch.
+    parallel.mesh.LOCAL`."""
+    return dist.is_initialized() and group is not LOCAL
 
 
-def all_reduce_mean(tensors: list[torch.Tensor]) -> None:
-    """Replace each tensor by its mean over the ranks, in place, with one
-    collective over a flat f32 buffer (the BN statistics, the metrics,
-    the optimizer state of 'params').  A group of one rank runs the
-    collective too; no-op without a process group."""
-    if not dist.is_initialized() or not tensors:
+def world_size(group=None) -> int:
+    """Ranks in ``group`` (default: the default process group; 1 without
+    one)."""
+    return dist.get_world_size(group) if issues(group) else 1
+
+
+def all_reduce_mean(tensors: list[torch.Tensor], group=None) -> None:
+    """Replace each tensor by its mean over the ranks of ``group`` (the
+    model's reduce group, parallel/mesh.py; default: every rank), in
+    place, with one collective over a flat f32 buffer (the BN
+    statistics, the metrics, the optimizer state of 'params').  The
+    default group of one rank runs the collective too; no-op without a
+    process group."""
+    if not issues(group) or not tensors:
         return
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
-    flat.div_(dist.get_world_size())
+    dist.all_reduce(flat, group=group)
+    flat.div_(dist.get_world_size(group))
     _split_into(flat, tensors)
 
 
@@ -179,8 +191,10 @@ class BSP_Exchanger:
     update (parallel/bsp.py), and ``exchange_buckets`` cuts the tensors
     into that many byte-balanced buckets, one collective each.  ``avg``
     averages over the ranks, otherwise the sum is kept (the caller scales
-    its learning rate).  JAX's ``fp16_scale`` is not ported: bf16 has
-    f32's exponent range and needs no scaling."""
+    its learning rate).  ``group`` is the process group of the reduce
+    axes (JAX's ``axis``; parallel/mesh.py ``AxisGroup.group``), ``None``
+    every rank.  JAX's ``fp16_scale`` is not ported: bf16 has f32's
+    exponent range and needs no scaling."""
 
     strategy: str = "psum"
     avg: bool = True
@@ -188,6 +202,7 @@ class BSP_Exchanger:
     exchange_dtype: str | None = None
     error_feedback: bool = False
     exchange_buckets: int = 1
+    group: Any = None
 
     def __post_init__(self):
         validate_bucket_count(self.exchange_buckets)
@@ -246,15 +261,16 @@ class BSP_Exchanger:
     # -- one bucket ------------------------------------------------------
 
     def _average(self, red: torch.Tensor) -> torch.Tensor:
-        return red / world_size() if self.avg else red
+        return red / world_size(self.group) if self.avg else red
 
     def _gather_bf16(self, q: torch.Tensor, async_op: bool):
         """All-gather bf16 ``q`` over the ranks: (work, (n, *q.shape))."""
-        if not dist.is_initialized():
+        if not issues(self.group):
             return None, q[None]
-        n = dist.get_world_size()
+        n = dist.get_world_size(self.group)
         out = torch.empty(n * q.numel(), dtype=q.dtype, device=q.device)
         work = dist.all_gather_into_tensor(out, q.contiguous(),
+                                           group=self.group,
                                            async_op=async_op)
         return work, out.view((n,) + tuple(q.shape))
 
@@ -281,8 +297,9 @@ class BSP_Exchanger:
         elif self.wire_dtype == "bf16":
             q = flat.to(torch.bfloat16)
         else:
-            work = (dist.all_reduce(flat, async_op=async_op)
-                    if dist.is_initialized() else None)
+            work = (dist.all_reduce(flat, group=self.group,
+                                    async_op=async_op)
+                    if issues(self.group) else None)
             return [_Pending(work, flat, self._average, tensors)]
         work, out = self._gather_bf16(q, async_op)
         return [_Pending(work, out, lambda g: self._average(
@@ -295,7 +312,7 @@ class BSP_Exchanger:
                              self.exchange_buckets)
 
     def exchange(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Reduce ``tensors`` in place over the default process group,
+        """Reduce ``tensors`` in place over ``group`` (every rank by default),
         one collective per bucket, and return them."""
         if tensors:
             for lo, hi in self._ranges(tensors):

@@ -81,6 +81,7 @@ from theanompi_tpu_torch.parallel.exchanger import (
     all_reduce_mean,
     bucket_ranges,
     emit_bucket_gauges,
+    issues,
     validate_bucket_count,
     world_size,
     zero_missing_grads,
@@ -207,12 +208,20 @@ class FlatShard:
     storage of its own and :meth:`release` frees them."""
 
     def __init__(self, module: nn.Module, exchange_buckets: int = 1,
-                 fsdp: bool = False):
+                 fsdp: bool = False, data=None, extra=None):
         self.params = layout_params(module)
         self.shapes = [p.shape for p in self.params]
         self.fsdp = fsdp
-        self.rank = dist.get_rank() if dist.is_initialized() else 0
-        self.n = world_size()
+        # the shard axis (parallel/mesh.py AxisGroup; None: every rank)
+        # and the other reduce axes, whose sum the shard takes after its
+        # reduce-scatter (JAX's ``extra_axes``; None: there are none)
+        self.group = None if data is None else data.group
+        self.extra = extra
+        if data is None:
+            self.rank = dist.get_rank() if dist.is_initialized() else 0
+        else:
+            self.rank = data.index
+        self.n = world_size(self.group)
         self.layout = _zero_layout(self.params, self.n, exchange_buckets)
         with torch.no_grad():
             self.shard = _shard_slice(
@@ -235,9 +244,10 @@ class FlatShard:
         """The bucketed flat vector of every rank's ``shard`` (default:
         the parameter shard), by one all-gather; every rank calls it."""
         shard = self.shard if shard is None else shard
-        if dist.is_initialized():
+        if issues(self.group):
             out = shard.new_empty(self.n * shard.numel())
-            dist.all_gather_into_tensor(out, shard.contiguous())
+            dist.all_gather_into_tensor(out, shard.contiguous(),
+                                        group=self.group)
             rows = out.view(self.n, -1)
         else:
             rows = shard[None]
@@ -283,9 +293,10 @@ class FlatShard:
         so, pb = lay.shard_off[b], lay.pb[b]
         dst = out[so:so + pb]
         if exchanger.wire_dtype != "bf16":
-            if dist.is_initialized():
+            if issues(self.group):
                 piece = seg.new_empty(pb)
                 work = dist.reduce_scatter_tensor(piece, seg,
+                                                  group=self.group,
                                                   async_op=async_op)
             else:
                 piece, work = seg, None
@@ -302,9 +313,10 @@ class FlatShard:
             res.copy_(comp - q.float())
         else:
             q = seg.to(torch.bfloat16)
-        if dist.is_initialized():
+        if issues(self.group):
             recv = torch.empty_like(q)
-            work = dist.all_to_all_single(recv, q, async_op=async_op)
+            work = dist.all_to_all_single(recv, q, group=self.group,
+                                          async_op=async_op)
         else:
             recv, work = q, None
         return _Pending(work, recv,
@@ -363,15 +375,18 @@ class _ScatterBackward(BucketedBackward):
 
 
 def init_zero_opt_state(module: nn.Module, make_optimizer,
-                        exchange_buckets: int = 1
+                        exchange_buckets: int = 1, data=None, extra=None
                         ) -> tuple[torch.optim.Optimizer, FlatShard]:
     """This rank's parameter shard (:class:`FlatShard`) and the optimizer
     over it, ``make_optimizer([shard])``: the optimizer state is 1/N of
     plain BSP's on every rank, and no rank builds the whole of it.
-    ``exchange_buckets`` must be the step's: it fixes the layout."""
+    ``exchange_buckets`` must be the step's: it fixes the layout.  On a
+    mesh, ``data`` is the shard axis and ``extra`` the other reduce axes
+    (``AxisGroup``s of parallel/mesh.py): the state is sharded over
+    ``data`` only."""
     from theanompi_tpu_torch.utils.helper_funcs import LARS
 
-    shard = FlatShard(module, exchange_buckets)
+    shard = FlatShard(module, exchange_buckets, data=data, extra=extra)
     optimizer = make_optimizer([shard.shard])
     if isinstance(optimizer, LARS):
         raise ValueError("zero_sharding needs an ELEMENTWISE optimizer; "
@@ -437,9 +452,16 @@ def _sharded_step(loss_fn: LossFn, exchanger: BSP_Exchanger, accum: bool,
                metrics: dict) -> dict:
         with torch.no_grad():
             if not fsdp:  # FSDP's BN statistics are the global batch's
-                all_reduce_mean(running_stats(state.module))
+                all_reduce_mean(running_stats(state.module),
+                                exchanger.group)
+            n_total = shard.n
+            if shard.extra is not None and not shard.extra.trivial:
+                # the other reduce axes sum the 1/N shard plainly (JAX's
+                # psum over ``extra_axes`` after the data reduce-scatter)
+                dist.all_reduce(gshard, group=shard.extra.group)
+                n_total *= shard.extra.size
             if exchanger.avg:
-                gshard.div_(shard.n)
+                gshard.div_(n_total)
         shard.shard.grad = gshard
         apply_update(state)
         shard.shard.grad = None
@@ -448,7 +470,7 @@ def _sharded_step(loss_fn: LossFn, exchanger: BSP_Exchanger, accum: bool,
             shard.release()
         else:
             shard.materialize()
-        return mean_metrics(metrics)
+        return mean_metrics(metrics, exchanger.group)
 
     def step(state: TrainState, batch, rng) -> dict:
         shard = start(state)

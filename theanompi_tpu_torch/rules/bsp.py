@@ -211,7 +211,14 @@ def _delta(before: dict[str, int], after: dict[str, int]) -> dict[str, int]:
 
 
 class BSP(Rule):
-    """Synchronous BSP data-parallel rule: one process per card."""
+    """Synchronous BSP data-parallel rule: one process per card.
+
+    ``model_parallel``/``seq_parallel``/``pipe_parallel``/
+    ``expert_parallel`` carve those axes out of the ranks (the rest go to
+    ``data``): the model is built on that mesh (parallel/mesh.py), as
+    JAX's rule builds it; with every degree 1 it gets none.  A model
+    that sets no ``batch_partition`` (the zoo: its rows over ``data``
+    alone) refuses them, where JAX would leave the other axes idle."""
 
     name = "BSP"
     uses_global_mesh = True
@@ -219,10 +226,27 @@ class BSP(Rule):
     def _session(self, device, modelfile, modelclass, config, resume,
                  sync_type, max_epochs=None, checkpoint=True,
                  profile_dir: str | None = None,
-                 monitor_dir: str | None = None, **kwargs):
+                 monitor_dir: str | None = None, model_parallel: int = 1,
+                 seq_parallel: int = 1, pipe_parallel: int = 1,
+                 expert_parallel: int = 1, **kwargs):
         if device.type == "cuda":
             torch.cuda.set_device(device)
         cls = resolve_model_class(modelfile, modelclass)
+        if max(model_parallel, seq_parallel, pipe_parallel,
+               expert_parallel) > 1:
+            from theanompi_tpu_torch.parallel.mesh import (
+                MeshSpec,
+                make_training_mesh,
+            )
+
+            if cls.batch_partition is None:
+                raise ValueError(
+                    f"{cls.__name__} trains on the data axis alone; the "
+                    "model/seq/pipe/expert degrees need a model of the "
+                    "transformer family")
+            kwargs["mesh"] = make_training_mesh(MeshSpec(
+                data=-1, model=model_parallel, seq=seq_parallel,
+                pipe=pipe_parallel, expert=expert_parallel))
         self.model = cls(config=config, device=device, **kwargs)
         self.result = run_bsp_session(self.model, sync_type=sync_type,
                                       resume=resume, max_epochs=max_epochs,

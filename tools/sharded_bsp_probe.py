@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Plain BSP, ZeRO-1 and FSDP through the port's launcher at N ranks.
+"""Plain BSP, ZeRO-1, FSDP and the LM family's mesh degrees through the
+port's launcher at N ranks.
 
     python3 tools/sharded_bsp_probe.py -D 2 -D 4 \
         --out build/sharded_summary.json
+    python3 tools/sharded_bsp_probe.py -D 4 --knob sp --knob tp \
+        --knob pp --knob ep
 
 For each world size and each knob (``plain``, ``sync``: ``--set
 sync_bn=true``, ``zero``: ``--set zero_sharding=true``, ``fsdp``: ``--set
@@ -21,6 +24,15 @@ rank) on a shard tree it cuts from the port's
 synthetic pool (``--steps`` batches of 128 per rank), on the cards;
 ``--platform cpu`` runs gloo ranks (give a small ``--model``, e.g.
 ``test_torch_resilience:TinyResNetEF`` with ``PYTHONPATH=tests``).
+The LM knobs (``--knob``; the default runs the four above) each run
+``launcher BSP -D N --<axis>-parallel 2`` (``LM_DEGREE``):
+``sp`` the ``TransformerLM`` over ``seq``, ``tp`` ``TransformerLM_TP``
+over ``model``, ``pp`` ``TransformerLM_PP`` over ``pipe`` and ``ep``
+``TransformerLM_MoE`` over ``expert``, the classes taken from
+``--lm-module`` (default the port's models/transformer.py at their
+default sizes; a test module can give smaller ones), and report the same
+ms a step, bytes a rank and the ranks' agreement (each rank's checkpoint
+payload holds the whole tree, so the digests agree).
 Runs whose ranks fit on disjoint cards go side by side, each with its
 own ``CUDA_VISIBLE_DEVICES``.  Data, snapshots, result JSONs and each
 run's log go under ``--work``; the summary is printed as one JSON line
@@ -44,6 +56,12 @@ sys.path.insert(0, REPO)
 KNOBS = {"plain": (), "sync": ("sync_bn=true",),
          "zero": ("zero_sharding=true",), "fsdp": ("fsdp_sharding=true",)}
 TWINS = {"zero": "plain", "fsdp": "sync"}
+#: the LM knobs: the mesh axis each carves out, and the model class
+LM_KNOBS = {"sp": ("seq", "TransformerLM"), "tp": ("model", "TransformerLM_TP"),
+            "pp": ("pipe", "TransformerLM_PP"),
+            "ep": ("expert", "TransformerLM_MoE")}
+#: the LM knobs' degree on their axis (the rest of -D goes to data)
+LM_DEGREE = 2
 
 
 def shard_tree(root: str, n_batches: int, batch: int) -> str:
@@ -109,15 +127,22 @@ def distance(got: dict, ref: dict) -> dict:
 def run(args, work: str, n: int, knob: str, devices: str | None,
         data_dir: str | None) -> subprocess.Popen:
     model = args.model or "theanompi_tpu_torch.models.resnet50:ResNet50"
+    extra: list[str] = []
+    if knob in LM_KNOBS:
+        axis, cls = LM_KNOBS[knob]
+        model = f"{args.lm_module}:{cls}"
+        extra = [f"--{axis}-parallel", str(LM_DEGREE)]
+        sets = []
+    else:
+        sets = list(KNOBS[knob])
+        if data_dir:
+            sets.append(f"data_dir={data_dir}")
     modelfile, modelclass = model.split(":")
-    sets = list(KNOBS[knob])
-    if data_dir:
-        sets.append(f"data_dir={data_dir}")
     cmd = [sys.executable, "-m", "theanompi_tpu_torch.launcher", "BSP",
            "-D", str(n), "--platform", args.platform, "-m", modelfile,
            "-c", modelclass, "--snapshot-dir",
            os.path.join(work, f"{knob}{n}"), "--result-json",
-           os.path.join(work, f"{knob}{n}.json"), "--epochs", "1",
+           os.path.join(work, f"{knob}{n}.json"), "--epochs", "1", *extra,
            *[a for kv in sets for a in ("--set", kv)]]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(
@@ -138,6 +163,13 @@ def main(argv=None) -> int:
                    "a synthetic shard tree)")
     p.add_argument("--steps", type=int, default=8,
                    help="training batches a rank an epoch (default data)")
+    p.add_argument("--knob", dest="knobs", action="append",
+                   choices=sorted({**KNOBS, **LM_KNOBS}),
+                   help="runs to make (repeat; default plain, sync, zero, "
+                        "fsdp)")
+    p.add_argument("--lm-module",
+                   default="theanompi_tpu_torch.models.transformer",
+                   help="module holding the LM knobs' classes")
     p.add_argument("--work", default="build/sharded_probe")
     p.add_argument("--out", default=None,
                    help="summary JSON (default <work>/summary.json)")
@@ -145,8 +177,9 @@ def main(argv=None) -> int:
     worlds = args.worlds or [2]
     work = os.path.abspath(args.work)
     os.makedirs(work, exist_ok=True)
+    knobs = args.knobs or list(KNOBS)
     data_dir = None
-    if args.model is None:
+    if args.model is None and any(k in KNOBS for k in knobs):
         data_dir = shard_tree(os.path.join(work, "data"),
                               args.steps * max(worlds), 128)
     if args.platform == "cuda":
@@ -156,7 +189,7 @@ def main(argv=None) -> int:
     else:
         cards = None
     # waves of runs on disjoint cards (all at once on the CPU)
-    queue = [(n, k) for n in worlds for k in KNOBS]
+    queue = [(n, k) for n in worlds for k in knobs]
     results: dict = {}
     t0 = time.monotonic()
     while queue:
@@ -190,6 +223,8 @@ def main(argv=None) -> int:
               f"{time.monotonic() - t0:.1f} s", flush=True)
     for n in worlds:
         for k, twin in TWINS.items():
+            if k not in knobs or twin not in knobs:
+                continue
             if results[f"{k}-D{n}"]["rc"] or results[f"{twin}-D{n}"]["rc"]:
                 continue
             snap = os.path.join(work, f"{twin}{n}")
