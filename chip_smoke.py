@@ -312,6 +312,32 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    bf16: every gradient and updated parameter bit for bit, K4a 24 a
    step.  (e) ms a step (CUDA events) and peak memory of DP, remat, TP,
    PP and MoE at the recipe, their K4 launches per step exact.
+25. The rest of serving and autoregressive decode, in this process (TF32
+   off, the shm lane off: every byte in-band over loopback TCP).  (a)
+   ResNet-50 at full width with seeded weights exported f32, bf16 and
+   int8, each behind ``serve()`` and queried with
+   ``InferenceClient.infer`` at batch 32: exactly K1a 37, K1b 16, K2a 1
+   launches per batch; f32 bit-identical to the in-process
+   ``InferenceServer.submit`` of the same batch, a ``reload`` to v1, a
+   ``serve_rpc`` fault the client survives; bf16 and int8 within
+   ``P25_QUANT_LIMITS`` of f32 (max logit difference, top-1 agreement);
+   ms per ``infer``.  (b) The LM at ``LM_DIMS`` in f32 exported f32, bf16
+   and int8 and served with the launcher's ``--decode`` defaults: 8
+   concurrent ``generate`` streams (``P25_PROMPT_LENS``, spanning the
+   prefill buckets, ``P25_MAX_NEW`` tokens; the 100-token prompt decodes
+   past the 128-token window), after a serial and a concurrent warm
+   pass; the f32 tokens equal the argmax of the card's
+   ``full_forward(window=128)`` over each growing sequence, a difference
+   allowed only where the oracle's top-2 margin is below ``P25_TIE``
+   (printed); tokens/s (``token_throughput``) and inter-token p50/p99; the
+   bf16 and int8 exports' tokens/s and first token off f32.  (c) A
+   2-layer draft cut from the target (k = 4): tokens equal to (b)'s f32
+   tokens; the accept rate.  (d) A repeated 40-token prompt hits the
+   prefix cache with the cold run's tokens; a stream drained
+   (``drain_migrate``) from a second replica mid-flight and ``adopt``-ed
+   by the first ends on the in-place tokens.  (e) Between the warm pass
+   and the measured one: no new bucket key, the page tensors' ``data_ptr``
+   kept, ``torch.cuda.memory_reserved()`` flat, and no kernel launched.
 
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
@@ -320,9 +346,9 @@ their own); 16 runs after it, then 17 on a one-rank group of its own
 one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
 its own one-rank group, (c) on it), then 20 ((a) on its own one-rank
 group, (b) after it, on phase 16's shard files), then 21 and 22 (no group),
-then 24 on a one-rank group of its own.  Phase 9 checkpoints each
-epoch, as the launcher does; 6b and 14 call ``run_bsp_session`` without
-checkpoints.
+then 24 on a one-rank group of its own, then 25 (no group).  Phase 9
+checkpoints each epoch, as the launcher does; 6b and 14 call
+``run_bsp_session`` without checkpoints.
 
 Full results (per-shape kernel times, the traces) go to
 ``build/chip_smoke.json``.
@@ -5730,6 +5756,439 @@ def lm_variants_phase(torch) -> dict:
     return out
 
 
+# -- phase 25: the TCP front, quantized exports and autoregressive decode ----
+
+#: (b) the 8 concurrent streams: prompt lengths spanning the default
+#: prefill buckets (8 .. 512; 200 and above overflow the 128-token window
+#: at prefill) and staggered lengths to generate (24 .. 136: the
+#: 100-token prompt decodes past the window, and the decode batch walks
+#: buckets 8, 4, 2 and 1 as the streams end)
+P25_PROMPT_LENS = (5, 12, 24, 50, 100, 200, 300, 500)
+P25_MAX_NEW = tuple(24 + 16 * i for i in range(8))
+#: a greedy token that differs from the oracle's is a tie only where
+#: the oracle's top-2 margin is below this
+P25_TIE = 1e-4
+P25_SPEC_K = 4
+P25_DRAFT_LAYERS = 2
+P25_INFER_REPS = 5
+#: (a) bf16 and int8 ResNet-50 exports against the f32 export, batch 32
+#: of the seeded weights (max |logit difference|, least top-1
+#: agreement): about 10x what an H100 read (0.0046 and 0.14, top-1 1.0;
+#: PERF.md)
+P25_QUANT_LIMITS = {"bf16": (0.05, 0.9), "int8": (1.5, 0.9)}
+
+
+class Served:
+    """An ``InferenceServer`` behind ``serve()`` on a loopback port, with
+    the clients it hands out (phase 25); ``close`` shuts all of them."""
+
+    def __init__(self, server):
+        from theanompi_tpu_torch.serving import serve as serve_tcp
+
+        self.server = server
+        self.port = free_port()
+        self.ready, self.stop = threading.Event(), threading.Event()
+        self.thread = threading.Thread(
+            target=serve_tcp, daemon=True, name=f"p25-serve-{self.port}",
+            args=(server, "127.0.0.1", self.port, self.ready, self.stop))
+        self.thread.start()
+        if not self.ready.wait(60):
+            raise AssertionError("serve() did not come up in 60 s")
+        self.clients = []
+
+    def client(self):
+        from theanompi_tpu_torch.serving import InferenceClient
+
+        c = InferenceClient(f"127.0.0.1:{self.port}")
+        self.clients.append(c)
+        return c
+
+    def close(self) -> None:
+        self.stop.set()
+        for c in self.clients:
+            c.close()
+        self.thread.join(10)
+        self.server.stop()
+
+
+def p25_resnet(torch, workdir: str) -> dict:
+    """(a) ResNet-50 exported f32, bf16 and int8, each served over TCP and
+    queried with ``InferenceClient.infer`` at batch 32."""
+    from theanompi_tpu_torch.models.resnet50 import ResNet50
+    from theanompi_tpu_torch.ops import _kernels
+    from theanompi_tpu_torch.parallel.service import ServiceError
+    from theanompi_tpu_torch.resilience import faults
+    from theanompi_tpu_torch.serving import (
+        BatchPolicy,
+        InferenceServer,
+        export_model,
+    )
+
+    model = ResNet50(device="cuda")
+    ref = ResNet50(device="cpu", config=dataclasses.replace(
+        model.config, compute_dtype="float32"))
+    seeded_weights(torch, ref, seed=0)
+    model.module.load_state_dict(ref.module.state_dict())
+    del ref
+    x = np.random.default_rng(25).integers(0, 256, (BATCH, 224, 224, 3),
+                                           dtype=np.uint8)
+    out, f32 = {}, None
+    for wd in ("f32", "bf16", "int8"):
+        d = os.path.join(workdir, f"resnet50_{wd}")
+        export_model(model, d, version=0, weight_dtype=wd)
+        srv = Served(InferenceServer(
+            d, device="cuda", reload_poll_s=0,
+            policy=BatchPolicy(max_batch=BATCH, max_delay_ms=5.0,
+                               max_queue=64)).start())
+        try:
+            c = srv.client()
+            c.infer(x)
+            b0 = srv.server.stats()["batches"]
+            _kernels.reset_launch_counts()
+            lat = []
+            for _ in range(P25_INFER_REPS):
+                t = time.monotonic()
+                got = c.infer(x)
+                lat.append((time.monotonic() - t) * 1e3)
+            launches = _kernels.launch_counts()
+            batches = srv.server.stats()["batches"] - b0
+            want = {k: 0 for k in launches}
+            want.update(scale_bias_act=37 * batches,
+                        scale_bias_act_res=16 * batches,
+                        maxpool3x3s2=batches)
+            if batches != P25_INFER_REPS or launches != want:
+                raise AssertionError(f"{wd}: {batches} batches, launches "
+                                     f"{launches} != {want}")
+            if got.shape != (BATCH, 1000) or not np.isfinite(got).all():
+                raise AssertionError(f"{wd}: logits {got.shape} not finite")
+            rec = {"infer_ms": lat, "infer_ms_median": float(np.median(lat)),
+                   "launches_per_batch": {k: v // batches
+                                          for k, v in launches.items() if v}}
+            if wd == "f32":
+                local = srv.server.submit(x)
+                if not np.array_equal(got, local):
+                    raise AssertionError("f32 over TCP is not bit-identical "
+                                         "to the in-process submit")
+                f32 = got
+                export_model(model, d, version=1)
+                if c.reload() != 1 or not np.array_equal(c.infer(x), local):
+                    raise AssertionError("reload to v1 failed")
+                faults.install([{"site": "serve_rpc", "op": "infer",
+                                 "nth": 1}])
+                try:
+                    c.infer(x)
+                    raise AssertionError("the serve_rpc fault did not fire")
+                except ServiceError as e:
+                    if "FaultInjected" not in str(e):
+                        raise
+                finally:
+                    faults.clear()
+                if not np.array_equal(c.infer(x), local):
+                    raise AssertionError("the client did not survive the "
+                                         "serve_rpc fault")
+                rec.update(bit_identical=True, reloaded_to=1,
+                           fault_survived=True)
+            else:
+                max_abs = float(np.abs(got - f32).max())
+                top1 = float((got.argmax(1) == f32.argmax(1)).mean())
+                rec.update(max_abs_vs_f32=max_abs, top1_vs_f32=top1)
+                lim_abs, lim_top1 = P25_QUANT_LIMITS[wd]
+                if max_abs > lim_abs or top1 < lim_top1:
+                    raise AssertionError(
+                        f"{wd} export off f32: max |d logit| {max_abs:.4g} "
+                        f"(<= {lim_abs}), top-1 {top1} (>= {lim_top1})")
+        finally:
+            srv.close()
+        out[wd] = rec
+        log(f"  (a) ResNet-50 {wd}: infer over TCP at batch {BATCH} "
+            f"{rec['infer_ms_median']:.2f} ms (median of {P25_INFER_REPS}), "
+            f"launches per batch {rec['launches_per_batch']}"
+            + (f", max |d logit| vs f32 {rec['max_abs_vs_f32']:.4g}, top-1 "
+               f"agreement {rec['top1_vs_f32']:.3f}" if wd != "f32" else
+               ", bit-identical to submit, reload v1, serve_rpc fault "
+               "survived"))
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def p25_streams(srv: Served, prompts, max_new) -> tuple[list, float]:
+    """Every prompt as its own concurrent ``generate`` over TCP; the
+    token lists and the wall seconds from the first start to the last
+    answer."""
+    clients = [srv.client() for _ in prompts]
+    outs, errors = [None] * len(prompts), []
+
+    def go(i):
+        try:
+            outs[i] = clients[i].generate(prompts[i], max_new[i]).tolist()
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=go, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.monotonic() - t0
+    if errors or any(o is None for o in outs):
+        raise AssertionError(f"generate failed: {errors[:3]}")
+    for o, n in zip(outs, max_new):
+        if len(o) != n:
+            raise AssertionError(f"a stream gave {len(o)} tokens, not {n}")
+    return outs, wall
+
+
+def p25_oracle(torch, net, prompt, tokens, window: int) -> dict:
+    """The greedy tokens against the argmax of ``full_forward(window)`` of
+    the card over the prompt and the tokens before each; a difference is
+    a tie only where the oracle's top-2 margin is below ``P25_TIE``."""
+    from theanompi_tpu_torch.decode.model import full_forward
+
+    seq = torch.tensor(np.concatenate([prompt, tokens[:-1]]).astype(np.int64),
+                       device="cuda")[None]
+    with torch.no_grad():
+        logits = full_forward(net, seq, window)[0][0, len(prompt) - 1:]
+    top2 = logits.topk(2, dim=-1)
+    pred = top2.indices[:, 0].cpu().numpy()
+    margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+    diff = np.nonzero(pred != np.asarray(tokens))[0]
+    ties = [(int(i), float(margin[i])) for i in diff]
+    return {"differ": len(diff), "ties": ties,
+            "ok": all(m < P25_TIE for _, m in ties),
+            "min_margin": float(margin.min())}
+
+
+def p25_first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def p25_lm(torch, workdir: str) -> dict:
+    """(b)-(e) the LM at ``LM_DIMS`` (f32 compute) served with the
+    launcher's ``--decode`` defaults."""
+    from theanompi_tpu_torch import launcher
+    from theanompi_tpu_torch.models.transformer import TransformerLM
+    from theanompi_tpu_torch.ops import _kernels
+    from theanompi_tpu_torch.serving import InferenceServer, export_model
+    from theanompi_tpu_torch.serving.server import decode_opts_from_args
+    from theanompi_tpu_torch.utils.token_accounting import token_throughput
+
+    model = lm_model(torch, "cuda", dtype="float32")
+    dirs = {wd: os.path.join(workdir, f"lm_{wd}")
+            for wd in ("f32", "bf16", "int8")}
+    for wd, d in dirs.items():
+        export_model(model, d, version=0, weight_dtype=wd)
+    # the draft: the target's embeddings, first blocks and head
+    draft = TransformerLM(config=model.config, device="cuda",
+                          **dict(LM_DIMS, n_layers=P25_DRAFT_LAYERS))
+    draft.module.load_state_dict({
+        k: v for k, v in model.module.state_dict().items()
+        if not k.startswith("blocks.")
+        or int(k.split(".")[1]) < P25_DRAFT_LAYERS})
+    draft_dir = os.path.join(workdir, "lm_draft")
+    export_model(draft, draft_dir, version=0)
+    del draft
+    opts = decode_opts_from_args(launcher.parse_args(
+        ["SERVE", "--export-dir", dirs["f32"], "--decode"]))
+    rng = np.random.default_rng(26)
+
+    def prompt_set():
+        return [rng.integers(0, LM_DIMS["vocab"], n).astype(np.int32)
+                for n in P25_PROMPT_LENS]
+
+    def server(d, **extra):
+        return Served(InferenceServer(d, device="cuda", reload_poll_s=0,
+                                      decode=True,
+                                      decode_opts=dict(opts, **extra))
+                      .start())
+
+    res = {"decode_opts": {k: list(v) if isinstance(v, tuple) else v
+                           for k, v in opts.items()}}
+    t0 = time.monotonic()
+    main_srv = server(dirs["f32"])
+    res["server_up_s"] = time.monotonic() - t0
+    try:
+        rep = main_srv.server.replicas[0]
+        sess = rep.session
+        window = sess.window
+        c = main_srv.client()
+        # serial warm: every prefill bucket alone, then a concurrent pass
+        for p in prompt_set():
+            c.generate(p, 2)
+        warm, _ = p25_streams(main_srv, prompt_set(), P25_MAX_NEW)
+        keys = {f: set(k) for f, k in sess.bucket_keys.items()}
+        ptrs = [t.data_ptr() for t in sess.page_tensors]
+        torch.cuda.synchronize()
+        reserved = torch.cuda.memory_reserved()
+        rep.batcher.reset_intertoken()
+        _kernels.reset_launch_counts()
+        s0 = main_srv.server.stats()
+        ps = prompt_set()
+        f32_out, wall = p25_streams(main_srv, ps, P25_MAX_NEW)
+        torch.cuda.synchronize()
+        launches = _kernels.launch_counts()
+        st = main_srv.server.stats()
+        # (e) the restated pins
+        new_keys = {f: sorted(map(str, set(k) - keys[f]))
+                    for f, k in sess.bucket_keys.items() if set(k) - keys[f]}
+        pins = {"new_bucket_keys": new_keys,
+                "data_ptr_kept": [t.data_ptr() for t in sess.page_tensors]
+                == ptrs,
+                "memory_reserved_before": reserved,
+                "memory_reserved_after": torch.cuda.memory_reserved(),
+                "bucket_keys": {f: len(k) for f, k in keys.items()}}
+        res["pins"] = pins
+        if new_keys or not pins["data_ptr_kept"] \
+                or pins["memory_reserved_after"] > reserved:
+            raise AssertionError(f"(e) steady-state pins broken: {pins}")
+        if any(launches.values()):
+            raise AssertionError(f"the decode path launched kernels: "
+                                 f"{launches}")
+        tokens = st["tokens"] - s0["tokens"]
+        thr = token_throughput(tokens, wall)
+        it = st["replicas"][0]["intertoken_ms"]
+        res["f32"] = {"throughput": thr, "intertoken_ms": it,
+                      "steps": st["steps"] - s0["steps"],
+                      "shared_steps": st["shared_steps"] - s0["shared_steps"],
+                      "max_concurrent": st["max_concurrent"]}
+        log(f"  (b) f32 decode, 8 streams: {thr['tokens']} tokens in "
+            f"{wall:.3f} s = {thr['tokens_per_sec']:.1f} tokens/s; "
+            f"inter-token p50 {it['p50']:.2f} ms p99 {it['p99']:.2f} ms "
+            f"({it['count']} gaps); {res['f32']['steps']} steps")
+        log(f"  (e) no new bucket key after the warm passes "
+            f"({sum(pins['bucket_keys'].values())} keys), page tensors "
+            f"kept their data_ptr, memory_reserved {reserved} -> "
+            f"{pins['memory_reserved_after']} bytes; no kernel launched")
+        # (b) the oracle
+        oracle = [p25_oracle(torch, model.module, p, o, window)
+                  for p, o in zip(ps, f32_out)]
+        res["oracle"] = oracle
+        for p, o, orc in zip(ps, f32_out, oracle):
+            if orc["differ"]:
+                log(f"  (b) prompt {len(p)}: {orc['differ']} token(s) off "
+                    f"the oracle at (position, top-2 margin) {orc['ties']}")
+            if not orc["ok"]:
+                raise AssertionError(f"greedy tokens off the full_forward "
+                                     f"oracle beyond a tie: {orc['ties']}")
+        if not any(len(p) < window < len(p) + n
+                   for p, n in zip(ps, P25_MAX_NEW)):
+            raise AssertionError("no stream decoded past the window")
+        log(f"  (b) f32 tokens equal the full_forward(window={window}) "
+            f"oracle over {sum(len(o) for o in f32_out)} tokens "
+            f"(least top-2 margin {min(o['min_margin'] for o in oracle):.3g}"
+            f", {sum(o['differ'] for o in oracle)} near-ties)")
+
+        # (d) the prefix cache
+        pp = rng.integers(0, LM_DIMS["vocab"], 40).astype(np.int32)
+        cold = c.generate(pp, 16).tolist()
+        h0 = main_srv.server.stats()["prefix_cache_hits"]
+        hot = c.generate(pp, 16).tolist()
+        hits = main_srv.server.stats()["prefix_cache_hits"] - h0
+        if hits < 1 or hot != cold:
+            raise AssertionError(f"prefix cache: {hits} hits, tokens "
+                                 f"{hot} vs cold {cold}")
+        res["prefix"] = {"hits": hits, "tokens_equal": True}
+        log(f"  (d) a repeated 40-token prompt: {hits} prefix-cache hit(s), "
+            "the cold run's tokens")
+
+        # (d) migration: a stream drained from a second replica, adopted
+        n_mig = 96
+        pm = rng.integers(0, LM_DIMS["vocab"], 40).astype(np.int32)
+        in_place = c.generate(pm, n_mig).tolist()
+        donor = server(dirs["f32"])
+        try:
+            dc, probe = donor.client(), donor.client()
+            got = {}
+            t = threading.Thread(target=lambda: got.setdefault(
+                "out", dc.generate(pm, n_mig)), daemon=True)
+            t.start()
+            for _ in range(4000):
+                if probe.stats()["tokens"] >= 5:
+                    break
+                time.sleep(0.002)
+            probe.drain_migrate()
+            t.join(120)
+            mig = got.get("out")
+            if not hasattr(mig, "manifest"):
+                raise AssertionError(f"the drained stream came back as "
+                                     f"{type(mig).__name__}, not migrated")
+            rest = c.adopt(mig.manifest, mig.k, mig.v,
+                           n_mig - len(mig.tokens)).tolist()
+        finally:
+            donor.close()
+        stitched = mig.tokens + rest
+        if stitched != in_place:
+            raise AssertionError(
+                f"migrated stream off the in-place one at token "
+                f"{p25_first_diff(stitched, in_place)}")
+        res["migration"] = {"emitted_before_drain": len(mig.tokens),
+                            "adopted_tokens": len(rest)}
+        log(f"  (d) drain_migrate after {len(mig.tokens)} tokens, adopted "
+            f"by the other replica over TCP: {n_mig} tokens equal to the "
+            "in-place stream")
+    finally:
+        main_srv.close()
+
+    # (c) speculative decode
+    spec = server(dirs["f32"], draft_export_dir=draft_dir,
+                  speculate_k=P25_SPEC_K)
+    try:
+        spec_out, wall = p25_streams(spec, ps, P25_MAX_NEW)
+        st = spec.server.stats()
+    finally:
+        spec.close()
+    for p, a, b, orc in zip(ps, spec_out, f32_out, oracle):
+        i = p25_first_diff(a, b)
+        if i is not None and not any(j == i and m < P25_TIE
+                                     for j, m in orc["ties"]):
+            raise AssertionError(f"speculative tokens off plain at token {i}"
+                                 f" of the {len(p)}-token prompt")
+    res["speculative"] = {"accept_rate": st["accept_rate"],
+                          "draft_tokens": st["draft_tokens"],
+                          "accepted_draft_tokens":
+                              st["accepted_draft_tokens"],
+                          "steps": st["steps"],
+                          "throughput": token_throughput(st["tokens"], wall)}
+    log(f"  (c) speculative (k={P25_SPEC_K}, a {P25_DRAFT_LAYERS}-layer "
+        f"draft): tokens equal to plain; accept rate "
+        f"{st['accept_rate']:.3f}, {st['steps']} target steps for "
+        f"{st['tokens']} tokens, "
+        f"{res['speculative']['throughput']['tokens_per_sec']:.1f} tokens/s")
+
+    # (b) the bf16 and int8 exports
+    for wd in ("bf16", "int8"):
+        srv = server(dirs[wd])
+        try:
+            q_out, wall = p25_streams(srv, ps, P25_MAX_NEW)
+            st = srv.server.stats()
+        finally:
+            srv.close()
+        first = [p25_first_diff(a, b) for a, b in zip(q_out, f32_out)]
+        res[wd] = {"throughput": token_throughput(st["tokens"], wall),
+                   "first_diff_vs_f32": first,
+                   "intertoken_ms": st["replicas"][0]["intertoken_ms"]}
+        log(f"  (b) {wd} export: {res[wd]['throughput']['tokens_per_sec']:.1f}"
+            f" tokens/s; first token off f32 per stream {first}")
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def decode_serving_phase(torch, workdir: str) -> dict:
+    """Phase 25: the rest of serving (TCP front, quantized exports) and
+    autoregressive decode (module docstring)."""
+    os.environ.setdefault("THEANOMPI_TPU_SERVICE_KEY", "chip-smoke-serving")
+    os.environ["THEANOMPI_TPU_WIRE_SHM"] = "0"
+    t0 = time.monotonic()
+    out = {"resnet": p25_resnet(torch, workdir)}
+    out["lm"] = p25_lm(torch, workdir)
+    out["seconds"] = time.monotonic() - t0
+    log(f"  phase 25: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -5930,6 +6389,13 @@ def main() -> int:
     log("phase 24: the LM family's parallel variants (SP strategies, TP, "
         "PP, MoE, remat) on a one-rank NCCL group")
     phase24 = lm_variants_phase(torch)
+    torch.cuda.empty_cache()
+
+    log("phase 25: the TCP front, bf16/int8 exports and autoregressive "
+        "decode (paged KV cache, continuous batching, prefix cache, "
+        "speculative decode, migration)")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase25 = decode_serving_phase(torch, tmp)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -5964,8 +6430,13 @@ def main() -> int:
              "training": (session, TRAIN_LAUNCHES),
              "alexnet": (alex_session, ALEX_TRAIN_LAUNCHES),
              "transformer": (lm_run, LM_TRAIN_LAUNCHES)}
+    tcp = phase25["resnet"]
     for k in kernels:
         src, replaces = KERNEL_SOURCES[k["name"]]
+        if k["name"] in tcp["f32"]["launches_per_batch"]:
+            k["tcp_launches_per_batch"] = {
+                wd: r["launches_per_batch"][k["name"]]
+                for wd, r in tcp.items()}
         runs, per_step = paths[k["launches_path"]]
         kid = KERNEL_IDS[k["name"]]
         k.update(id=kid, route="cuda", source=src,
@@ -6027,7 +6498,7 @@ def main() -> int:
                    "rest_of_bsp": rest, "zoo": zoo, "phase19": phase19,
                    "phase20": phase20, "phase21": phase21,
                    "phase22": phase22, "phase23": phase23,
-                   "phase24": phase24,
+                   "phase24": phase24, "phase25": phase25,
                    "seconds": time.monotonic() - _STARTED,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
@@ -6071,7 +6542,10 @@ def main() -> int:
                            "LM variant (dp, remat, tp, pp, moe) at 12 "
                            "layers; sp_strategy_launches (K4): phase 24 "
                            "(a)'s launches of one forward and backward "
-                           "of each sequence-parallel strategy"},
+                           "of each sequence-parallel strategy; "
+                           "tcp_launches_per_batch (K1a, K1b, K2a): phase 25 "
+                           "(a)'s launches per batch-32 ResNet-50 infer over "
+                           "TCP, by export dtype"},
                   f, indent=1)
     log(f"whole script: {time.monotonic() - _STARTED:.1f} s")
     log(json.dumps({"kernels": kernels}))

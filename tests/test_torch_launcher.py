@@ -8,8 +8,10 @@ that fails stops its sibling and the launcher exits non-zero; two ranks
 stopped and resumed end as two unbroken ranks; ``--multihost`` joins two
 launchers of one rank each into one world; the four mesh degrees
 (``--seq/--model/--pipe/--expert-parallel``) run the LM family on two
-ranks and the async rules refuse them; unported rules and options
-(SERVE, ...) exit non-zero naming their ROADMAP item.
+ranks and the async rules refuse them; ``SERVE --decode`` serves a tiny
+TransformerLM export over TCP on the CPU; unported options
+(``--disaggregate``, ``--decode-fleet-cache``, ...) exit non-zero naming
+their ROADMAP item.
 
 This file imports no JAX: it is also the model module the launched
 workers import (``-m test_torch_launcher -c TinyAlexNet``).  Every
@@ -147,10 +149,12 @@ def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["ASGD", "--serve-replicas", "2"], 19),
-    (["GOSGD", "--compilation-cache-dir", "d"], 22), (["SERVE"], 19),
+    (["SERVE", "--export-dir", "d", "--prefill-replicas", "2"], 21),
+    (["GOSGD", "--compilation-cache-dir", "d"], 22),
+    (["SERVE", "--export-dir", "d", "--decode", "--autoscale"], 21),
     (["EASGD", "--disaggregate"], 21),
-    (["BSP", "--decode-max-seqs", "4"], 20)])
+    (["SERVE", "--export-dir", "d", "--decode", "--decode-fleet-cache",
+      "h:1"], 21)])
 def test_unported_rules_and_options_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP.md "
                                          rf"section A, item {item}\)"):
@@ -311,6 +315,87 @@ def test_refusals(tmp_path):
         with pytest.raises(SystemExit, match="--platform cpu"):
             launcher.main(["BSP", "-m", "test_torch_launcher", "-c",
                            "TinyAlexNet"])
+
+
+def test_serve_refusals():
+    """SERVE needs --export-dir and one host, --decode is a SERVE
+    option, and the training rules still need -m/-c."""
+    for argv, what in ((["SERVE"], "requires --export-dir"),
+                       (["BSP", "--decode", "-m", "x", "-c", "y"],
+                        "SERVE option"),
+                       (["BSP"], "needs -m/--modelfile"),
+                       (["SERVE", "--export-dir", "d", "--multihost",
+                         "--coordinator", "h:1", "--nhosts", "2",
+                         "--host-id", "0"], "single-host")):
+        with pytest.raises(SystemExit, match=what):
+            launcher.main(argv)
+    args = launcher.parse_args(["SERVE", "--export-dir", "d", "--decode"])
+    assert args.max_restarts == 2 and args.decode_page_size == 16
+    assert (args.decode_pages_per_seq, args.decode_max_seqs,
+            args.decode_speculate_k, args.decode_prefill_batch) == (8, 8, 4, 8)
+    assert launcher.parse_args(["BSP", "-m", "x", "-c", "y"]).max_restarts == 0
+
+
+def test_serve_decode_over_tcp_on_the_cpu(tmp_path, monkeypatch):
+    """``SERVE --decode --platform cpu``: a tiny TransformerLM export
+    served over TCP; two ``generate`` calls give the same greedy tokens
+    as the in-process ``DecodeSession``, ``stats`` counts them, and the
+    ``shutdown`` op ends the launcher with 0."""
+    import socket
+
+    import numpy as np
+
+    from theanompi_tpu_torch.decode import DecodeSession
+    from theanompi_tpu_torch.models.base import ModelConfig
+    from theanompi_tpu_torch.models.transformer import TransformerLM
+    from theanompi_tpu_torch.serving import InferenceClient, export_model
+
+    monkeypatch.setenv("THEANOMPI_TPU_SERVICE_KEY", "launcher-serve-test")
+    monkeypatch.setenv("THEANOMPI_TPU_WIRE_SHM", "0")
+    model = TransformerLM(config=ModelConfig(batch_size=4,
+                                             compute_dtype="float32"),
+                          device="cpu", vocab=32, seq_len=16, n_layers=2,
+                          d_model=32, n_heads=4)
+    export_dir = str(tmp_path / "export")
+    export_model(model, export_dir, version=0)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    out = {}
+    t = threading.Thread(target=lambda: out.update(rc=launcher.main([
+        "SERVE", "--export-dir", export_dir, "--decode", "--platform",
+        "cpu", "--port", str(port), "--serve-host", "127.0.0.1",
+        "--reload-poll-s", "0", "--decode-prefill-buckets", "8,16"])),
+        daemon=True)
+    t.start()
+    prompt = np.arange(5, dtype=np.int32)
+    sess = DecodeSession(model, page_size=4, pages_per_seq=4,
+                         prefill_buckets=(8, 16))
+    seq, logits = sess.admit(prompt)
+    want = [int(np.argmax(logits))]
+    for _ in range(5):
+        want.append(int(np.argmax(sess.decode(
+            [seq], np.asarray([want[-1]]))[0])))
+    client = None
+    try:
+        for _ in range(300):
+            try:
+                client = InferenceClient(f"127.0.0.1:{port}")
+                break
+            except OSError:
+                t.join(0.1)
+        assert client is not None, "the SERVE launcher never listened"
+        for _ in range(2):
+            got = client.generate(prompt, max_new=6)
+            assert got.tolist() == want
+        stats = client.stats()
+        assert stats["decode"] and stats["tokens"] == 12
+        client.shutdown()
+    finally:
+        if client is not None:
+            client.close()
+    t.join(60)
+    assert not t.is_alive() and out["rc"] == 0
 
 
 def test_config_overrides():

@@ -229,14 +229,14 @@ def test_flood_yields_typed_overloaded(ref, tmp_path):
 def test_entry_point_guards(ref, tmp_path):
     d = str(tmp_path)
     model = port_model(ref.v0)
-    with pytest.raises(ValueError, match="not ported"):
-        export_model(model, d, version=0, weight_dtype="int8")
+    with pytest.raises(ValueError, match="weight_dtype"):
+        export_model(model, d, version=0, weight_dtype="fp8")
     export_model(model, d, version=0)
     with pytest.raises(ValueError, match="immutable"):
         export_model(model, d, version=0)
     with pytest.raises(RuntimeError, match="cuda"):
         InferenceServer(d)                     # default device, no card
-    with pytest.raises(NotImplementedError, match="decode"):
+    with pytest.raises(ValueError, match="decode-capable"):
         InferenceServer(d, device="cpu", decode=True)
     meta = load_export(d).meta
     assert meta["modelfile"] == "theanompi_tpu_torch.models.resnet50"

@@ -1,5 +1,5 @@
-"""``tmlocal`` for the port: BSP one process per card, and the async
-rules (EASGD, ASGD, GOSGD) in one process.
+"""``tmlocal`` for the port: BSP one process per card, the async
+rules (EASGD, ASGD, GOSGD) in one process, and the SERVE rule.
 
 Counterpart of ``theanompi_tpu/launcher.py``::
 
@@ -7,6 +7,18 @@ Counterpart of ``theanompi_tpu/launcher.py``::
         -m theanompi_tpu_torch.models.alex_net -c AlexNet --epochs 1
     python -m theanompi_tpu_torch.launcher EASGD -D 2 --tau 4 \\
         -m theanompi_tpu_torch.models.alex_net -c AlexNet --epochs 1
+    python -m theanompi_tpu_torch.launcher SERVE --export-dir D \\
+        [--port 45900] [--decode [--decode-draft-export-dir D2]]
+
+SERVE runs the inference server in this process (no workers, no
+``-m``/``-c``: the export's meta names the model) behind its TCP front
+(serving/server.py ``serve_main``) until a ``shutdown`` op: ``--port``,
+``--serve-host``, ``--serve-replicas``, ``--max-batch``,
+``--max-delay-ms``, ``--serve-buckets``, ``--max-queue``,
+``--reload-poll-s``, ``--max-restarts`` (per-replica
+restart-from-export budget, default 2) and the ``--decode*`` options
+(decode/: paged KV cache, continuous batching, prefix cache,
+speculative decode), on the card unless ``--platform cpu``.
 
 The JAX launcher runs one SPMD program over every local chip; the port
 runs one process per card, as the reference's ``mpirun`` did.  The
@@ -102,8 +114,10 @@ session), the rule, the devices and each worker's parameter digest.
 
 The launcher never picks the CPU by itself: ``--platform`` defaults to
 ``cuda`` and fails without a card.  A worker that fails terminates its
-siblings and the launcher exits non-zero.  SERVE and the JAX launcher's
-other options exit non-zero with the ROADMAP item that will port them.
+siblings and the launcher exits non-zero.  The JAX launcher's other
+options (``--disaggregate`` and the front door's, ``--decode-fleet-cache``,
+``--compilation-cache-dir``) exit non-zero with the ROADMAP item that
+will port them.
 """
 
 from __future__ import annotations
@@ -121,19 +135,15 @@ import time
 #: rules of the JAX launcher -> the ROADMAP.md section A item porting
 #: each (None: ported)
 RULES = {"BSP": None, "EASGD": None, "ASGD": None, "GOSGD": None,
-         "SERVE": 19}
+         "SERVE": None}
 #: the rules that run in one process, one worker thread per device
 ASYNC_RULES = ("EASGD", "ASGD", "GOSGD")
 #: options of the JAX launcher this one does not take yet -> the ROADMAP
-#: item porting each; ``--decode-*`` are matched by prefix (item 20)
+#: item porting each
 UNPORTED_OPTIONS = {
-    **dict.fromkeys(("--export-dir", "--port", "--serve-host",
-                     "--serve-replicas", "--max-batch", "--max-delay-ms",
-                     "--serve-buckets", "--max-queue", "--reload-poll-s"),
-                    19),
-    "--decode": 20,
     **dict.fromkeys(("--disaggregate", "--prefill-replicas", "--autoscale",
-                     "--scale-max", "--slo-p99-ms"), 21),
+                     "--scale-max", "--slo-p99-ms", "--decode-fleet-cache"),
+                    21),
     "--compilation-cache-dir": 22}
 #: tells a worker which life of the group it is (0: the first)
 RESTART_ENV = "THEANOMPI_TPU_RESTART"
@@ -149,11 +159,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m theanompi_tpu_torch.launcher",
         description="tmlocal for the PyTorch port: one process per card",
         allow_abbrev=False)
-    p.add_argument("rule", help="training rule (BSP, EASGD, ASGD, GOSGD)")
-    p.add_argument("-m", "--modelfile", required=True,
-                   help="model module path")
-    p.add_argument("-c", "--modelclass", required=True,
-                   help="model class name")
+    p.add_argument("rule", help="training rule (BSP, EASGD, ASGD, GOSGD) "
+                                "or SERVE")
+    p.add_argument("-m", "--modelfile", default=None,
+                   help="model module path (training rules)")
+    p.add_argument("-c", "--modelclass", default=None,
+                   help="model class name (training rules)")
     p.add_argument("-D", "--devices", type=int, default=None,
                    help="BSP: processes, one per card; async rules: "
                         "worker threads, one per card (default: every "
@@ -195,12 +206,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fault-plan", default=None, metavar="PATH|JSON",
                    help="deterministic fault injection (exported to the "
                         "workers as THEANOMPI_TPU_FAULTS)")
-    p.add_argument("--max-restarts", type=int, default=0, metavar="N",
+    p.add_argument("--max-restarts", type=int, default=None, metavar="N",
                    help="restart a group whose worker died, from its "
                         "latest verified checkpoint, up to N times "
-                        "(single host only); async rules also restart a "
-                        "failed worker thread from the center up to N "
-                        "times")
+                        "(single host only; default 0); async rules also "
+                        "restart a failed worker thread from the center "
+                        "up to N times; SERVE: each replica's "
+                        "restart-from-export budget (default 2)")
     p.add_argument("--min-workers", type=int, default=None, metavar="N",
                    help="async rules under --max-restarts: abort when "
                         "fewer than N workers are left (default 1)")
@@ -255,6 +267,32 @@ def build_parser() -> argparse.ArgumentParser:
                    help="host 0's address (MASTER_ADDR:MASTER_PORT)")
     p.add_argument("--nhosts", type=int, default=None)
     p.add_argument("--host-id", type=int, default=None)
+    p.add_argument("--export-dir", default=None, metavar="DIR",
+                   help="SERVE: versioned model-export directory (required; "
+                        "watched for new versions to hot-reload)")
+    p.add_argument("--port", type=int, default=None,
+                   help="SERVE: listen port (default 45900)")
+    p.add_argument("--serve-host", default="0.0.0.0",
+                   help="SERVE: listen address")
+    p.add_argument("--serve-replicas", type=int, default=1,
+                   help="SERVE: inference replicas (each with its own "
+                        "queue and batcher)")
+    p.add_argument("--max-batch", type=int, default=8,
+                   help="SERVE: max rows per coalesced batch")
+    p.add_argument("--max-delay-ms", type=float, default=5.0,
+                   help="SERVE: max wait for a batch to fill")
+    p.add_argument("--serve-buckets", default=None, metavar="N,N,...",
+                   help="SERVE: padded batch sizes (default powers of two "
+                        "up to --max-batch)")
+    p.add_argument("--max-queue", type=int, default=32,
+                   help="SERVE: admission bound; pending requests beyond "
+                        "it are rejected with Overloaded")
+    p.add_argument("--reload-poll-s", type=float, default=1.0,
+                   help="SERVE: export-dir poll interval for hot reload "
+                        "(0 disables the watcher)")
+    from theanompi_tpu_torch.serving.server import add_decode_args
+
+    add_decode_args(p)
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -273,12 +311,13 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
         raise _not_ported(f"rule {args.rule}", RULES[args.rule])
     for tok in extra:
         name = tok.split("=", 1)[0]
-        if name.startswith("--decode-"):
-            raise _not_ported(f"option {name}", UNPORTED_OPTIONS["--decode"])
         if name in UNPORTED_OPTIONS:
             raise _not_ported(f"option {name}", UNPORTED_OPTIONS[name])
     if extra:
         raise SystemExit(f"unrecognized arguments: {' '.join(extra)}")
+    _check_serve(args)
+    if args.max_restarts is None:
+        args.max_restarts = 2 if args.rule == "SERVE" else 0
     if args.devices is not None and args.devices < 1:
         raise SystemExit("-D must be >= 1")
     if args.max_restarts < 0:
@@ -310,6 +349,52 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
         raise SystemExit("--coordinator, --nhosts and --host-id need "
                          "--multihost")
     return args
+
+
+def _check_serve(args: argparse.Namespace) -> None:
+    """SERVE needs ``--export-dir`` and one host; ``--decode`` is a
+    SERVE option; the training rules need ``-m``/``-c``."""
+    if args.decode and args.rule != "SERVE":
+        raise SystemExit("--decode is a SERVE option "
+                         "(launcher SERVE --decode ...)")
+    if args.rule != "SERVE":
+        if not (args.modelfile and args.modelclass):
+            raise SystemExit(f"{args.rule} needs -m/--modelfile and "
+                             "-c/--modelclass")
+        return
+    if args.multihost:
+        raise SystemExit("SERVE is single-host (run one server per host "
+                         "behind your load balancer)")
+    if not args.export_dir:
+        raise SystemExit("SERVE requires --export-dir (see "
+                         "serving/export.py export_model)")
+
+
+def run_serve(args: argparse.Namespace) -> int:
+    """The SERVE rule: the inference server in this process."""
+    from theanompi_tpu_torch.serving.server import (
+        DEFAULT_PORT,
+        decode_opts_from_args,
+        serve_main,
+    )
+
+    buckets = (tuple(int(b) for b in args.serve_buckets.split(","))
+               if args.serve_buckets else None)
+    if args.monitor_dir:
+        os.environ["THEANOMPI_TPU_MONITOR"] = args.monitor_dir
+    if args.fault_plan:
+        os.environ["THEANOMPI_TPU_FAULTS"] = args.fault_plan
+        from theanompi_tpu_torch.resilience import faults
+
+        faults.install_from_env()
+    return serve_main(
+        args.export_dir, host=args.serve_host,
+        port=args.port if args.port is not None else DEFAULT_PORT,
+        replicas=args.serve_replicas, max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms, buckets=buckets,
+        max_queue=args.max_queue, max_restarts=args.max_restarts,
+        reload_poll_s=args.reload_poll_s, decode=args.decode,
+        decode_opts=decode_opts_from_args(args), device=args.platform)
 
 
 #: option -> the rules that take it (else refused, as JAX's matrix does)
@@ -750,6 +835,8 @@ def _spawn(args: argparse.Namespace, argv: list[str]) -> int:
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    if args.rule == "SERVE":
+        return run_serve(args)
     if args.worker:
         return run_worker(args)
     return spawn(args, [a for a in argv if a != "--worker"])

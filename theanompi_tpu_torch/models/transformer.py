@@ -240,6 +240,9 @@ class TransformerLM(TorchModel):
     batch_partition = (AXIS_DATA, AXIS_SEQ)
     #: the axis time is cut over (None: whole sequences; TP sets None)
     seq_axis: str | None = AXIS_SEQ
+    #: exports of this family may serve the decode path (decode/); the
+    #: JAX package's flag, set on the same class
+    decode_capable = True
 
     @classmethod
     def default_config(cls) -> ModelConfig:

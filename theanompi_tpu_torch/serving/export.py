@@ -14,10 +14,20 @@ immutable and strictly increasing; :func:`load_export` picks the newest
 version that verifies and loads (``torch.load(weights_only=True)``), so
 a corrupt newest version costs a fallback, never the server.  The meta
 carries what is needed to rebuild the model around the tensors: the
-model's module path and class, its ``ModelConfig`` and its net dims.
+model's module path and class, its ``ModelConfig``, its net dims, the
+stored weight dtype and whether the export may serve the decode path
+(``decode``, the model class's ``decode_capable``).
 
-Only ``weight_dtype="f32"`` is written for now; quantized exports are
-not ported yet.
+Quantized exports (``weight_dtype``): ``bf16`` stores every f32 tensor
+of two or more dimensions as bfloat16 (rounded to nearest even with the
+wire's numpy bit arithmetic, parallel/wire.py ``f32_to_bf16_bits``);
+``int8`` stores it as ``{"int8_data": int8, "int8_scale": f32}`` with a
+symmetric scale per output channel, the amax over every axis but the
+one the flax leaf's LAST axis maps to (``quantize_axes``: axis 0 of a
+``Dense``/``Conv`` weight, axis 1 of a transposed conv's, the last axis
+of an embedding table, as the JAX package scales ``Embed`` along ``d``).
+The leaves are bit-identical to the JAX package's ``quantize_tree`` of
+the same weights, carried across by the bridge (models/bridge.py).
 """
 
 from __future__ import annotations
@@ -37,13 +47,16 @@ from torch import nn
 
 from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch.models.layers import prepare_inference
+from theanompi_tpu_torch.parallel.wire import f32_to_bf16_bits
 from theanompi_tpu_torch.resilience.recovery import (
     manifest_path,
     verify_checkpoint,
     write_manifest,
 )
 
-WEIGHT_DTYPES = ("f32",)
+#: export weight storage dtypes: bf16 halves the bytes, int8 quarters
+#: them with a per-output-channel scale
+WEIGHT_DTYPES = ("f32", "bf16", "int8")
 STATE_FILE = "state.pt"
 #: the only module tree an export's meta may name for rebuilding
 _PACKAGE = "theanompi_tpu_torch."
@@ -51,11 +64,90 @@ _PACKAGE = "theanompi_tpu_torch."
 
 class IncompatibleExport(RuntimeError):
     """A published export the live server must not hot-swap in: another
-    model, sample shape, net dims or weight dtype."""
+    model, sample shape, net dims, weight dtype or decode capability."""
 
 
 def meta_path(export_dir: str, version: int) -> str:
     return os.path.join(export_dir, f"export_meta_{int(version)}.json")
+
+
+# ---------------------------------------------------------------------------
+# Weight quantization (bf16 / int8 weight-only)
+# ---------------------------------------------------------------------------
+
+#: structural marker of one int8-quantized leaf
+_INT8_KEYS = frozenset({"int8_data", "int8_scale"})
+#: bridge layout -> the port axis that the flax leaf's last axis maps to
+_OUT_AXIS = {"dense": 0, "conv": 0, "conv_t": 1, "same": -1}
+
+
+def is_quantized_leaf(node) -> bool:
+    return isinstance(node, dict) and set(node.keys()) == _INT8_KEYS
+
+
+def quantize_axes(module: nn.Module) -> dict[str, int]:
+    """``{parameter name: output-channel axis}`` of ``module``, from the
+    bridge's mapping of each parameter onto its flax leaf."""
+    from theanompi_tpu_torch.models.bridge import _param_leaves
+
+    return {port: _OUT_AXIS[layout]
+            for port, _, layout in _param_leaves(module, False)}
+
+
+def _bf16(a: np.ndarray) -> torch.Tensor:
+    bits = f32_to_bf16_bits(np.ascontiguousarray(a, np.float32))
+    return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+
+
+def quantize_tree(state: dict, weight_dtype: str,
+                  axes: dict[str, int] | None = None) -> dict:
+    """Quantize a host ``state_dict`` for storage (export side).
+
+    Weight-only: f32 tensors of two or more dimensions (kernels,
+    embeddings); biases, norms and other 1-D state stay f32.  ``int8``
+    needs ``axes`` (:func:`quantize_axes`) and a known axis for every
+    such tensor: ``amax`` over the other axes, ``scale = (amax or 1) /
+    127``, ``data = clip(rint(w / scale), -127, 127)``, as the JAX
+    package in numpy."""
+    if weight_dtype not in WEIGHT_DTYPES:
+        raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES}, "
+                         f"got {weight_dtype!r}")
+    if weight_dtype == "f32":
+        return state
+    out = {}
+    for name, t in state.items():
+        a = t.detach().cpu().numpy() if t.dtype == torch.float32 else None
+        if a is None or a.ndim < 2:
+            out[name] = t
+        elif weight_dtype == "bf16":
+            out[name] = _bf16(a)
+        else:
+            if axes is None or name not in axes:
+                raise ValueError(f"int8 export: no output-channel axis "
+                                 f"known for {name} {tuple(a.shape)}")
+            keep = axes[name] % a.ndim
+            amax = np.max(np.abs(a), axis=tuple(
+                i for i in range(a.ndim) if i != keep), keepdims=True)
+            scale = (np.where(amax > 0, amax, 1.0) / 127.0).astype(
+                np.float32)
+            data = np.clip(np.rint(a / scale), -127, 127).astype(np.int8)
+            out[name] = {"int8_data": torch.from_numpy(data),
+                         "int8_scale": torch.from_numpy(scale)}
+    return out
+
+
+def dequantize_tree(tree, upcast_bf16: bool = False):
+    """Collapse int8 nodes back to f32 tensors (``data * scale``, on the
+    device the node lives on); ``upcast_bf16`` also widens bf16 tensors
+    to f32 (the dequantize-on-load path)."""
+    if is_quantized_leaf(tree):
+        return tree["int8_data"].float() * tree["int8_scale"]
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v, upcast_bf16) for k, v in tree.items()}
+    if upcast_bf16 and isinstance(tree, torch.Tensor) \
+            and tree.dtype == torch.bfloat16:
+        return tree.float()
+    return tree
 
 
 def export_incompatibility(live_meta: dict, new_meta: dict) -> str | None:
@@ -77,6 +169,32 @@ def export_incompatibility(live_meta: dict, new_meta: dict) -> str | None:
     if live_wd != new_wd:
         return (f"weight_dtype changed {live_wd!r} -> {new_wd!r} (restart "
                 "the server to change it)")
+    if bool(live_meta.get("decode")) != bool(new_meta.get("decode")):
+        return ("decode capability changed "
+                f"{bool(live_meta.get('decode'))} -> "
+                f"{bool(new_meta.get('decode'))}")
+    return None
+
+
+def draft_incompatibility(target_meta: dict,
+                          draft_meta: dict) -> str | None:
+    """Why a draft export must NOT speculate for a live target; None
+    when compatible.  The draft's dims are free; its decode capability,
+    vocab and positional range (``max(2048, seq_len)``, which must cover
+    the target's) must agree, because the target verifies draft
+    tokens."""
+    if not draft_meta.get("decode"):
+        return "draft export is not decode-capable"
+    t_net = target_meta.get("net") or {}
+    d_net = draft_meta.get("net") or {}
+    if t_net.get("vocab") != d_net.get("vocab"):
+        return (f"draft vocab {d_net.get('vocab')} != target vocab "
+                f"{t_net.get('vocab')}")
+    t_max = max(2048, int(t_net.get("seq_len") or 0))
+    d_max = max(2048, int(d_net.get("seq_len") or 0))
+    if d_max < t_max:
+        return (f"draft positional table {d_max} shorter than the "
+                f"target's {t_max}")
     return None
 
 
@@ -98,12 +216,13 @@ def _sample_dtype(model) -> str:
 def export_model(model, export_dir: str, version: int | None = None,
                  max_to_keep: int = 5, weight_dtype: str = "f32") -> int:
     """Write one export version of ``model`` (its module's state_dict,
-    f32; under FSDP its parameters gathered, so every rank calls it);
-    returns the version (default: ``model.current_epoch``).
-    Re-exporting an existing version is refused."""
+    f32 then quantized to ``weight_dtype``; under FSDP its parameters
+    gathered, so every rank calls it); returns the version (default:
+    ``model.current_epoch``).  Re-exporting an existing version is
+    refused."""
     if weight_dtype not in WEIGHT_DTYPES:
-        raise ValueError(f"weight_dtype {weight_dtype!r} is not ported yet "
-                         f"(this package writes {WEIGHT_DTYPES})")
+        raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES}, "
+                         f"got {weight_dtype!r}")
     version = int(model.current_epoch if version is None else version)
     if version in kept_versions(export_dir):
         raise ValueError(f"export version {version} already exists in "
@@ -114,6 +233,9 @@ def export_model(model, export_dir: str, version: int | None = None,
     with model.full_params():
         state = {k: v.detach().to("cpu", torch.float32).contiguous()
                  for k, v in model.module.state_dict().items()}
+        axes = (quantize_axes(model.module) if weight_dtype == "int8"
+                else None)
+    state = quantize_tree(state, weight_dtype, axes)
     torch.save(state, os.path.join(step_dir, STATE_FILE))
     write_manifest(export_dir, version, step_dir)
     meta = {
@@ -127,7 +249,7 @@ def export_model(model, export_dir: str, version: int | None = None,
         "n_classes": getattr(model.data, "n_classes", None),
         "net": model._net_cfg,
         "weight_dtype": weight_dtype,
-        "decode": False,
+        "decode": bool(getattr(model, "decode_capable", False)),
         "created": time.time(),
     }
     path = meta_path(export_dir, version)
@@ -173,20 +295,29 @@ def _load_version(export_dir: str, v: int) -> LoadedExport:
     return LoadedExport(v, state, meta)
 
 
-def load_export(export_dir: str, version: int | None = None) -> LoadedExport:
+def load_export(export_dir: str, version: int | None = None,
+                dequantize: bool = True) -> LoadedExport:
     """Read-only verified load of ``version``, or of the newest version
-    that is published, verifies and loads."""
+    that is published, verifies and loads.  ``dequantize`` (default)
+    collapses bf16/int8 weights back to f32; ``False`` keeps the stored
+    leaves for dequantization inside each decode step."""
     if version is not None:
-        return _load_version(export_dir, int(version))
+        return _finish(_load_version(export_dir, int(version)), dequantize)
     for v in reversed(kept_versions(export_dir)):
         try:
-            return _load_version(export_dir, v)
+            return _finish(_load_version(export_dir, v), dequantize)
         except FileNotFoundError:
             continue
         except Exception as e:  # corrupt or unloadable: fall back
             print(f"[serving] export v{v} skipped ({type(e).__name__}: {e})",
                   file=sys.stderr, flush=True)
     raise FileNotFoundError(f"no restorable export in {export_dir}")
+
+
+def _finish(loaded: LoadedExport, dequantize: bool) -> LoadedExport:
+    if dequantize:
+        loaded.state = dequantize_tree(loaded.state, upcast_bf16=True)
+    return loaded
 
 
 def build_model_from_meta(meta: dict, device: str | torch.device = "cuda"):
