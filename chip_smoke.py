@@ -165,9 +165,10 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    decay 5e-5): after each of ``P17_OPT_STEPS`` steps the card's
    parameters are within ``P17_OPT_REL`` of each parameter's largest
    value of the same optimizer class run on the CPU from the card's own
-   gradients; losses finite.  (c) ``steps_per_call = 4`` over 8 batches
-   ends bit-identical to 8 single calls; ``grad_accum_steps = 2`` at
-   microbatch 64 takes 4 updates with finite losses and launches, per
+   gradients; losses finite.  (c) ``steps_per_call = 4`` over
+   ``P17_BATCHES`` batches ends bit-identical to as many single calls;
+   ``grad_accum_steps = 2`` at microbatch 64 takes 4 updates with finite
+   losses and launches, per
    update, exactly twice phase 6b's per-step counts of K1a-K1d, K2b and
    K2c.  (e) Times: every model of (a)-(c) takes its next dispatch in
    turn, ``P17_ROUNDS`` rounds, each between synchronises; medians per
@@ -338,6 +339,38 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    by the first ends on the in-place tokens.  (e) Between the warm pass
    and the measured one: no new bucket key, the page tensors' ``data_ptr``
    kept, ``torch.cuda.memory_reserved()`` flat, and no kernel launched.
+26. Disaggregated serving and the fleet prefix cache, from a router
+   process of its own (``p26_router``: it holds no model and never
+   initializes CUDA), over phase 25's f32 export (run alone, it exports
+   the same seeded LM itself): ``DisaggregatedFleet(
+   prefill=2, decode=2, device="cuda")`` with the ``--decode`` defaults
+   (pages of 16 tokens, 8 a sequence, 8 sequences, prefill batch 8), four
+   child processes on the card (the authority first, then the other
+   three at once); their start-up seconds.
+   (a) Phase 25 (b)'s 8 prompts as concurrent ``RouterClient.generate``
+   streams with its lengths: the tokens equal phase 25's single-role
+   tokens and the ``full_forward(window=128)`` oracle, apart only where
+   the top-2 margin is below ``P25_TIE``; page bytes a stream (manifest,
+   k, v), ``frontdoor/migrate_ms`` p50/p99, tokens/s, time to first token
+   (8 concurrent one-token streams), the router's ``stats()`` with 0
+   shed.  (b) ``nvidia-smi --query-compute-apps``: each child holds memory
+   on the card and the router does not (by pid where the card's
+   nvidia-smi sees this machine's pids, else by the count of compute
+   processes and the card's used memory).  (c) A prompt of a 32-token
+   prefix and an 8-token suffix prefilled cold by the non-authority
+   prefill replica registers the prefix with the authority; the same
+   prefix with another suffix hits that replica's own cache, and a decode
+   replica's ``generate`` of it fetches the prefix from the authority (a
+   fleet hit, leases back to 0); its tokens equal a cold run's.  (d) A
+   decode replica killed (``decode_group.kill``) with 4 streams in
+   flight: every stream ends on (a)'s tokens, at least one failover, 0
+   shed; the watcher relaunches it.  (e) The decode role grown by one
+   (``grow`` + ``add_backend``; 8 streams, some on the new replica), then
+   shrunk by the autoscaler's drain-first scale-down while 8 streams run:
+   the streams on the drained replica migrate and every stream ends on
+   (a)'s tokens; the drained child exits.  Every child and its port are
+   released before the phase returns (the router's process group is
+   killed, pass or fail); no ``tmshm_*`` segment is left.
 
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
@@ -346,7 +379,7 @@ their own); 16 runs after it, then 17 on a one-rank group of its own
 one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
 its own one-rank group, (c) on it), then 20 ((a) on its own one-rank
 group, (b) after it, on phase 16's shard files), then 21 and 22 (no group),
-then 24 on a one-rank group of its own, then 25 (no group).  Phase 9
+then 24 on a one-rank group of its own, then 25 and 26 (no group).  Phase 9
 checkpoints each epoch, as the launcher does; 6b and 14 call
 ``run_bsp_session`` without checkpoints.
 
@@ -487,7 +520,7 @@ CKPT_MARGIN = 10.0
 #: (relative to each parameter's largest value), timed rounds (each run's
 #: next dispatch in turn), and each optimizer's learning rate (momentum
 #: 0.9, weight decay 5e-5)
-P17_BATCHES, P17_OPT_STEPS, P17_OPT_REL, P17_ROUNDS = 8, 3, 1e-6, 9
+P17_BATCHES, P17_OPT_STEPS, P17_OPT_REL, P17_ROUNDS = 4, 3, 1e-6, 3
 P17_OPTIMIZERS = {"adam": 1e-3, "rmsprop": 1e-4, "lars": 0.1}
 #: phase 17 (d): the launcher's --set of the rest of the BSP step
 P17_SETS = ("optimizer=lars", "momentum=0.9", "weight_decay=5e-5",
@@ -603,7 +636,7 @@ P21_CHECK_BATCH, P21_CENTER_LIMIT = 8, 2e-3
 #: wire's (PERF.md: each crossing rounds to bf16, at most 2^-9
 #: relative, twice an exchange, and the elastic pull halves what came
 #: before: 2 * 2^-8)
-P22_ITERS, P22_TAU, P22_P_PUSH, P22_REPS = 8, 4, 0.5, 2
+P22_ITERS, P22_TAU, P22_P_PUSH, P22_REPS = 4, 4, 0.5, 1
 P22_BF16_LIMIT = 2.0 ** -7
 #: phase 22 (a)'s round-robin schedules ((epochs, iterations a worker an
 #: epoch) of phase 21 (b)'s, shortened: each remote exchange moves the
@@ -3040,8 +3073,8 @@ def p17_cadences(torch, data, batches) -> tuple[dict, dict]:
     multi = run
     repro = float((final["single-again"] - final["single"]).abs().max())
     diff = float((final["steps_per_call=4"] - final["single"]).abs().max())
-    log(f"  steps_per_call=4 against 8 single calls: largest difference "
-        f"{diff} (two single runs: {repro})")
+    log(f"  steps_per_call=4 against {P17_BATCHES} single calls: largest "
+        f"difference {diff} (two single runs: {repro})")
     if diff > repro:
         raise AssertionError(f"steps_per_call differs: {diff} > {repro}")
     half = TRAIN_BATCH // 2
@@ -5958,7 +5991,8 @@ def p25_oracle(torch, net, prompt, tokens, window: int) -> dict:
     ties = [(int(i), float(margin[i])) for i in diff]
     return {"differ": len(diff), "ties": ties,
             "ok": all(m < P25_TIE for _, m in ties),
-            "min_margin": float(margin.min())}
+            "min_margin": float(margin.min()),
+            "margins": [float(m) for m in margin]}
 
 
 def p25_first_diff(a, b):
@@ -6065,6 +6099,10 @@ def p25_lm(torch, workdir: str) -> dict:
         oracle = [p25_oracle(torch, model.module, p, o, window)
                   for p, o in zip(ps, f32_out)]
         res["oracle"] = oracle
+        # phase 26 serves the same export and holds its routed streams to
+        # these tokens
+        res.update(f32_dir=dirs["f32"], prompts=[p.tolist() for p in ps],
+                   f32_tokens=f32_out)
         for p, o, orc in zip(ps, f32_out, oracle):
             if orc["differ"]:
                 log(f"  (b) prompt {len(p)}: {orc['differ']} token(s) off "
@@ -6187,6 +6225,500 @@ def decode_serving_phase(torch, workdir: str) -> dict:
     out["seconds"] = time.monotonic() - t0
     log(f"  phase 25: {out['seconds']:.1f} s")
     return out
+
+
+# -- phase 26: disaggregated serving and the fleet prefix cache ------------
+
+#: phase 26: the fleet's prefill and decode children; the fleet-cache
+#: prompts' shared prefix (two 16-token pages), their suffixes and the
+#: tokens (c)'s stream generates; (d)'s streams (phase 25's four longest);
+#: how long the router process may run before it is killed
+P26_PREFILL, P26_DECODE = 2, 2
+P26_PREFIX, P26_SUFFIX, P26_CACHE_NEW = 32, 8, 16
+P26_FAILOVER_STREAMS = (4, 5, 6, 7)
+P26_TIMEOUT_S = 300
+
+
+def p26_prompts() -> list:
+    """Phase 25 (b)'s measured prompts: its generator's third draw,
+    after the serial and the concurrent warm passes."""
+    rng = np.random.default_rng(26)
+    draws = [[rng.integers(0, LM_DIMS["vocab"], n).astype(np.int32)
+              for n in P25_PROMPT_LENS] for _ in range(3)]
+    return draws[2]
+
+
+def p26_streams(new_client, prompts, max_new, during=None):
+    """Every prompt as its own concurrent ``generate`` through the router;
+    ``during()`` runs once every stream has started.  The token lists,
+    each stream's seconds and the wall seconds of the whole set."""
+    clients = [new_client() for _ in prompts]
+    outs, secs, errors = [None] * len(prompts), [0.0] * len(prompts), []
+
+    def go(i):
+        t = time.monotonic()
+        try:
+            outs[i] = clients[i].generate(prompts[i], max_new[i]).tolist()
+        except Exception as e:  # reported below
+            errors.append(f"{type(e).__name__}: {e}")
+        secs[i] = time.monotonic() - t
+
+    threads = [threading.Thread(target=go, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    try:
+        if during is not None:
+            during()
+    finally:
+        for t in threads:
+            t.join(P26_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    if errors or any(o is None for o in outs):
+        raise AssertionError(f"a routed stream failed: {errors[:3]}")
+    for o, n in zip(outs, max_new):
+        if len(o) != n:
+            raise AssertionError(f"a stream gave {len(o)} tokens, not {n}")
+    return outs, secs, wall
+
+
+def p26_smi() -> dict:
+    """nvidia-smi's compute processes (pid, used MiB) and the card's used
+    memory."""
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    used = subprocess.run(
+        ["nvidia-smi", "-i", os.environ.get("CUDA_VISIBLE_DEVICES", "0"),
+         "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    rows = []
+    for line in apps:
+        pid, _, mem = (x.strip() for x in line.partition(","))
+        if pid.isdigit():
+            rows.append((int(pid), float(mem.split()[0]) if mem else 0.0))
+    return {"apps": rows, "used_mib": float(used.stdout.split()[0])}
+
+
+def p26_device(torch, fleet, before: dict) -> dict:
+    """(b) The children on the card, the router (this process) not:
+    ``nvidia-smi --query-compute-apps=pid,used_memory``.  Where the card's
+    nvidia-smi shows the children's own pids, each must appear with
+    memory above 0 and the router's pid must not; where it cannot see
+    this machine's pid namespace (it names every process pid 1), the
+    compute processes must have grown by exactly the children (the router
+    adds none) and the card's used memory by more than 0 a child."""
+    now = p26_smi()
+    pids = {}
+    for role, group in (("prefill", fleet.prefill_group),
+                        ("decode", fleet.decode_group)):
+        with group._lock:
+            for port, proc in sorted(group._procs.items()):
+                pids[f"{role}:{port}"] = proc.pid
+    apps = dict(now["apps"])
+    by_pid = {name: apps.get(pid) for name, pid in pids.items()}
+    visible = all(m is not None for m in by_pid.values())
+    added = len(now["apps"]) - len(before["apps"])
+    per_child = (now["used_mib"] - before["used_mib"]) / len(pids)
+    out = {"pids": pids, "router_pid": os.getpid(),
+           "pids_visible": visible, "children_mib": by_pid,
+           "compute_apps_before": before["apps"],
+           "compute_apps": now["apps"], "apps_added": added,
+           "used_mib_before": before["used_mib"],
+           "used_mib": now["used_mib"], "mib_per_child": per_child,
+           "router_on_card": os.getpid() in apps,
+           "router_cuda_initialized": torch.cuda.is_initialized()}
+    if visible:
+        ok = all(m > 0 for m in by_pid.values())
+        log(f"  (b) nvidia-smi used memory per child (MiB): {by_pid}")
+    else:
+        ok = added == len(pids) and per_child > 0
+        log(f"  (b) nvidia-smi lists {len(now['apps'])} compute processes "
+            f"(pids {sorted(set(apps))}: not this machine's namespace), "
+            f"{added} more than before the fleet: one per child, none for "
+            f"the router; the card's used memory {before['used_mib']:.0f} "
+            f"-> {now['used_mib']:.0f} MiB, {per_child:.0f} MiB a child")
+    log(f"  (b) the router (pid {os.getpid()}) on the card: "
+        f"{out['router_on_card']}, its CUDA initialized: "
+        f"{out['router_cuda_initialized']}")
+    if (not ok or out["router_on_card"]
+            or out["router_cuda_initialized"]):
+        raise AssertionError(f"(b) the device: {out}")
+    return out
+
+
+def p26_wait(cond, what: str, timeout: float = 120.0) -> float:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.005)
+    return time.monotonic() - t0
+
+
+def p26_fleet(spec: dict) -> dict:
+    """Phase 26 (a)-(e) in the router's process (see ``p26_router``)."""
+    import torch
+
+    from theanompi_tpu_torch import monitor
+    from theanompi_tpu_torch.frontdoor import (
+        Autoscaler,
+        DisaggregatedFleet,
+        HysteresisController,
+        PrefillClient,
+        RouterClient,
+    )
+    from theanompi_tpu_torch.serving import InferenceClient
+
+    ps = [np.asarray(p, np.int32) for p in spec["prompts"]]
+    max_new = list(spec["max_new"])
+    res: dict = {}
+    before = p26_smi()
+    t0 = time.monotonic()
+    fleet = DisaggregatedFleet(spec["export_dir"], prefill=P26_PREFILL,
+                               decode=P26_DECODE, router_host="127.0.0.1",
+                               device="cuda")
+    clients = []
+
+    def client(cls=RouterClient, addr=None):
+        c = cls(addr or fleet.router_addr)
+        clients.append(c)
+        return c
+
+    try:
+        res["startup_s"] = time.monotonic() - t0
+        log(f"  {P26_PREFILL} prefill + {P26_DECODE} decode children on "
+            "the card (the cache authority first, then the other three at "
+            f"once) up in {res['startup_s']:.1f} s")
+        res["device"] = p26_device(torch, fleet, before)
+
+        # (a) 8 streams through the router
+        tokens, _, wall = p26_streams(client, ps, max_new)
+        hist = monitor.registry().get("frontdoor/migrate_ms")
+        migrate = {"p50": hist.percentile(50), "p99": hist.percentile(99),
+                   "count": hist.count}
+        man, k, v = client(PrefillClient,
+                           fleet.prefill_group.addresses()[0]).prefill(ps[0])
+        page_bytes = {"manifest": len(json.dumps(man)),
+                      "k": int(k.nbytes), "v": int(v.nbytes)}
+        _, ttft, _ = p26_streams(client, ps, [1] * len(ps))
+        st = fleet.router.stats()
+        n_tok = sum(len(t) for t in tokens)
+        res["a"] = {"tokens": tokens, "wall_s": wall,
+                    "tokens_per_s": n_tok / wall, "migrate_ms": migrate,
+                    "page_bytes": page_bytes, "ttft_s": ttft,
+                    "router": {k2: st[k2] for k2 in (
+                        "streams", "shed", "failovers", "migrations")}}
+        log(f"  (a) {len(ps)} streams through the router: {n_tok} tokens in "
+            f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; "
+            f"frontdoor/migrate_ms p50 {migrate['p50']:.2f} p99 "
+            f"{migrate['p99']:.2f} ({migrate['count']} prefill legs); "
+            f"pages a stream: manifest {page_bytes['manifest']} + k "
+            f"{page_bytes['k']} + v {page_bytes['v']} bytes; time to first "
+            f"token (a 1-token stream, 8 at once) {min(ttft):.3f}-"
+            f"{max(ttft):.3f} s; router {res['a']['router']}")
+        if st["shed"]:
+            raise AssertionError(f"(a) the router shed: {st}")
+
+        # (c) the fleet prefix cache
+        auth = fleet._authority_addr
+        peer = next(a for a in fleet.prefill_group.addresses() if a != auth)
+        cache = spec["cache"]
+        pa = np.asarray(cache["prefix"] + cache["a"], np.int32)
+        pb = np.asarray(cache["prefix"] + cache["b"], np.int32)
+        ac, pc = client(PrefillClient, auth), client(PrefillClient, peer)
+        s0 = ac.stats()
+        man_a, _, _ = pc.prefill(pa)   # cold on the peer: registers
+        s1 = ac.stats()
+        man_b, _, _ = pc.prefill(pb)   # the peer's own prefix cache
+        dc = client(InferenceClient, fleet.decode_group.addresses()[0])
+        d0 = dc.stats()["prefix_cache_hits"]
+        hit = dc.generate(pb, P26_CACHE_NEW).tolist()
+        s2, d1 = ac.stats(), dc.stats()["prefix_cache_hits"]
+        res["c"] = {"authority": auth, "peer": peer,
+                    "authority_prefix_cache": [s0["prefix_cache"],
+                                               s1["prefix_cache"],
+                                               s2["prefix_cache"]],
+                    "leases_after": s2["fleet_cache_leases"],
+                    "peer_prefix_cache": pc.stats()["prefix_cache"],
+                    "decode_prefix_hits": d1 - d0,
+                    "first_tokens": [man_a["first_token"],
+                                     man_b["first_token"]],
+                    "tokens": hit}
+        log(f"  (c) authority {auth}: prefix cache {s0['prefix_cache']} -> "
+            f"after the peer's cold prefill {s1['prefix_cache']} -> after "
+            f"a decode replica's fetch {s2['prefix_cache']}, leases "
+            f"{s2['fleet_cache_leases']}; the peer's second prompt "
+            f"{res['c']['peer_prefix_cache']}; the decode replica's "
+            f"prefix hits +{d1 - d0}")
+        if (s1["prefix_cache"]["entries"] <= s0["prefix_cache"]["entries"]
+                or s2["prefix_cache"]["hits"] <= s1["prefix_cache"]["hits"]
+                or s2["fleet_cache_leases"] != 0 or d1 - d0 < 1):
+            raise AssertionError(f"(c) no fleet hit: {res['c']}")
+
+        # (d) failover: a decode replica killed with streams in flight
+        victim = fleet.decode_group.addresses()[0]
+        vc = client(InferenceClient, victim)
+        base = vc.stats()["tokens"]
+        idx = P26_FAILOVER_STREAMS
+
+        killed = []
+
+        def kill_when_running():
+            p26_wait(lambda: fleet.router.backend_streams("decode", victim)
+                     and vc.stats()["tokens"] - base >= 5,
+                     "(d) a stream running on the victim")
+            fleet.decode_group.kill(victim)
+            killed.append(time.monotonic())
+            log(f"  (d) killed decode replica {victim} with "
+                f"{fleet.router.backend_streams('decode', victim)} "
+                "stream(s) on it")
+
+        f0 = fleet.router.stats()["failovers"]
+        d_tok, _, _ = p26_streams(client, [ps[i] for i in idx],
+                                  [max_new[i] for i in idx],
+                                  during=kill_when_running)
+        st = fleet.router.stats()
+        res["d"] = {"victim": victim, "tokens": d_tok,
+                    "failovers": st["failovers"] - f0, "shed": st["shed"]}
+        log(f"  (d) {len(idx)} streams finished: {res['d']['failovers']} "
+            f"failover(s), shed {st['shed']}")
+        if res["d"]["failovers"] < 1 or st["shed"]:
+            raise AssertionError(f"(d) failover: {st}")
+
+        # (e) scale events: grow the decode role (while the watcher
+        # relaunches (d)'s victim), then drain-first shrink
+        t = time.monotonic()
+        new = fleet.decode_group.grow()
+        grow_s = time.monotonic() - t
+        p26_wait(lambda: fleet.decode_group._rpc_probe(victim),
+                 "(d) the victim's relaunch")
+        res["d"].update(relaunch_s=time.monotonic() - killed[0],
+                        restarts=fleet.decode_group.restart_counts())
+        log(f"  (d) the watcher relaunched the victim: serving again "
+            f"{res['d']['relaunch_s']:.1f} s after the kill")
+        fleet.router.add_backend("decode", new)
+        nc = client(InferenceClient, new)
+        e_up, _, _ = p26_streams(client, ps, max_new)
+        adopted_new = sum(r["adopted"] for r in nc.stats()["replicas"])
+        target = fleet.decode_group.addresses()[-1]
+        with fleet.decode_group._lock:
+            target_proc = fleet.decode_group._procs[
+                int(target.rpartition(":")[2])]
+        tc = client(InferenceClient, target)
+        base = tc.stats()["tokens"]
+        scaler = Autoscaler(fleet.router, {"decode": fleet.decode_group},
+                            {"decode": HysteresisController(
+                                up=2.0, down=1.5, hold=1, cooldown_s=0.0,
+                                min_size=P26_DECODE,
+                                max_size=P26_DECODE + 1)})
+
+        def shrink_when_running():
+            p26_wait(lambda: fleet.router.backend_streams("decode", target)
+                     and tc.stats()["tokens"] - base >= 5,
+                     "(e) a stream running on the replica to drain")
+            scaler.tick()
+
+        m0 = fleet.router.stats()["migrations"]
+        try:
+            e_down, _, _ = p26_streams(client, ps, max_new,
+                                       during=shrink_when_running)
+        finally:
+            scaler.stop()
+        st = fleet.router.stats()
+        exited = p26_wait(lambda: target_proc.poll() is not None,
+                          "(e) the drained child's exit", 30.0)
+        res["e"] = {"grown": new, "grow_s": grow_s,
+                    "adopted_on_new": adopted_new, "drained": target,
+                    "events": list(scaler.events), "tokens_up": e_up,
+                    "tokens_down": e_down,
+                    "migrations": st["migrations"] - m0,
+                    "shed": st["shed"], "exit_code": target_proc.returncode,
+                    "exited_after_s": exited,
+                    "decode_replicas": fleet.decode_group.addresses()}
+        log(f"  (e) grew {new} in {grow_s:.1f} s (it adopted "
+            f"{adopted_new} streams of 8); the autoscaler drained {target} "
+            f"with streams in flight: {res['e']['migrations']} stream(s) "
+            f"migrated, shed {st['shed']}, the child exited "
+            f"(rc {target_proc.returncode}); decode role now "
+            f"{res['e']['decode_replicas']}")
+        if (adopted_new < 1 or scaler.events != [("decode", "down", target)]
+                or res["e"]["migrations"] < 1 or st["shed"]
+                or len(fleet.decode_group) != P26_DECODE):
+            raise AssertionError(f"(e) scale events: {res['e']}")
+        res["router_cuda_initialized"] = torch.cuda.is_initialized()
+        if res["router_cuda_initialized"]:
+            raise AssertionError("the router process initialized CUDA")
+    finally:
+        for c in clients:
+            c.close()
+        fleet.stop()
+    return res
+
+
+def p26_router(spec_path: str) -> int:
+    """Phase 26's router process: ``python -c 'import chip_smoke;
+    chip_smoke.p26_router(spec)'`` from the repository root.  It builds
+    the ``DisaggregatedFleet`` (its children on the card), runs (a)-(e)
+    and writes its results beside the spec; it holds no model and never
+    touches the card."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    os.environ["THEANOMPI_TPU_MONITOR"] = spec["monitor_dir"]
+    from theanompi_tpu_torch import monitor
+
+    out = {"ok": False}
+    try:
+        with monitor.session(spec["monitor_dir"], name="p26router"):
+            out.update(p26_fleet(spec))
+        out["ok"] = True
+    except Exception as e:
+        import traceback
+
+        out["error"] = f"{type(e).__name__}: {e}"
+        traceback.print_exc()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+    return 0 if out["ok"] else 1
+
+
+def p26_same(got, want, oracle) -> bool:
+    """Two greedy token lists of one prompt agree: equal, or first apart
+    where the oracle's top-2 margin (over ``want``'s sequence, which both
+    share up to there) is below ``P25_TIE``."""
+    i = p25_first_diff(got, want)
+    if i is None:
+        return len(got) == len(want)
+    return oracle["margins"][i] < P25_TIE
+
+
+def frontdoor_phase(torch, workdir: str, phase25: dict | None = None) -> dict:
+    """Phase 26 (module docstring): the disaggregated fleet at phase 25's
+    LM, driven from a router process of its own."""
+    import signal
+
+    from theanompi_tpu_torch.decode.session import DecodeSession
+    from theanompi_tpu_torch.parallel import shm
+    from theanompi_tpu_torch.serving import export_model
+    from theanompi_tpu_torch.serving.export import (
+        build_model_from_meta,
+        load_export,
+    )
+
+    t0 = time.monotonic()
+    os.environ.setdefault("THEANOMPI_TPU_SERVICE_KEY", "chip-smoke-serving")
+    os.environ["THEANOMPI_TPU_WIRE_SHM"] = "0"
+    ps = p26_prompts()
+    lm = (phase25 or {}).get("lm") or {}
+    if lm and [p.tolist() for p in ps] != lm["prompts"]:
+        raise AssertionError("phase 26's prompts are not phase 25's")
+    export_dir = lm.get("f32_dir")
+    if export_dir is None:
+        model = lm_model(torch, "cuda", dtype="float32")
+        export_dir = os.path.join(workdir, "lm_f32")
+        export_model(model, export_dir, version=0)
+        del model
+    loaded = load_export(export_dir)
+    model = build_model_from_meta(loaded.meta, "cuda")
+    model.module.load_state_dict(loaded.state)
+    net = model.module.eval()
+    rng = np.random.default_rng(2626)
+    cache = {"prefix": rng.integers(0, LM_DIMS["vocab"], P26_PREFIX).tolist(),
+             "a": rng.integers(0, LM_DIMS["vocab"], P26_SUFFIX).tolist(),
+             "b": rng.integers(0, LM_DIMS["vocab"], P26_SUFFIX).tolist()}
+    spec = {"export_dir": export_dir, "prompts": [p.tolist() for p in ps],
+            "max_new": list(P25_MAX_NEW), "cache": cache,
+            "monitor_dir": os.path.join(workdir, "p26_monitor"),
+            "out": os.path.join(workdir, "p26_out.json")}
+    spec_path = os.path.join(workdir, "p26_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    segs = set(shm.segment_names())
+    t1 = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.p26_router(sys.argv[1]))", spec_path],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        start_new_session=True)
+    try:
+        rc = proc.wait(timeout=P26_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        # the router's group holds every child it spawned: nothing of
+        # the fleet outlives the phase, pass or fail
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    router_s = time.monotonic() - t1
+    left = sorted(set(shm.segment_names()) - segs)
+    if rc != 0 or not os.path.exists(spec["out"]):
+        raise AssertionError(f"phase 26's router process exited {rc}")
+    with open(spec["out"]) as f:
+        res = json.load(f)
+    if not res.get("ok"):
+        raise AssertionError(f"phase 26: {res.get('error')}")
+    if left:
+        raise AssertionError(f"phase 26 left shm segments {left}")
+
+    # the tokens: the oracle, phase 25's single-role run, a cold run
+    window = 16 * 8
+    oracle = [p25_oracle(torch, net, p, o, window)
+              for p, o in zip(ps, res["a"]["tokens"])]
+    for p, orc in zip(ps, oracle):
+        if not orc["ok"]:
+            raise AssertionError(f"(a) routed tokens of the {len(p)}-token "
+                                 f"prompt off the oracle: {orc['ties']}")
+    single = lm.get("f32_tokens")
+    if single is not None:
+        bad = [i for i, (a, b) in enumerate(zip(res["a"]["tokens"], single))
+               if not p26_same(a, b, oracle[i])]
+        if bad:
+            raise AssertionError(f"(a) routed streams {bad} off phase 25's")
+
+    def held(tokens, which):
+        return [i for i, t in zip(which, tokens)
+                if not p26_same(t, res["a"]["tokens"][i], oracle[i])]
+
+    bad = (held(res["d"]["tokens"], P26_FAILOVER_STREAMS)
+           + held(res["e"]["tokens_up"], range(len(ps)))
+           + held(res["e"]["tokens_down"], range(len(ps))))
+    if bad:
+        raise AssertionError(f"(d)/(e) streams {bad} off (a)'s tokens")
+    pb = np.asarray(cache["prefix"] + cache["b"], np.int32)
+    sess = DecodeSession(model, params=loaded.state, page_size=16,
+                         pages_per_seq=8, max_seqs=8, prefix_cache=False)
+    seq, logits = sess.admit(pb)
+    cold = [int(np.argmax(logits))]
+    while len(cold) < P26_CACHE_NEW:
+        cold.append(int(np.argmax(sess.decode(
+            [seq], np.asarray([cold[-1]], np.int32))[0])))
+    sess.release(seq)
+    corc = p25_oracle(torch, net, pb, cold, window)
+    if not (corc["ok"] and p26_same(res["c"]["tokens"], cold, corc)
+            and p26_same(res["c"]["first_tokens"][1:], cold[:1], corc)):
+        raise AssertionError(f"(c) fleet-hit tokens {res['c']['tokens']} "
+                             f"vs the cold run's {cold}")
+    del model, net, sess
+    torch.cuda.empty_cache()
+    res["oracle"] = oracle
+    res["cold_tokens"] = cold
+    res["router_process_s"] = router_s
+    res["seconds"] = time.monotonic() - t0
+    n_tok = sum(len(t) for t in res["a"]["tokens"])
+    log(f"  tokens: routed (a) {n_tok} equal to the "
+        f"full_forward(window={window}) oracle (least top-2 margin "
+        f"{min(o['min_margin'] for o in oracle):.3g}"
+        + (", and to phase 25's single-role run" if single is not None
+           else "") + "); (d) and (e)'s streams equal to (a)'s; (c)'s "
+        f"fleet-hit stream equal to a cold run ({P26_CACHE_NEW} tokens)")
+    log(f"  phase 26: {res['seconds']:.1f} s (router process "
+        f"{router_s:.1f} s)")
+    return res
 
 
 def main() -> int:
@@ -6396,6 +6928,11 @@ def main() -> int:
         "speculative decode, migration)")
     with tempfile.TemporaryDirectory() as tmp:
         phase25 = decode_serving_phase(torch, tmp)
+        torch.cuda.empty_cache()
+
+        log("phase 26: disaggregated serving (prefill fleet, front-door "
+            "router, autoscaler) and the fleet prefix cache")
+        phase26 = frontdoor_phase(torch, tmp, phase25)
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -6499,6 +7036,7 @@ def main() -> int:
                    "phase20": phase20, "phase21": phase21,
                    "phase22": phase22, "phase23": phase23,
                    "phase24": phase24, "phase25": phase25,
+                   "phase26": phase26,
                    "seconds": time.monotonic() - _STARTED,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "

@@ -9,9 +9,14 @@ stopped and resumed end as two unbroken ranks; ``--multihost`` joins two
 launchers of one rank each into one world; the four mesh degrees
 (``--seq/--model/--pipe/--expert-parallel``) run the LM family on two
 ranks and the async rules refuse them; ``SERVE --decode`` serves a tiny
-TransformerLM export over TCP on the CPU; unported options
-(``--disaggregate``, ``--decode-fleet-cache``, ...) exit non-zero naming
-their ROADMAP item.
+TransformerLM export over TCP on the CPU, and ``SERVE --decode
+--disaggregate`` brings up a prefill and a decode child on the CPU
+behind the router; ``--compilation-cache-dir``,
+the one option still unported, exits non-zero naming its ROADMAP item;
+the front door's options (``--disaggregate``, ``--prefill-replicas``,
+``--autoscale``, ``--scale-max``, ``--slo-p99-ms``,
+``--decode-fleet-cache``) parse with JAX's defaults, and
+``--disaggregate`` without ``--decode`` exits with JAX's message.
 
 This file imports no JAX: it is also the model module the launched
 workers import (``-m test_torch_launcher -c TinyAlexNet``).  Every
@@ -149,16 +154,56 @@ def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["SERVE", "--export-dir", "d", "--prefill-replicas", "2"], 21),
     (["GOSGD", "--compilation-cache-dir", "d"], 22),
-    (["SERVE", "--export-dir", "d", "--decode", "--autoscale"], 21),
-    (["EASGD", "--disaggregate"], 21),
-    (["SERVE", "--export-dir", "d", "--decode", "--decode-fleet-cache",
-      "h:1"], 21)])
+    (["SERVE", "--export-dir", "d", "--decode", "--disaggregate",
+      "--compilation-cache-dir", "d"], 22),
+    (["BSP", "--compilation-cache-dir=d"], 22)])
 def test_unported_rules_and_options_name_their_roadmap_item(argv, item):
     with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP.md "
                                          rf"section A, item {item}\)"):
         launcher.main(argv + ["-m", "x", "-c", "y"])
+
+
+def test_only_the_compilation_cache_stays_unported():
+    assert launcher.UNPORTED_OPTIONS == {"--compilation-cache-dir": 22}
+    assert all(item is None for item in launcher.RULES.values())
+
+
+@pytest.mark.parametrize("rule", ["SERVE", "EASGD"])
+def test_disaggregate_without_decode_exits_with_jax_message(rule):
+    argv = [rule, "--export-dir", "d", "--disaggregate"]
+    if rule == "SERVE":
+        with pytest.raises(SystemExit, match=r"^--disaggregate requires "
+                           r"--decode \(tmlocal SERVE --decode "
+                           r"--disaggregate \.\.\.\)$"):
+            launcher.main(argv)
+    else:
+        # JAX reads --disaggregate only under SERVE; a training rule
+        # without -m/-c is refused for that instead
+        with pytest.raises(SystemExit, match="needs -m/--modelfile"):
+            launcher.main(argv)
+
+
+def test_front_door_options_parse_with_jax_defaults():
+    from theanompi_tpu_torch.serving.server import decode_opts_from_args
+
+    base = ["SERVE", "--export-dir", "d", "--decode"]
+    args = launcher.parse_args(base)
+    assert (args.disaggregate, args.prefill_replicas, args.autoscale,
+            args.scale_max, args.slo_p99_ms, args.decode_fleet_cache) \
+        == (False, 1, False, 4, None, None)
+    assert args.max_restarts == 2
+    assert "fleet_cache" not in decode_opts_from_args(args)
+    args = launcher.parse_args(base + ["--disaggregate"])
+    assert args.max_restarts == 1   # JAX's front-door default
+    args = launcher.parse_args(base + [
+        "--disaggregate", "--prefill-replicas", "2", "--autoscale",
+        "--scale-max", "3", "--slo-p99-ms", "40", "--max-restarts", "0",
+        "--decode-fleet-cache", "h:1"])
+    assert (args.disaggregate, args.prefill_replicas, args.autoscale,
+            args.scale_max, args.slo_p99_ms, args.max_restarts) \
+        == (True, 2, True, 3, 40.0, 0)
+    assert decode_opts_from_args(args)["fleet_cache"] == "h:1"
 
 
 @pytest.mark.parametrize("flag,cls", [
@@ -396,6 +441,86 @@ def test_serve_decode_over_tcp_on_the_cpu(tmp_path, monkeypatch):
             client.close()
     t.join(60)
     assert not t.is_alive() and out["rc"] == 0
+
+
+def test_serve_disaggregated_fleet_on_the_cpu(tmp_path, monkeypatch):
+    """``SERVE --decode --disaggregate --platform cpu`` as a process: the
+    launcher brings up one prefill and one decode child, each a
+    ``theanompi_tpu_torch`` module on ``--device cpu``, and its router
+    answers ``RouterClient.generate`` with the in-process
+    ``DecodeSession``'s greedy tokens; an interrupt stops the fleet and
+    the launcher exits 0."""
+    import signal
+    import socket
+    import subprocess
+    import sys
+
+    import numpy as np
+
+    from theanompi_tpu_torch.decode import DecodeSession
+    from theanompi_tpu_torch.frontdoor import RouterClient
+    from theanompi_tpu_torch.models.base import ModelConfig
+    from theanompi_tpu_torch.models.transformer import TransformerLM
+    from theanompi_tpu_torch.serving import export_model
+
+    monkeypatch.setenv("THEANOMPI_TPU_SERVICE_KEY", "launcher-front-test")
+    monkeypatch.setenv("THEANOMPI_TPU_WIRE_SHM", "0")
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    model = TransformerLM(config=ModelConfig(batch_size=4,
+                                             compute_dtype="float32"),
+                          device="cpu", vocab=32, seq_len=16, n_layers=2,
+                          d_model=32, n_heads=4)
+    export_dir = str(tmp_path / "export")
+    export_model(model, export_dir, version=0)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "theanompi_tpu_torch.launcher", "SERVE",
+         "--export-dir", export_dir, "--decode", "--disaggregate",
+         "--platform", "cpu", "--port", str(port), "--serve-host",
+         "127.0.0.1", "--decode-page-size", "4", "--decode-pages-per-seq",
+         "4", "--decode-prefill-buckets", "8,16"],
+        cwd=os.path.dirname(TESTS), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    prompt = np.arange(5, dtype=np.int32)
+    sess = DecodeSession(model, page_size=4, pages_per_seq=4,
+                         prefill_buckets=(8, 16))
+    seq, logits = sess.admit(prompt)
+    want = [int(np.argmax(logits))]
+    for _ in range(5):
+        want.append(int(np.argmax(sess.decode(
+            [seq], np.asarray([want[-1]]))[0])))
+    client = None
+    try:
+        for _ in range(1200):
+            try:
+                client = RouterClient(f"127.0.0.1:{port}")
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stdout.read()
+                threading.Event().wait(0.1)
+        assert client is not None, "the router never listened"
+        assert client.generate(prompt, max_new=6).tolist() == want
+        st = client.stats()
+        assert st["streams"] == 1 and st["shed"] == 0
+        assert [len(st["backends"][r]) for r in ("prefill", "decode")] \
+            == [1, 1]
+    finally:
+        if client is not None:
+            client.close()
+        proc.send_signal(signal.SIGINT)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+    assert proc.returncode == 0, out[-3000:]
+    assert "[frontdoor] PREFILL" in out and "device=cpu" in out
+    assert "[serving] DECODE" in out and "device=cpu" in out
+    assert "1 prefill / 1 decode on cpu" in out
 
 
 def test_config_overrides():

@@ -452,3 +452,28 @@ def test_trace_context_crosses_packages(pair, servers):
     finally:
         trace.reset_for_tests()
         jtrace.reset_for_tests()
+
+
+def test_daemon_pool_second_task_never_waits_behind_a_blocking_first():
+    """A task submitted right after another, while one worker is idle,
+    gets a worker of its own: the notified worker still counts as idle
+    until it wakes, so the pool used to hand both tasks to it and the
+    second waited for the first to end (a ``stats`` or ``drain`` RPC
+    parked behind a whole ``adopt`` stream).  Many rounds, each with a
+    first task that blocks until the second has run."""
+    pool = rpc._DaemonPool("rpc-pin", max_workers=8)
+    try:
+        for _ in range(200):
+            idle = threading.Event()
+            pool.submit(idle.set)     # leaves one idle worker behind
+            assert idle.wait(5)
+            time.sleep(0.001)
+            second = threading.Event()
+            first_done = threading.Event()
+            pool.submit(lambda: (second.wait(5), first_done.set()))
+            pool.submit(second.set)
+            assert second.wait(2), "the second task waited behind the first"
+            assert first_done.wait(5)
+    finally:
+        pool.shutdown()
+        pool.join()

@@ -15,13 +15,16 @@ Counterpart of ``theanompi_tpu/decode``:
   bucket discipline;
 * ``scheduler`` — ``ContinuousBatcher`` (admit and evict between decode
   steps) and ``DecodeReplica``, the restart-from-export wrapper the
-  inference server pools.
+  inference server pools;
+* ``fleetcache`` — the fleet-wide prefix cache: ``FleetCacheClient``
+  (``DecodeSession.fleet``), ``prefix_manifest``,
+  ``prefix_incompatibility`` and the typed ``LeaseError``; a prefill
+  replica of ``frontdoor/`` is the authority.
 
-Wire surface: the inference server's ``generate`` op
-(``InferenceClient.generate``), served by ``python -m
-theanompi_tpu_torch.launcher SERVE --export-dir D --decode``.  The JAX
-package's fleet-wide prefix cache (``decode/fleetcache.py``) is not in
-this package yet.
+Wire surface: the inference server's ``generate`` and ``adopt`` ops
+(``InferenceClient``), served by ``python -m
+theanompi_tpu_torch.launcher SERVE --export-dir D --decode``, and the
+front door's router (``--disaggregate``, ``frontdoor/``).
 """
 
 from theanompi_tpu_torch.decode.kvcache import (

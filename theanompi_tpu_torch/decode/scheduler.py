@@ -1044,7 +1044,8 @@ class DecodeReplica:
                  pages_per_seq: int = 8, max_seqs: int = 8,
                  prefill_buckets: tuple[int, ...] | None = None,
                  draft_export_dir: str | None = None,
-                 prefix_cache: bool = True):
+                 prefix_cache: bool = True,
+                 fleet_cache: str | None = None):
         from theanompi_tpu_torch.decode.session import DecodeSession
         from theanompi_tpu_torch.serving.export import (
             IncompatibleExport,
@@ -1062,6 +1063,15 @@ class DecodeReplica:
             page_size=page_size, pages_per_seq=pages_per_seq,
             max_seqs=max_seqs, prefill_buckets=prefill_buckets,
             prefix_cache=prefix_cache)
+        if fleet_cache:
+            # fleet-wide prefix cache (decode/fleetcache.py): local
+            # misses consult the prefill fleet's authority, cold
+            # prefills register their page-aligned prefixes
+            from theanompi_tpu_torch.decode.fleetcache import (
+                FleetCacheClient,
+            )
+
+            self.session.fleet = FleetCacheClient(fleet_cache)
         #: speculative decoding: a second (small) decode-capable
         #: export proposes k tokens per round; same cache geometry so
         #: a target admit implies draft capacity

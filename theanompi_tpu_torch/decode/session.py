@@ -183,7 +183,8 @@ class DecodeSession:
         self._scratch = None
         #: the bucket keys (shapes) each program family has run
         self.bucket_keys: dict[str, set] = {f: set() for f in FAMILIES}
-        #: fleet prefix-cache client (not in this package yet): None =
+        #: fleet prefix-cache client (decode/fleetcache.py), attached by
+        #: the replica when a fleet cache authority is named: None =
         #: local-only sharing
         self.fleet = None
 
@@ -715,6 +716,14 @@ class DecodeSession:
         page_size, n_heads, d_head)`` per pool."""
         rows = self._t(np.asarray(pages).reshape(-1))
         return self._ck[:, rows].cpu(), self._cv[:, rows].cpu()
+
+    def export_pages_batch(self, seqs: list[_Seq]) -> list[tuple]:
+        """Every sequence's pages in one gather over the stacked page rows
+        and one copy to the host (the batched prefill server's export);
+        the same bytes as a per-sequence :meth:`export_pages` each."""
+        rows = self._t(np.stack([s.page_row for s in seqs]))
+        k, v = self._ck[:, rows].cpu(), self._cv[:, rows].cpu()
+        return [(k[:, i], v[:, i]) for i in range(len(seqs))]
 
     def _adopt(self, k, v, page_row) -> None:
         _, live = self._live

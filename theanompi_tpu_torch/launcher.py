@@ -18,7 +18,13 @@ SERVE runs the inference server in this process (no workers, no
 ``--reload-poll-s``, ``--max-restarts`` (per-replica
 restart-from-export budget, default 2) and the ``--decode*`` options
 (decode/: paged KV cache, continuous batching, prefix cache,
-speculative decode), on the card unless ``--platform cpu``.
+speculative decode, ``--decode-fleet-cache``), on the card unless
+``--platform cpu``.  ``SERVE --decode --disaggregate`` runs the front
+door instead (``frontdoor/fleet.py``): ``--prefill-replicas`` prefill
+children and ``--serve-replicas`` decode children, each on
+``--platform``, behind a router in this process on ``--port`` (default
+46000); ``--autoscale``, ``--scale-max``, ``--slo-p99-ms``;
+``--max-restarts`` is each child's relaunch budget (default 1).
 
 The JAX launcher runs one SPMD program over every local chip; the port
 runs one process per card, as the reference's ``mpirun`` did.  The
@@ -115,9 +121,8 @@ session), the rule, the devices and each worker's parameter digest.
 The launcher never picks the CPU by itself: ``--platform`` defaults to
 ``cuda`` and fails without a card.  A worker that fails terminates its
 siblings and the launcher exits non-zero.  The JAX launcher's other
-options (``--disaggregate`` and the front door's, ``--decode-fleet-cache``,
-``--compilation-cache-dir``) exit non-zero with the ROADMAP item that
-will port them.
+option ``--compilation-cache-dir`` exits non-zero with the ROADMAP item
+that will port it.
 """
 
 from __future__ import annotations
@@ -140,11 +145,7 @@ RULES = {"BSP": None, "EASGD": None, "ASGD": None, "GOSGD": None,
 ASYNC_RULES = ("EASGD", "ASGD", "GOSGD")
 #: options of the JAX launcher this one does not take yet -> the ROADMAP
 #: item porting each
-UNPORTED_OPTIONS = {
-    **dict.fromkeys(("--disaggregate", "--prefill-replicas", "--autoscale",
-                     "--scale-max", "--slo-p99-ms", "--decode-fleet-cache"),
-                    21),
-    "--compilation-cache-dir": 22}
+UNPORTED_OPTIONS = {"--compilation-cache-dir": 22}
 #: tells a worker which life of the group it is (0: the first)
 RESTART_ENV = "THEANOMPI_TPU_RESTART"
 
@@ -271,7 +272,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="SERVE: versioned model-export directory (required; "
                         "watched for new versions to hot-reload)")
     p.add_argument("--port", type=int, default=None,
-                   help="SERVE: listen port (default 45900)")
+                   help="SERVE: listen port (default 45900; the "
+                        "router's 46000 with --disaggregate)")
     p.add_argument("--serve-host", default="0.0.0.0",
                    help="SERVE: listen address")
     p.add_argument("--serve-replicas", type=int, default=1,
@@ -293,6 +295,24 @@ def build_parser() -> argparse.ArgumentParser:
     from theanompi_tpu_torch.serving.server import add_decode_args
 
     add_decode_args(p)
+    p.add_argument("--disaggregate", action="store_true",
+                   help="SERVE --decode: split the deployment into a "
+                        "prefill fleet + decode fleet behind the "
+                        "front-door router (theanompi_tpu_torch/frontdoor); "
+                        "--serve-replicas sizes the decode fleet, every "
+                        "child runs on --platform")
+    p.add_argument("--prefill-replicas", type=int, default=1,
+                   help="SERVE --disaggregate: initial prefill "
+                        "replica count")
+    p.add_argument("--autoscale", action="store_true",
+                   help="SERVE --disaggregate: grow/shrink both roles "
+                        "from load signals (frontdoor/autoscale.py)")
+    p.add_argument("--scale-max", type=int, default=4,
+                   help="SERVE --disaggregate --autoscale: max "
+                        "replicas per role (the fleet budget)")
+    p.add_argument("--slo-p99-ms", type=float, default=None,
+                   help="SERVE --disaggregate --autoscale: intertoken "
+                        "p99 target feeding the decode scale signal")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -317,7 +337,8 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
         raise SystemExit(f"unrecognized arguments: {' '.join(extra)}")
     _check_serve(args)
     if args.max_restarts is None:
-        args.max_restarts = 2 if args.rule == "SERVE" else 0
+        args.max_restarts = ((1 if args.disaggregate else 2)
+                             if args.rule == "SERVE" else 0)
     if args.devices is not None and args.devices < 1:
         raise SystemExit("-D must be >= 1")
     if args.max_restarts < 0:
@@ -368,6 +389,12 @@ def _check_serve(args: argparse.Namespace) -> None:
     if not args.export_dir:
         raise SystemExit("SERVE requires --export-dir (see "
                          "serving/export.py export_model)")
+    if args.disaggregate and not args.decode:
+        # prefill/decode disaggregation exists only on the decode plane:
+        # the eval server has no KV pages
+        raise SystemExit("--disaggregate requires --decode "
+                         "(tmlocal SERVE --decode "
+                         "--disaggregate ...)")
 
 
 def run_serve(args: argparse.Namespace) -> int:
@@ -387,6 +414,34 @@ def run_serve(args: argparse.Namespace) -> int:
         from theanompi_tpu_torch.resilience import faults
 
         faults.install_from_env()
+    if args.disaggregate:
+        from theanompi_tpu_torch.frontdoor import fleet as frontdoor_fleet
+        from theanompi_tpu_torch.frontdoor.router import (
+            DEFAULT_PORT as ROUTER_PORT,
+        )
+
+        pb = (tuple(int(b) for b in args.decode_prefill_buckets.split(","))
+              if args.decode_prefill_buckets else None)
+        return frontdoor_fleet.run_foreground(
+            export_dir=args.export_dir,
+            prefill=args.prefill_replicas,
+            decode=args.serve_replicas,
+            router_host=args.serve_host,
+            router_port=(args.port if args.port is not None
+                         else ROUTER_PORT),
+            page_size=args.decode_page_size,
+            pages_per_seq=args.decode_pages_per_seq,
+            max_seqs=args.decode_max_seqs,
+            prefill_buckets=pb,
+            decode_max_pending=args.decode_max_pending,
+            prefix_cache=not args.decode_no_prefix_cache,
+            prefill_batch=args.decode_prefill_batch,
+            prefill_delay_ms=args.decode_prefill_delay_ms,
+            draft_export_dir=args.decode_draft_export_dir,
+            speculate_k=args.decode_speculate_k,
+            autoscale=args.autoscale, scale_max=args.scale_max,
+            slo_p99_ms=args.slo_p99_ms,
+            max_restarts=args.max_restarts, device=args.platform)
     return serve_main(
         args.export_dir, host=args.serve_host,
         port=args.port if args.port is not None else DEFAULT_PORT,

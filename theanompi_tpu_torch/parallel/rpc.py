@@ -369,7 +369,11 @@ class _DaemonPool:
             if self._closed:
                 raise RuntimeError(f"pool {self.name} is shut down")
             self._tasks.append(fn)
-            if self._idle > 0:
+            # a notified worker counts as idle until it wakes, so one
+            # idle worker may already owe an earlier task: notify only
+            # when the idle workers cover every queued task, else spawn
+            # (a second task must not wait out a first that blocks)
+            if self._idle >= len(self._tasks):
                 self._cond.notify()
                 return
             if self._n < self._max:

@@ -20,7 +20,12 @@ matchers and an ``action``; this package wires these sites:
   ``reader``, ``epoch``, ``index``; ``ingest/reader.py``);
 * ``ingest_pull``: one pull request a trainer's ``RemoteBatchSource``
   sends (coords ``index``, ``rank``; ``ingest/client.py``); a ``raise``
-  there fails the epoch's stream in the trainer.
+  there fails the epoch's stream in the trainer;
+* ``router_route``: one request the front-door router handles (coord
+  ``op``; ``frontdoor/router.py``): ``raise`` rejects it with a typed
+  err the client sees, ``delay`` adds router latency.  The prefill
+  server's export leg fires ``page_migrate`` (coord ``side`` =
+  ``export``), as the decode server's adopt and drain legs do.
 
     [{"site": "worker_step", "rule": "easgd", "worker": 1, "step": 3}]
     [{"site": "exchange", "kind": "asgd", "action": "delay",

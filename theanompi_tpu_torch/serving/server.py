@@ -702,6 +702,13 @@ def add_decode_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--decode-prefill-delay-ms", type=float, default=2.0,
                     help="how long the oldest pending prompt may wait for "
                          "batch company")
+    ap.add_argument("--decode-fleet-cache", default=None,
+                    metavar="HOST:PORT",
+                    help="fleet-wide prefix cache authority (a "
+                         "prefill server's port): local prefix-cache "
+                         "misses consult it, cold prefills register "
+                         "their page-aligned prefixes — docs/"
+                         "SERVING.md 'Fleet prefix cache'")
 
 
 def decode_opts_from_args(args) -> dict | None:
@@ -718,6 +725,8 @@ def decode_opts_from_args(args) -> dict | None:
         "prefill_batch": args.decode_prefill_batch,
         "prefill_delay_ms": args.decode_prefill_delay_ms,
     }
+    if args.decode_fleet_cache:
+        opts["fleet_cache"] = args.decode_fleet_cache
     if args.decode_prefill_buckets:
         opts["prefill_buckets"] = tuple(
             int(b) for b in args.decode_prefill_buckets.split(","))
