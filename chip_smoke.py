@@ -371,6 +371,30 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    (a)'s tokens; the drained child exits.  Every child and its port are
    released before the phase returns (the router's process group is
    killed, pass or fail); no ``tmshm_*`` segment is left.
+27. The last modules: (a) the port's static checker suite,
+   ``theanompi_tpu_torch/tools/tmlint.py --gate`` (no JAX here): exit 0,
+   no new finding, the counts by check.  (b) ``entry(device="cuda")``:
+   the bf16 full ResNet-50 forward at (8, 224, 224, 3) on a seeded
+   batch against the same weights in f32 on the CPU (per-row relative L2
+   <= ``P27_ENTRY_LIMIT``), exactly K1a 37, K1b 16 and K2a 1 launches a
+   call.  (c) ``dryrun_multichip(1, device="cuda")`` (one rank process,
+   a one-rank NCCL group): plain BSP, ``sync_bn``, ZeRO-1 and FSDP with
+   ``steps_per_call=2`` and ``grad_accum_steps=2`` on the tiny ResNet-50;
+   every loss finite and each leg's K1a-K1d, K2b and K2c launches
+   exactly the tiny module's per step (``entry.resnet_launches``: 13, 4,
+   13, 4, 1, 1) times its batches.  (d) The native host augment on this
+   machine's host: bitwise equal to the numpy path on a batch-128
+   ImageNet crop (256 -> 224) and a CIFAR batch; host ms a batch of
+   each path with the thread count and ``os.cpu_count()``; a Cifar10
+   step fed by the native path bit-identical to one fed by the numpy
+   path, exactly K3a 2 and K3b 2 launches each, native calls above 0.
+   (e) ``--compilation-cache-dir``: phase 2's libraries but lrn's copied
+   into a fresh directory, one launcher epoch of Cifar10 on it: only lrn
+   is built, under ``library_path``'s digest name (its nvcc seconds
+   printed), the copies untouched, every library then loads from the
+   directory as cached.  (c)'s process and (e)'s launcher start with
+   phase 18 (c)'s launchers and run beside them (times shared, as
+   theirs are); (d) runs last, alone, for its host times.
 
 Phases 7, 8, 12 and 13 run after 6a; 6b, 6c, 9, 10, 14 and 15 share one
 one-rank NCCL process group in this process (the launchers' workers make
@@ -379,7 +403,9 @@ their own); 16 runs after it, then 17 on a one-rank group of its own
 one-rank group, 18c's launchers after it), then 19 ((a) and (b) before
 its own one-rank group, (c) on it), then 20 ((a) on its own one-rank
 group, (b) after it, on phase 16's shard files), then 21 and 22 (no group),
-then 24 on a one-rank group of its own, then 25 and 26 (no group).  Phase 9
+then 24 on a one-rank group of its own, then 25 and 26 (no group), then
+27 ((c) in a rank process of its own and (e) in a launcher, both started
+with 18 (c); (d) on a one-rank group of its own).  Phase 9
 checkpoints each epoch, as the launcher does; 6b and 14 call
 ``run_bsp_session`` without checkpoints.
 
@@ -389,6 +415,7 @@ Full results (per-shape kernel times, the traces) go to
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -584,7 +611,7 @@ SYNC_BN_STEPS, SYNC_BN_ROUNDS = 4, 8
 #: phase 20 (a): checked steps of each run, timed rounds, the settings
 #: every run shares, the plain-BSP twins and each ZeRO/FSDP run with its
 #: twin and its own settings (at one rank each is its twin bit for bit)
-P20_STEPS, P20_ROUNDS = 4, 5
+P20_STEPS, P20_ROUNDS = 4, 3
 P20_BASE = dict(momentum=0.9, weight_decay=5e-5)
 P20_TWINS = {
     "plain": {},
@@ -636,7 +663,7 @@ P21_CHECK_BATCH, P21_CENTER_LIMIT = 8, 2e-3
 #: wire's (PERF.md: each crossing rounds to bf16, at most 2^-9
 #: relative, twice an exchange, and the elastic pull halves what came
 #: before: 2 * 2^-8)
-P22_ITERS, P22_TAU, P22_P_PUSH, P22_REPS = 4, 4, 0.5, 1
+P22_ITERS, P22_TAU, P22_P_PUSH, P22_REPS = 2, 2, 0.5, 1
 P22_BF16_LIMIT = 2.0 ** -7
 #: phase 22 (a)'s round-robin schedules ((epochs, iterations a worker an
 #: epoch) of phase 21 (b)'s, shortened: each remote exchange moves the
@@ -2639,36 +2666,57 @@ def launcher_cmd(out: str, snap: str, workdir: str, data_dir: str,
             "--result-json", out, *extra]
 
 
-def ckpt_runs(workdir: str, data_dir: str, runs: dict) -> dict:
+def ckpt_runs(workdir: str, data_dir: str, runs: dict,
+              after: dict | None = None) -> dict:
     """``python -m theanompi_tpu_torch.launcher BSP -D 1`` runs side by
     side on the card (``runs`` maps a name to its snapshot directory
-    under ``workdir``, extra arguments, model and environment); returns
-    per name its result JSON with the run's wall seconds (from the start
-    of the wave) and stderr's ``[resilience]`` lines.  Fails on a
+    under ``workdir``, extra arguments, model and environment); a run
+    that ``after`` maps to another starts as soon as that one has ended
+    (it resumes from its checkpoint), beside the runs still going.
+    Returns per name its result JSON with the run's wall seconds (from
+    its own start) and stderr's ``[resilience]`` lines.  Fails on a
     non-zero exit."""
+    after = after or {}
     procs = {}
     t0 = time.monotonic()
+
+    def start(name: str) -> None:
+        snap, extra, model, env = runs[name]
+        out = os.path.join(workdir, f"{name}.json")
+        logs = [open(os.path.join(workdir, f"{name}.{k}"), "w+")
+                for k in ("stdout", "stderr")]
+        procs[name] = [out, logs, subprocess.Popen(
+            launcher_cmd(out, snap, workdir, data_dir, *extra,
+                         model=model),
+            stdout=logs[0], stderr=logs[1], text=True,
+            env={**os.environ, **(env or {})},
+            cwd=os.path.dirname(os.path.abspath(__file__))), None,
+            time.monotonic()]
+
     try:
-        for name, (snap, extra, model, env) in runs.items():
-            out = os.path.join(workdir, f"{name}.json")
-            logs = [open(os.path.join(workdir, f"{name}.{k}"), "w+")
-                    for k in ("stdout", "stderr")]
-            procs[name] = [out, logs, subprocess.Popen(
-                launcher_cmd(out, snap, workdir, data_dir, *extra,
-                             model=model),
-                stdout=logs[0], stderr=logs[1], text=True,
-                env={**os.environ, **(env or {})},
-                cwd=os.path.dirname(os.path.abspath(__file__))), None]
-        while any(p[3] is None for p in procs.values()):
+        for name in runs:
+            if name not in after:
+                start(name)
+        while True:
             for p in procs.values():
                 if p[3] is None and p[2].poll() is not None:
-                    p[3] = time.monotonic() - t0
+                    p[3] = time.monotonic() - p[4]
+            for name, first in after.items():
+                if (name not in procs and first in procs
+                        and procs[first][3] is not None
+                        and procs[first][2].returncode == 0):
+                    start(name)
+            waiting = [n for n in after if n not in procs and (
+                after[n] not in procs or procs[after[n]][3] is None)]
+            if not waiting and all(p[3] is not None
+                                   for p in procs.values()):
+                break
             if time.monotonic() - t0 > 900:
                 raise AssertionError(f"launcher runs {list(runs)} still "
                                      "running after 900 s")
             time.sleep(0.2)
         results = {}
-        for name, (out, logs, proc, wall) in procs.items():
+        for name, (out, logs, proc, wall, _) in procs.items():
             stdout, stderr = (f.seek(0) or f.read() for f in logs)
             resilience = [line for line in stderr.splitlines()
                           if line.startswith("[resilience]")]
@@ -2687,21 +2735,12 @@ def ckpt_runs(workdir: str, data_dir: str, runs: dict) -> dict:
             results[name] = res
         return results
     finally:
-        for _, logs, proc, _ in procs.values():
+        for _, logs, proc, _, _ in procs.values():
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             for f in logs:
                 f.close()
-
-
-def ckpt_run(name: str, snap: str, workdir: str, data_dir: str,
-             *extra: str,
-             model=("theanompi_tpu_torch.models.resnet50", "ResNet50"),
-             env: dict | None = None) -> dict:
-    """One run of :func:`ckpt_runs`."""
-    return ckpt_runs(workdir, data_dir,
-                     {name: (snap, extra, model, env)})[name]
 
 
 def trace_kernel_ids(path: str) -> dict[str, int]:
@@ -2774,14 +2813,15 @@ def checkpoint_phase(torch, workdir: str) -> dict:
     epoch by the fault plan and resumed through the fallback, (c) crashed
     and auto-resumed; every restore bit-exact against its save, the
     final states held to (a)'s.  The runs that need no other's checkpoint
-    go side by side (the save pauses and times are then those of four
-    processes sharing the card and the host)."""
+    go side by side, and (b)'s resume starts beside them as soon as its
+    first run has ended (the save pauses and times are then those of up
+    to four processes sharing the card and the host)."""
     from theanompi_tpu_torch.resilience import recovery
 
     data = ckpt_shards(os.path.join(workdir, "data"))
     prof = os.path.join(workdir, "profile")
     r50 = ("theanompi_tpu_torch.models.resnet50", "ResNet50")
-    # the runs that need no other's checkpoint go side by side
+    # side by side; b2 resumes b1's checkpoint as soon as b1 has ended
     first = ckpt_runs(workdir, data, {
         "a1": ("a1", (), r50, {"THEANOMPI_TPU_PROFILE": prof,
                                "THEANOMPI_TPU_PROFILE_STEPS":
@@ -2791,9 +2831,10 @@ def checkpoint_phase(torch, workdir: str) -> dict:
             [{"site": "checkpoint", "epoch": 1, "action": "truncate"}])),
             r50, None),
         "c": ("c", ("--max-restarts", "1"),
-              ("chip_smoke", "CrashOnceResNet50"), None)})
-    a1, a2, c = first["a1"], first["a2"], first["c"]
-    b2 = ckpt_run("b2", "b", workdir, data, "--resume", "--epochs", "2")
+              ("chip_smoke", "CrashOnceResNet50"), None),
+        "b2": ("b", ("--resume", "--epochs", "2"), r50, None)},
+        after={"b2": "b1"})
+    a1, a2, c, b2 = first["a1"], first["a2"], first["c"], first["b2"]
     for res, want in ((a1, CKPT_EPOCHS), (a2, CKPT_EPOCHS), (b2, 2), (c, 2)):
         check_ckpt_run(res, want)
     if not any("is CORRUPT" in line for line in b2["resilience"]):
@@ -3144,17 +3185,19 @@ def p17_rounds(torch, runs: dict, rounds: int,
 
 def p17_launcher(torch, workdir: str, data_dir: str) -> dict:
     """Phase 17 (d): the launcher with the rest of the BSP step, stopped
-    after epoch 0 and resumed, against the unbroken run."""
+    after epoch 0 and resumed (as soon as the first run has ended, beside
+    the unbroken run), against the unbroken run."""
     sets = [a for kv in P17_SETS for a in ("--set", kv)]
-    first = launcher_wave(workdir, data_dir, {
+    wave = launcher_wave(workdir, data_dir, {
         "p17-unbroken": ("p17u", sets),
-        "p17-first": ("p17r", [*sets, "--epochs", "1"])})
-    for name, o in first.items():
+        "p17-first": ("p17r", [*sets, "--epochs", "1"]),
+        "p17-resumed": ("p17r", [*sets, "--resume", "--epochs", "1"])},
+        after={"p17-resumed": ("p17-first", None)})
+    for name, o in wave.items():
         if o["rc"] != 0:
             raise AssertionError(f"(d) {name} exited {o['rc']}: {o['err']}")
-    unbroken = first["p17-unbroken"]["res"]
-    resumed = ckpt_run("p17-resumed", "p17r", workdir, data_dir, *sets,
-                       "--resume", "--epochs", "1")
+    unbroken = wave["p17-unbroken"]["res"]
+    resumed = wave["p17-resumed"]["res"]
     for res in (unbroken, resumed):
         for rec in res["records"]:
             got = rec["launches"]["train"]
@@ -3521,8 +3564,9 @@ def zoo_k3(torch, label: str, shapes, n: int, k: float, alpha: float,
     return out
 
 
-def zoo_phase(torch, workdir: str) -> dict:
-    """Phase 18 (module docstring)."""
+def zoo_phase(torch, workdir: str, beside=None) -> dict:
+    """Phase 18 (module docstring); ``beside()`` is called once (c)'s
+    launchers have started, to start other work beside them."""
     import torch.distributed as dist
 
     from theanompi_tpu_torch.models.googlenet import GoogLeNetCNN
@@ -3560,6 +3604,8 @@ def zoo_phase(torch, workdir: str) -> dict:
         # both side by side on the card: their times are shared ones
         runs[label] = (sub, modelfile, cls, batch, want_t, want_v,
                        launcher_start(sub, modelfile, cls, 1))
+    if beside is not None:
+        beside()
     try:
         for label, (sub, modelfile, cls, batch, want_t, want_v,
                     run) in runs.items():
@@ -3952,66 +3998,108 @@ def p20_models(torch, data, batches) -> dict:
     return runs, info
 
 
-def launcher_wave(workdir: str, data_dir: str, runs: dict) -> dict:
+def launcher_wave(workdir: str, data_dir: str, runs: dict,
+                  after: dict | None = None) -> dict:
     """Launcher runs side by side on the card (``launcher_cmd``; ``runs``
-    maps a name to (snapshot dir, extra arguments)); returns per name the
+    maps a name to (snapshot dir, extra arguments)); a run that ``after``
+    maps to (another run, a callable or None) starts, after the callable,
+    as soon as that other run has ended with exit code 0 (it resumes from
+    its checkpoint), beside the runs still going.  Returns per name the
     exit code, the result JSON (None on failure) and stderr's tail."""
+    after = after or {}
     procs, out = {}, {}
     t0 = time.monotonic()
-    for name, (snap, extra) in runs.items():
-        procs[name] = subprocess.Popen(
+
+    def start(name: str) -> None:
+        snap, extra = runs[name]
+        err = open(os.path.join(workdir, f"{name}.stderr"), "w+")
+        procs[name] = (subprocess.Popen(
             launcher_cmd(os.path.join(workdir, f"{name}.json"), snap,
                          workdir, data_dir, *extra),
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
+            stdout=subprocess.DEVNULL, stderr=err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__))), err)
+
     try:
-        for name, proc in procs.items():
-            _, err = proc.communicate(timeout=600)
+        for name in runs:
+            if name not in after:
+                start(name)
+        while True:
+            for name, (first, prepare) in after.items():
+                if (name not in procs and first in procs
+                        and procs[first][0].poll() == 0):
+                    if prepare is not None:
+                        prepare()
+                    start(name)
+            waiting = [n for n, (first, _) in after.items()
+                       if n not in procs and (first not in procs
+                                              or procs[first][0].poll()
+                                              is None)]
+            if not waiting and all(p.poll() is not None
+                                   for p, _ in procs.values()):
+                break
+            if time.monotonic() - t0 > 600:
+                raise AssertionError(f"launcher runs {list(runs)} still "
+                                     "running after 600 s")
+            time.sleep(0.2)
+        for name in runs:
+            if name not in procs:
+                out[name] = {"rc": None, "res": None,
+                             "err": f"not started: {after[name][0]} failed"}
+                continue
+            proc, err = procs[name]
             res = None
             if proc.returncode == 0:
                 with open(os.path.join(workdir, f"{name}.json")) as f:
                     res = json.load(f)
             out[name] = {"rc": proc.returncode, "res": res,
-                         "err": err[-3000:]}
+                         "err": (err.seek(0) or err.read())[-3000:]}
     finally:
-        for proc in procs.values():
+        for proc, err in procs.values():
             if proc.poll() is None:
                 proc.kill()
-                proc.communicate()
-    log(f"  {', '.join(runs)} side by side: {time.monotonic() - t0:.1f} s; "
-        f"exit codes {[o['rc'] for o in out.values()]}")
+                proc.wait()
+            err.close()
+    log(f"  {', '.join(runs)} side by side"
+        + (f" ({', '.join(f'{n} after {f}' for n, (f, _) in after.items())})"
+           if after else "")
+        + f": {time.monotonic() - t0:.1f} s; exit codes "
+        f"{[o['rc'] for o in out.values()]}")
     return out
 
 
 def p20_launcher(torch, workdir: str, data_dir: str) -> dict:
     """Phase 20 (b): the launcher under ZeRO (4 buckets) and FSDP,
     unbroken and stopped after epoch 0 and resumed, and the ZeRO
-    checkpoint resumed under 2 buckets; runs that need no other's
-    checkpoint go side by side on the card."""
+    checkpoint resumed under 2 buckets; every run goes side by side on
+    the card, each resume as soon as the run whose checkpoint it takes has
+    ended."""
     import shutil
 
     def sets(knob):
         return [a for kv in P20_SETS[knob] for a in ("--set", kv)]
 
-    first = launcher_wave(workdir, data_dir, {
-        f"{k}-{r}": (f"p20{k}{r[0]}", [*sets(k), *extra])
-                  for k in P20_SETS
-                  for r, extra in (("unbroken", []),
-                                   ("first", ["--epochs", "1"]))})
-    for name, o in first.items():
-        if o["rc"] != 0:
-            raise AssertionError(f"(b) {name} exited {o['rc']}: {o['err']}")
-    shutil.copytree(os.path.join(workdir, "p20zerof"),
-                    os.path.join(workdir, "p20zeroo"))
+    def copy_zero() -> None:
+        shutil.copytree(os.path.join(workdir, "p20zerof"),
+                        os.path.join(workdir, "p20zeroo"))
+
     other = [a for kv in P20_SETS["zero"] if not kv.startswith(
         "exchange_buckets") for a in ("--set", kv)]
-    second = launcher_wave(workdir, data_dir, {
+    wave = launcher_wave(workdir, data_dir, {
+        **{f"{k}-{r}": (f"p20{k}{r[0]}", [*sets(k), *extra])
+           for k in P20_SETS
+           for r, extra in (("unbroken", []),
+                            ("first", ["--epochs", "1"]))},
         **{f"{k}-resumed": (f"p20{k}f", [*sets(k), "--resume", "--epochs",
                                           "1"]) for k in P20_SETS},
         "zero-other-buckets": ("p20zeroo", [*other, "--set",
                                             "exchange_buckets=2",
-                                            "--resume"])})
-    bad = second.pop("zero-other-buckets")
+                                            "--resume"])},
+        after={**{f"{k}-resumed": (f"{k}-first", None) for k in P20_SETS},
+               "zero-other-buckets": ("zero-first", copy_zero)})
+    for name, o in wave.items():
+        if o["rc"] != 0 and name != "zero-other-buckets":
+            raise AssertionError(f"(b) {name} exited {o['rc']}: {o['err']}")
+    bad = wave.pop("zero-other-buckets")
     if bad["rc"] == 0 or "ZeRO layout needs" not in bad["err"]:
         raise AssertionError(f"(b) the resume under 2 buckets exited "
                              f"{bad['rc']}: {bad['err']}")
@@ -4020,11 +4108,8 @@ def p20_launcher(torch, workdir: str, data_dir: str) -> dict:
     log(f"  (zero-other-buckets) exited {bad['rc']}: {why.strip()[:300]}")
     out = {"other_buckets_rc": bad["rc"]}
     for k in P20_SETS:
-        unbroken, resumed = first[f"{k}-unbroken"]["res"], second[
-            f"{k}-resumed"]["res"]
-        if second[f"{k}-resumed"]["rc"] != 0:
-            raise AssertionError(f"(b) {k}-resumed: "
-                                 f"{second[f'{k}-resumed']['err']}")
+        unbroken = wave[f"{k}-unbroken"]["res"]
+        resumed = wave[f"{k}-resumed"]["res"]
         for res in (unbroken, resumed):
             for rec in res["records"]:
                 got = rec["launches"]["train"]
@@ -6721,6 +6806,362 @@ def frontdoor_phase(torch, workdir: str, phase25: dict | None = None) -> dict:
     return res
 
 
+# -- phase 27: the checker suite, the entry points, the native host
+# -- augment and the kernel cache directory ---------------------------------
+
+#: (b): the entry forward's per-row relative L2 against the CPU's f32
+P27_ENTRY_LIMIT = 0.05
+#: (d): the host batches timed, and the timing repeats of each path
+P27_IMAGENET = (128, 256, 224)   # batch, stored side, crop
+P27_CIFAR = (128, 32, 4)         # batch, side, reflect pad
+P27_REPS = 3
+#: (d): the Cifar10 step's batch; (e): the launcher epoch's (the
+#: synthetic pool of 4096 images: 8 steps)
+P27_CIFAR_BATCH, P27_LAUNCHER_BATCH = 128, 512
+
+
+def p27_tmlint() -> dict:
+    """(a) ``theanompi_tpu_torch/tools/tmlint.py --gate --format json``
+    as a subprocess: its exit code and the finding counts by check."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.monotonic()
+    p = subprocess.run(
+        [sys.executable, os.path.join(root, "theanompi_tpu_torch", "tools",
+                                      "tmlint.py"),
+         "--gate", "--format", "json", "--root", root],
+        capture_output=True, text=True, timeout=300)
+    out = json.loads(p.stdout)
+    counts: dict[str, int] = {}
+    for f in out["findings"]:
+        counts[f["check_id"]] = counts.get(f["check_id"], 0) + 1
+    res = {"rc": p.returncode, "findings_by_check": counts,
+           "new": len(out["new"]), "stale": len(out["stale_baseline_keys"]),
+           "seconds": time.monotonic() - t0}
+    log(f"  (a) tmlint --gate rc {p.returncode} in {res['seconds']:.1f} s: "
+        f"{len(out['findings'])} findings {counts}, {res['new']} new, "
+        f"{res['stale']} stale baseline keys")
+    if p.returncode != 0 or res["new"]:
+        raise AssertionError(f"phase 27 (a): tmlint gate failed: {p.stdout}"
+                             f"{p.stderr}")
+    return res
+
+
+def p27_entry(torch) -> dict:
+    """(b) ``entry(device="cuda")``: its bf16 forward of a seeded batch
+    against the same weights in f32 on the CPU (per-row relative L2 <=
+    ``P27_ENTRY_LIMIT``), exactly the launches one forward of the full
+    ResNet-50 derives (K1a 37, K1b 16, K2a 1) and nothing else, and the
+    call's time (CUDA events, after a warm call)."""
+    from theanompi_tpu_torch.entry import entry, resnet_launches
+    from theanompi_tpu_torch.models.resnet50 import ResNet
+    from theanompi_tpu_torch.ops import _kernels
+
+    fn, (net, x) = entry("cuda")
+    want = resnet_launches(net, train=False)
+    xs = torch.from_numpy(np.random.default_rng(27).standard_normal(
+        tuple(x.shape)).astype(np.float32))
+    fn(net, xs.cuda())  # warm
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts()
+    t0, t1 = torch.cuda.Event(True), torch.cuda.Event(True)
+    t0.record()
+    got = fn(net, xs.cuda())
+    t1.record()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+    ref = ResNet(dtype=torch.float32)
+    ref.load_state_dict({k: v.float().cpu()
+                         for k, v in net.state_dict().items()})
+    with torch.no_grad():
+        want_out = ref.eval()(xs, train=False)
+    got = got.float().cpu()
+    rel = ((got - want_out).norm(dim=1) / want_out.norm(dim=1)).tolist()
+    res = {"launches": launches, "want_launches": want,
+           "rel_l2": rel, "ms": t0.elapsed_time(t1),
+           "shape": list(x.shape), "finite": bool(torch.isfinite(got).all())}
+    log(f"  (b) entry(): {tuple(x.shape)} bf16 forward {res['ms']:.2f} ms "
+        f"(CUDA events), launches {launches}; per-row relative L2 against "
+        f"the CPU's f32 max {max(rel):.4f} (limit {P27_ENTRY_LIMIT})")
+    if (launches != want or not res["finite"]
+            or max(rel) > P27_ENTRY_LIMIT):
+        raise AssertionError(f"phase 27 (b): {res}")
+    return res
+
+
+def p27_dryrun_check(torch, result: dict) -> dict:
+    """(c) ``dryrun_multichip(1, device="cuda")``'s legs: every loss
+    finite and each leg's launches exactly the tiny ResNet-50's per
+    training step (``entry.resnet_launches``) times the batches it
+    consumed."""
+    from theanompi_tpu_torch.entry import TINY_RESNET, resnet_launches
+    from theanompi_tpu_torch.models.resnet50 import ResNet
+
+    per_step = resnet_launches(ResNet(
+        stage_sizes=TINY_RESNET["stage_sizes"], width=TINY_RESNET["width"]),
+        train=True)
+    bad = []
+    for leg, r in result.items():
+        want = {k: v * r["consumed"] for k, v in per_step.items()}
+        log(f"  (c) {leg}: loss {r['loss']:.6f}, {r['consumed']} batch(es), "
+            f"launches {r['launches']}")
+        if r["launches"] != want or not math.isfinite(r["loss"]):
+            bad.append(f"{leg}: launches {r['launches']} != {want} or loss "
+                       f"{r['loss']}")
+    if bad:
+        raise AssertionError("phase 27 (c): " + "; ".join(bad))
+    return {"legs": result, "per_step": per_step}
+
+
+def p27_native(torch) -> dict:
+    """(d) The native host augment on the host: bitwise equal
+    to the numpy path on a batch-128 ImageNet crop (256 -> 224) and a
+    CIFAR batch (32, pad 4); host ms a batch of each path (native at its
+    default thread count and at 1 thread, numpy), best of ``P27_REPS``;
+    then one Cifar10 BSP step (batch 128, f32, deterministic cuDNN) fed
+    by the native path and one fed by the numpy path from the same seed
+    (``augment_on_device=False``: the host augments):
+    the same batch, loss and parameters bit for bit, exactly K3a 2 and
+    K3b 2 launches each, and native calls only in the first."""
+    import torch.distributed as dist
+
+    from theanompi_tpu_torch import native
+    from theanompi_tpu_torch.data import utils
+    from theanompi_tpu_torch.data.cifar10 import CIFAR_MEAN, CIFAR_STD
+    from theanompi_tpu_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
+    from theanompi_tpu_torch.launcher import param_digest
+    from theanompi_tpu_torch.models.cifar10 import Cifar10_model
+    from theanompi_tpu_torch.ops import _kernels
+    from theanompi_tpu_torch.utils.recorder import Recorder
+
+    if not native.native_available():
+        raise AssertionError("phase 27 (d): no g++ on the host")
+    rng = np.random.default_rng(27)
+    n, side, crop = P27_IMAGENET
+    cn, cside, pad = P27_CIFAR
+    cases = {"imagenet": (rng.integers(0, 256, (n, side, side, 3),
+                                       dtype=np.uint8), crop, 0,
+                          IMAGENET_MEAN, IMAGENET_STD),
+             "cifar": (rng.integers(0, 256, (cn, cside, cside, 3),
+                                    dtype=np.uint8), cside, pad,
+                       CIFAR_MEAN, CIFAR_STD)}
+    threads = min(os.cpu_count() or 1, 8)
+    out = {"threads": threads, "cpu_count": os.cpu_count()}
+
+    def best(fn) -> float:
+        times = []
+        for _ in range(P27_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    for name, (images, c, p, mean, std) in cases.items():
+        def run(use_native, n_threads=None):
+            r = np.random.default_rng(5)
+            ys = r.integers(0, images.shape[1] + 2 * p - c + 1,
+                            size=len(images))
+            xs = r.integers(0, images.shape[2] + 2 * p - c + 1,
+                            size=len(images))
+            flips = r.random(len(images)) < 0.5
+            if use_native:
+                return native.crop_flip_normalize(
+                    images, ys, xs, flips, c, c,
+                    np.asarray(mean, np.float32),
+                    np.asarray(std, np.float32), pad=p,
+                    n_threads=n_threads)
+            crops = utils._gather_crops(images, ys, xs, flips, c, c, p)
+            return np.ascontiguousarray(utils._normalize(crops, mean, std))
+
+        got, want = run(True), run(False)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"phase 27 (d) {name}: native != numpy")
+        out[name] = {"shape": list(images.shape), "crop": c, "pad": p,
+                     "native_ms": best(lambda: run(True)),
+                     "native_1thread_ms": best(lambda: run(True, 1)),
+                     "numpy_ms": best(lambda: run(False))}
+        r = out[name]
+        log(f"  (d) {name} {tuple(images.shape)} -> {c}: bitwise equal; "
+            f"host ms a batch: native {r['native_ms']:.2f} ({threads} "
+            f"threads), native 1 thread {r['native_1thread_ms']:.2f}, numpy "
+            f"{r['numpy_ms']:.2f} (os.cpu_count() {os.cpu_count()})")
+
+    def step(enabled: bool) -> dict:
+        native.ENABLED = enabled
+        native.CALLS.reset()
+        cfg = dataclasses.replace(Cifar10_model.default_config(),
+                                  batch_size=P27_CIFAR_BATCH, n_epochs=1,
+                                  print_freq=0, augment_on_device=False)
+        model = Cifar10_model(config=cfg, device="cuda")
+        model.compile_iter_fns()
+        model.begin_epoch(0)
+        batch = next(iter(model.data.train_batches(0, P27_CIFAR_BATCH)))
+        rec = Recorder(print_freq=0)
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts()
+        model.train_iter(0, rec)
+        model._flush_metrics(rec)
+        launches = {k: v for k, v in _kernels.launch_counts().items() if v}
+        digest = param_digest(model.module)
+        model.cleanup()
+        return {"launches": launches, "loss": rec.train_losses[-1],
+                "digest": digest, "native_calls": native.CALLS.value,
+                "batch": batch[0]}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        fed = step(True)
+        plain = step(False)
+    finally:
+        native.ENABLED = True
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    want = {"lrn": 2, "lrn_bwd": 2}
+    same_batch = bool(np.array_equal(fed.pop("batch"), plain.pop("batch")))
+    out["step"] = {"native": fed, "numpy": plain, "same_batch": same_batch}
+    log(f"  (d) Cifar10 step fed by the native path: loss {fed['loss']!r}, "
+        f"launches {fed['launches']}, {fed['native_calls']} native calls; "
+        f"by the numpy path: loss {plain['loss']!r}, launches "
+        f"{plain['launches']}, {plain['native_calls']} native calls; same "
+        f"batch {same_batch}, same parameters "
+        f"{fed['digest'] == plain['digest']}")
+    if (not same_batch or fed["digest"] != plain["digest"]
+            or fed["loss"] != plain["loss"] or fed["launches"] != want
+            or plain["launches"] != want or fed["native_calls"] < 1
+            or plain["native_calls"] != 0):
+        raise AssertionError(f"phase 27 (d): {out['step']}")
+    return out
+
+
+def p27_cache_start(workdir: str) -> tuple[Launched, str, dict]:
+    """(e) A fresh cache directory holding phase 2's libraries but lrn's,
+    and one launcher epoch of Cifar10 (K3) started with
+    ``--compilation-cache-dir`` on it (:func:`p27_cache_check` reads
+    it)."""
+    import shutil
+
+    from theanompi_tpu_torch.ops import _kernels
+
+    cache = os.path.join(workdir, "kernel_cache")
+    os.makedirs(cache)
+    copied = {}
+    for name in _kernels.SOURCES:
+        if name == "lrn":
+            continue
+        src = _kernels.library_path(name)
+        dst = os.path.join(cache, src.name)
+        shutil.copy2(src, dst)
+        copied[name] = (dst, os.stat(dst).st_mtime_ns)
+    run_dir = os.path.join(workdir, "cifar_launcher")
+    os.makedirs(run_dir)
+    run = Launched(run_dir, [
+        "BSP", "-D", "1", "-m", "theanompi_tpu_torch.models.cifar10", "-c",
+        "Cifar10_model", "--epochs", "1", "--snapshot-dir", run_dir,
+        "--set", f"batch_size={P27_LAUNCHER_BATCH}",
+        "--compilation-cache-dir", cache])
+    return run, cache, copied
+
+
+def p27_cache_check(torch, run: Launched, cache: str, copied: dict) -> dict:
+    """(e) The launcher epoch ended with K3's exact launches; its worker
+    built only lrn, into the cache directory under ``library_path``'s
+    digest name; the copied libraries were not touched; and every
+    library then loads from the directory as cached."""
+    import ctypes
+
+    from theanompi_tpu_torch.ops import _kernels
+
+    res, wall, _ = run.wait(timeout=600)
+    libs = res["kernel_libraries"]
+    rec = res["records"][0]
+    want_lrn = os.path.join(cache, _kernels.library_path("lrn").name)
+    out = {"wall_s": wall, "kernel_build_dir": res["kernel_build_dir"],
+           "kernel_libraries": libs, "train_steps": rec["train_steps"],
+           "launches": rec["launches"]}
+    bad = []
+    if res["kernel_build_dir"] != os.path.realpath(cache):
+        bad.append(f"build dir {res['kernel_build_dir']}")
+    lrn = libs.get("lrn") or {}
+    if (set(libs) != {"lrn"} or lrn.get("cached") is not False
+            or os.path.realpath(lrn.get("path", "")) != os.path.realpath(
+                want_lrn) or not os.path.exists(want_lrn)):
+        bad.append(f"libraries {libs}, want lrn built at {want_lrn}")
+    steps = rec["train_steps"]
+    train = {k: v for k, v in rec["launches"]["train"].items() if v}
+    if train != {"lrn": 2 * steps, "lrn_bwd": 2 * steps}:
+        bad.append(f"train launches {train} over {steps} steps")
+    for name, (path, mtime) in copied.items():
+        if os.stat(path).st_mtime_ns != mtime:
+            bad.append(f"{name} rewritten")
+    saved = (_kernels.BUILD_DIR, _kernels.CACHE_DIR)
+    try:
+        _kernels.set_build_dir(cache)
+        again = _kernels.build()
+        for name, info in again.items():
+            ctypes.CDLL(info["path"])
+    finally:
+        _kernels.BUILD_DIR, _kernels.CACHE_DIR = saved
+    out["reloaded"] = {k: v["cached"] for k, v in again.items()}
+    if not all(out["reloaded"].values()):
+        bad.append(f"not cached on reload: {out['reloaded']}")
+    log(f"  (e) launcher epoch ({steps} steps, {wall:.1f} s wall) with "
+        f"--compilation-cache-dir: lrn built in {lrn.get('seconds', 0):.1f} s "
+        f"(nvcc) at {os.path.basename(lrn.get('path', ''))}; train launches "
+        f"{train}; reloaded from the directory: {out['reloaded']}")
+    if bad:
+        raise AssertionError("phase 27 (e): " + "; ".join(bad))
+    return out
+
+
+def p27_start(workdir: str) -> dict:
+    """Start phase 27's two processes: (c)'s dryrun rank (in a thread
+    that waits for it) and (e)'s launcher epoch; :func:`entry_phase`
+    checks both and :func:`p27_stop` ends them."""
+    import concurrent.futures
+
+    from theanompi_tpu_torch.entry import dryrun_multichip
+
+    run, cache, copied = p27_cache_start(workdir)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    return {"run": run, "cache": cache, "copied": copied, "pool": pool,
+            "t0": time.monotonic(),
+            "dryrun": pool.submit(dryrun_multichip, 1, "cuda", 600)}
+
+
+def p27_stop(started: dict) -> None:
+    """Kill (e)'s launcher if it still runs and wait for (c)'s thread
+    (idempotent)."""
+    started["run"].close()
+    started["pool"].shutdown(wait=True)
+
+
+def entry_phase(torch, workdir: str, started: dict | None = None) -> dict:
+    """Phase 27 (module docstring).  (c)'s dryrun process and (e)'s
+    launcher were ``started`` by :func:`p27_start` beside phase 18 (c)'s
+    launchers (``main``), or start here, beside (a) and (b); (d) runs
+    last, alone, for its host times."""
+    t0 = time.monotonic()
+    if started is None:
+        started = p27_start(workdir)
+    try:
+        lint = p27_tmlint()
+        ent = p27_entry(torch)
+        torch.cuda.empty_cache()
+        dryrun = p27_dryrun_check(torch, started["dryrun"].result())
+        cached = p27_cache_check(torch, started["run"], started["cache"],
+                                 started["copied"])
+    finally:
+        p27_stop(started)
+    nat = p27_native(torch)
+    seconds = time.monotonic() - t0
+    log(f"  phase 27: {seconds:.1f} s (its two processes started "
+        f"{t0 - started['t0']:.1f} s before it)")
+    return {"tmlint": lint, "entry": ent, "dryrun": dryrun, "native": nat,
+            "cache_dir": cached, "seconds": seconds}
+
+
 def main() -> int:
     # one card: the first in nvidia-smi's (PCI bus) order unless the
     # caller picks one
@@ -6885,8 +7326,18 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         log("phase 18: the classifier zoo")
+        # phase 27's dryrun rank and launcher epoch start beside 18 (c)'s
+        # launchers (times shared, as theirs are); phase 27 checks them
+        p27_dir = tempfile.TemporaryDirectory()
+        p27_early: dict = {}
+        atexit.register(lambda: p27_early and p27_stop(p27_early))
+
+        def p27_beside() -> None:
+            p27_early.update(p27_start(p27_dir.name))
+            log("  phase 27 (c) and (e) started beside (c)")
+
         with tempfile.TemporaryDirectory() as tmp:
-            zoo = zoo_phase(torch, tmp)
+            zoo = zoo_phase(torch, tmp, beside=p27_beside)
         torch.cuda.empty_cache()
 
         log("phase 19: the WGAN, npz snapshots and sync_bn")
@@ -6933,6 +7384,13 @@ def main() -> int:
         log("phase 26: disaggregated serving (prefill fleet, front-door "
             "router, autoscaler) and the fleet prefix cache")
         phase26 = frontdoor_phase(torch, tmp, phase25)
+    torch.cuda.empty_cache()
+
+    log("phase 27: the checker suite, the entry points, the native "
+        "host augment and the kernel cache directory")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase27 = entry_phase(torch, tmp, p27_early)
+    p27_dir.cleanup()
 
     kernels = []
     for name in ("scale_bias_act", "scale_bias_act_res"):
@@ -7003,7 +7461,16 @@ def main() -> int:
             k["sp_strategy_launches"] = {
                 name: r["launches"][i]
                 for name, r in phase24["attention"].items()}
+        if k["name"] in phase27["entry"]["launches"]:
+            k["entry_launches_per_call"] = phase27["entry"]["launches"][
+                k["name"]]
+        if k["name"] in phase27["dryrun"]["per_step"]:
+            k["dryrun_launches"] = {
+                leg: r["launches"][k["name"]]
+                for leg, r in phase27["dryrun"]["legs"].items()}
         if k["name"] in ("lrn", "lrn_bwd"):
+            k["native_fed_step_launches"] = phase27["native"]["step"][
+                "native"]["launches"][k["name"]]
             k["remote_launches"] = {
                 **{f"launcher_{label}": run["launches"][k["name"]]
                    for label, run in phase22["launchers"].items()},
@@ -7036,7 +7503,7 @@ def main() -> int:
                    "phase20": phase20, "phase21": phase21,
                    "phase22": phase22, "phase23": phase23,
                    "phase24": phase24, "phase25": phase25,
-                   "phase26": phase26,
+                   "phase26": phase26, "phase27": phase27,
                    "seconds": time.monotonic() - _STARTED,
                    "kernels": kernels,
                    "note": "kernel ms/plain_ms/bound_ms of the fused BN "
@@ -7083,7 +7550,12 @@ def main() -> int:
                            "of each sequence-parallel strategy; "
                            "tcp_launches_per_batch (K1a, K1b, K2a): phase 25 "
                            "(a)'s launches per batch-32 ResNet-50 infer over "
-                           "TCP, by export dtype"},
+                           "TCP, by export dtype; entry_launches_per_call "
+                           "(K1a, K1b, K2a): phase 27 (b)'s entry() forward; "
+                           "dryrun_launches (K1, K2b, K2c): phase 27 (c)'s "
+                           "dryrun legs (one train_iter each); "
+                           "native_fed_step_launches (K3): phase 27 (d)'s "
+                           "native-fed Cifar10 step"},
                   f, indent=1)
     log(f"whole script: {time.monotonic() - _STARTED:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -11,9 +11,9 @@ launchers of one rank each into one world; the four mesh degrees
 ranks and the async rules refuse them; ``SERVE --decode`` serves a tiny
 TransformerLM export over TCP on the CPU, and ``SERVE --decode
 --disaggregate`` brings up a prefill and a decode child on the CPU
-behind the router; ``--compilation-cache-dir``,
-the one option still unported, exits non-zero naming its ROADMAP item;
-the front door's options (``--disaggregate``, ``--prefill-replicas``,
+behind the router; ``--compilation-cache-dir DIR`` (item 22, the last
+option ported) places the kernel libraries in the launcher, its workers
+and the children of the shard fleet and the front door; the front door's options (``--disaggregate``, ``--prefill-replicas``,
 ``--autoscale``, ``--scale-max``, ``--slo-p99-ms``,
 ``--decode-fleet-cache``) parse with JAX's defaults, and
 ``--disaggregate`` without ``--decode`` exits with JAX's message.
@@ -159,14 +159,104 @@ def test_a_failing_worker_stops_the_run(tmp_path, workers_import_this_file,
       "--compilation-cache-dir", "d"], 22),
     (["BSP", "--compilation-cache-dir=d"], 22)])
 def test_unported_rules_and_options_name_their_roadmap_item(argv, item):
-    with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP.md "
-                                         rf"section A, item {item}\)"):
-        launcher.main(argv + ["-m", "x", "-c", "y"])
+    """The option that was refused until ROADMAP item ``item`` ported it
+    parses under every rule, as ``DIR`` and as ``=DIR``."""
+    args = launcher.parse_args(argv + ["-m", "x", "-c", "y"])
+    assert args.compilation_cache_dir == "d"
+    assert "--compilation-cache-dir" not in launcher.UNPORTED_OPTIONS
 
 
 def test_only_the_compilation_cache_stays_unported():
-    assert launcher.UNPORTED_OPTIONS == {"--compilation-cache-dir": 22}
+    """Item 22 ported the last refused option: nothing stays unported."""
+    assert launcher.UNPORTED_OPTIONS == {}
     assert all(item is None for item in launcher.RULES.values())
+    assert launcher.parse_args(["BSP", "-m", "x", "-c", "y"]
+                               ).compilation_cache_dir is None
+
+
+@pytest.fixture
+def kernel_dir(monkeypatch):
+    """``ops/_kernels``'s build directory, restored after the test."""
+    from theanompi_tpu_torch.ops import _kernels
+
+    monkeypatch.setattr(_kernels, "BUILD_DIR", _kernels.BUILD_DIR)
+    monkeypatch.setattr(_kernels, "CACHE_DIR", _kernels.CACHE_DIR)
+    return _kernels
+
+
+def test_compilation_cache_dir_places_the_kernel_libraries(tmp_path,
+                                                           kernel_dir):
+    import argparse
+
+    default = kernel_dir.library_path("lrn")
+    assert default.parent.name == "kernels" and kernel_dir.CACHE_DIR is None
+    ap = argparse.ArgumentParser()
+    kernel_dir.add_cache_dir_option(ap)
+    kernel_dir.apply_cache_dir_option(ap.parse_args(
+        ["--compilation-cache-dir", str(tmp_path / "cache")]))
+    moved = kernel_dir.library_path("lrn")
+    assert moved.parent == tmp_path / "cache"
+    assert moved.name == default.name  # the same digest-keyed name
+    assert kernel_dir.CACHE_DIR == tmp_path / "cache"
+
+
+def test_compilation_cache_dir_reaches_the_workers(tmp_path, kernel_dir,
+                                                   workers_import_this_file,
+                                                   capfd):
+    out = tmp_path / "result.json"
+    rc = _launch(["BSP", "-D", "1", "--platform", "cpu", "-m",
+                  "test_torch_launcher", "-c", "TinyAlexNet",
+                  "--snapshot-dir", str(tmp_path), "--result-json", str(out),
+                  f"--compilation-cache-dir={tmp_path / 'cache'}"],
+                 timeout=150)
+    stdout, stderr = capfd.readouterr()
+    assert rc == 0, stdout[-3000:] + stderr[-3000:]
+    res = json.loads(out.read_text())
+    assert res["kernel_build_dir"] == str(tmp_path / "cache")
+    assert res["kernel_libraries"] == {}  # the CPU builds nothing
+    assert kernel_dir.BUILD_DIR == tmp_path / "cache"  # the launcher's own
+
+
+def test_compilation_cache_dir_reaches_the_fleets_children(tmp_path,
+                                                           monkeypatch):
+    from theanompi_tpu_torch.frontdoor import fleet
+    from theanompi_tpu_torch.parallel import shards
+
+    class Stop(Exception):
+        pass
+
+    monkeypatch.setenv("THEANOMPI_TPU_SERVICE_KEY", "cache-dir-test")
+    seen = {}
+
+    def popen(cmd, **kw):
+        seen["shard"] = cmd
+        raise Stop
+
+    monkeypatch.setattr(shards.subprocess, "Popen", popen)
+    with pytest.raises(Stop):
+        shards.ShardProcessGroup(1, compilation_cache_dir=str(tmp_path))
+
+    class Group:
+        def __init__(self, role, argv, **kw):
+            seen[role] = argv(4321)
+
+        def grow_many(self, n):
+            pass
+
+        def addresses(self):
+            raise Stop
+
+        def stop(self):
+            pass
+
+    monkeypatch.setattr(fleet, "RoleGroup", Group)
+    with pytest.raises(Stop):
+        fleet.DisaggregatedFleet(str(tmp_path), device="cpu",
+                                 compilation_cache_dir=str(tmp_path))
+    for child in ("shard", "prefill", "decode"):
+        argv = seen[child]
+        i = argv.index("--compilation-cache-dir")
+        assert argv[i + 1] == str(tmp_path), (child, argv)
 
 
 @pytest.mark.parametrize("rule", ["SERVE", "EASGD"])

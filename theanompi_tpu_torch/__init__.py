@@ -17,7 +17,9 @@ cadence, ``sync_bn``, ZeRO-1 and FSDP, checkpoints and resume; the
 async rules ``EASGD``, ``ASGD`` and ``GOSGD`` in one process (one worker
 thread per device entry, several may share a card); the model contract's
 npz snapshots; shard preparation (``data.imagenet``,
-``tools.prepare_imagenet``).  Entry points take ``device=`` and default
+``tools.prepare_imagenet``); the entry points of a dry run (``entry``), the
+native host augment (``native``) and the static checker suite
+(``analysis``, ``tools/tmlint.py``).  Entry points take ``device=`` and default
 to ``"cuda"``.  The rule classes are exported here (imported on first
 use): ``from theanompi_tpu_torch import EASGD``.
 """

@@ -76,12 +76,17 @@ class DisaggregatedFleet:
                  slo_p99_ms: float | None = None,
                  max_restarts: int = 1,
                  ready_timeout_s: float = 180.0,
-                 device: str = "cuda"):
+                 device: str = "cuda",
+                 compilation_cache_dir: str | None = None):
         if device not in ("cuda", "cpu"):
             raise ValueError(f"device {device!r} (want cuda|cpu)")
         self.export_dir = os.path.abspath(export_dir)
         self.host = host
         self.device = device
+        #: every child's --compilation-cache-dir (the launcher's)
+        self.cache_argv = (
+            ["--compilation-cache-dir", os.path.abspath(compilation_cache_dir)]
+            if compilation_cache_dir else [])
         self.page_size = int(page_size)
         self.pages_per_seq = int(pages_per_seq)
         self.max_seqs = int(max_seqs)
@@ -177,6 +182,7 @@ class DisaggregatedFleet:
                     ",".join(str(b) for b in self.prefill_buckets)]
         if not self.prefix_cache:
             cmd += ["--no-prefix-cache"]
+        cmd += self.cache_argv
         if self.fleet_cache:
             if self._authority_addr is None:
                 # the first prefill replica spawned is the cache
@@ -209,7 +215,7 @@ class DisaggregatedFleet:
                     "--decode-speculate-k", str(self.speculate_k)]
         if not self.prefix_cache:
             cmd += ["--decode-no-prefix-cache"]
-        return cmd
+        return cmd + self.cache_argv
 
     # -- surface --------------------------------------------------------
 
@@ -309,6 +315,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="device of the CHILD processes (each passed "
                          "--device); the router holds no model")
+    ap.add_argument("--compilation-cache-dir", default=None, metavar="DIR",
+                    help="passed to every child: where its kernel "
+                         "libraries are built and found")
     args = ap.parse_args(argv)
     buckets = (tuple(int(b) for b in args.prefill_buckets.split(","))
                if args.prefill_buckets else None)
@@ -330,7 +339,8 @@ def main(argv=None) -> int:
         speculate_k=args.speculate_k, autoscale=args.autoscale,
         scale_min=args.scale_min, scale_max=args.scale_max,
         scale_poll_s=args.scale_poll_s, slo_p99_ms=args.slo_p99_ms,
-        max_restarts=args.max_restarts, device=args.device)
+        max_restarts=args.max_restarts, device=args.device,
+        compilation_cache_dir=args.compilation_cache_dir)
 
 
 if __name__ == "__main__":

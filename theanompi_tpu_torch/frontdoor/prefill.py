@@ -56,6 +56,7 @@ from theanompi_tpu_torch._device import resolve_device
 from theanompi_tpu_torch.analysis.lockgraph import make_condition, make_lock
 from theanompi_tpu_torch.decode import fleetcache, migrate
 from theanompi_tpu_torch.decode.session import DecodeSession
+from theanompi_tpu_torch.ops import _kernels
 from theanompi_tpu_torch.parallel import rpc
 from theanompi_tpu_torch.parallel.service import ServiceClient, ServiceError
 from theanompi_tpu_torch.resilience import faults
@@ -444,7 +445,9 @@ def main(argv=None) -> int:
                     help="fleet prefix-cache authority address (this "
                          "replica becomes a fleet-cache client)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    _kernels.add_cache_dir_option(ap)
     args = ap.parse_args(argv)
+    _kernels.apply_cache_dir_option(args)
     buckets = (tuple(int(b) for b in args.prefill_buckets.split(","))
                if args.prefill_buckets else None)
     with monitor.session(stall_after=float("inf"),

@@ -120,9 +120,16 @@ session), the rule, the devices and each worker's parameter digest.
 
 The launcher never picks the CPU by itself: ``--platform`` defaults to
 ``cuda`` and fails without a card.  A worker that fails terminates its
-siblings and the launcher exits non-zero.  The JAX launcher's other
-option ``--compilation-cache-dir`` exits non-zero with the ROADMAP item
-that will port it.
+siblings and the launcher exits non-zero.  ``--compilation-cache-dir
+DIR`` (JAX: the persistent XLA compilation cache) places the kernel
+libraries: ``ops/_kernels.BUILD_DIR`` becomes ``DIR``, with the same
+digest-keyed names, in the launcher, its workers and every child the
+launcher, the fleet or a service starts that can load a kernel (each
+gets ``--compilation-cache-dir DIR`` on its argv).  Without it the
+libraries stay in ``build/kernels/``, also under ``--monitor-dir`` (JAX
+puts its cache under the monitor dir there; for the port that would cost
+an ``nvcc`` rebuild a run).  A BSP result JSON records where each
+library came from (``kernel_libraries``: path, build seconds, cached).
 """
 
 from __future__ import annotations
@@ -144,8 +151,8 @@ RULES = {"BSP": None, "EASGD": None, "ASGD": None, "GOSGD": None,
 #: the rules that run in one process, one worker thread per device
 ASYNC_RULES = ("EASGD", "ASGD", "GOSGD")
 #: options of the JAX launcher this one does not take yet -> the ROADMAP
-#: item porting each
-UNPORTED_OPTIONS = {"--compilation-cache-dir": 22}
+#: item porting each (none left)
+UNPORTED_OPTIONS: dict[str, int] = {}
 #: tells a worker which life of the group it is (0: the first)
 RESTART_ENV = "THEANOMPI_TPU_RESTART"
 
@@ -313,6 +320,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--slo-p99-ms", type=float, default=None,
                    help="SERVE --disaggregate --autoscale: intertoken "
                         "p99 target feeding the decode scale signal")
+    p.add_argument("--compilation-cache-dir", default=None, metavar="DIR",
+                   help="directory of the built kernel libraries (default: "
+                        "build/kernels/ in the checkout); every worker and "
+                        "child gets it")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -441,7 +452,8 @@ def run_serve(args: argparse.Namespace) -> int:
             speculate_k=args.decode_speculate_k,
             autoscale=args.autoscale, scale_max=args.scale_max,
             slo_p99_ms=args.slo_p99_ms,
-            max_restarts=args.max_restarts, device=args.platform)
+            max_restarts=args.max_restarts, device=args.platform,
+            compilation_cache_dir=args.compilation_cache_dir)
     return serve_main(
         args.export_dir, host=args.serve_host,
         port=args.port if args.port is not None else DEFAULT_PORT,
@@ -663,6 +675,7 @@ def run_worker(args: argparse.Namespace) -> int:
     import torch
     import torch.distributed as dist
 
+    from theanompi_tpu_torch.ops import _kernels
     from theanompi_tpu_torch.rules.base import rank_device
     from theanompi_tpu_torch.rules.bsp import BSP
     from theanompi_tpu_torch.utils.checkpoint import state_digest
@@ -702,7 +715,9 @@ def run_worker(args: argparse.Namespace) -> int:
                                "device": str(device),
                                "param_digests": digests,
                                "state_digests": states,
-                               "state_bytes": held}, f)
+                               "state_bytes": held,
+                               "kernel_build_dir": str(_kernels.BUILD_DIR),
+                               "kernel_libraries": _kernels.BUILDS}, f)
     finally:
         dist.destroy_process_group()
     return 0
@@ -799,8 +814,11 @@ def spawn(args: argparse.Namespace, argv: list[str]) -> int:
             return _spawn(args, argv)
         from theanompi_tpu_torch.parallel.shards import ShardProcessGroup
 
-        group = ShardProcessGroup(args.shards, device=args.platform,
-                                  max_restarts=args.max_restarts or 1)
+        cache = getattr(args, "compilation_cache_dir", None)
+        group = ShardProcessGroup(
+            args.shards, device=args.platform,
+            max_restarts=args.max_restarts or 1,
+            **({"compilation_cache_dir": cache} if cache else {}))
         try:
             return _spawn(args, _without_shards(argv)
                           + ["--server-addr", group.server_addr])
@@ -890,6 +908,10 @@ def _spawn(args: argparse.Namespace, argv: list[str]) -> int:
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_args(argv)
+    if args.compilation_cache_dir:
+        from theanompi_tpu_torch.ops import _kernels
+
+        _kernels.set_build_dir(args.compilation_cache_dir)
     if args.rule == "SERVE":
         return run_serve(args)
     if args.worker:

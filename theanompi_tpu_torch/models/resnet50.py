@@ -180,21 +180,25 @@ class ResNet50(TorchModel):
                              augment_on_device=cfg.augment_on_device,
                              n_classes=self._net_cfg["n_classes"])
 
-    @torch.no_grad()
     def init_weights(self, module: ResNet, gen: torch.Generator) -> None:
-        """The JAX recipe: He-normal convs, Xavier-uniform head, BN
-        scale 1 / bias 0 / mean 0 / var 1, and every exit BN's scale 0."""
-        for m in module.modules():
-            if isinstance(m, L.Conv):
-                fan_in = m.weight[0].numel()
-                m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
-            elif isinstance(m, L.Dense):
-                fan_out, fan_in = m.weight.shape
-                lim = math.sqrt(6.0 / (fan_in + fan_out))
-                m.weight.uniform_(-lim, lim, generator=gen)
-                m.bias.zero_()
-        for blk in module.blocks:
-            blk.bn2.scale.zero_()
+        init_resnet(module, gen)
+
+
+@torch.no_grad()
+def init_resnet(module: ResNet, gen: torch.Generator) -> None:
+    """The JAX recipe: He-normal convs, Xavier-uniform head, BN scale 1
+    / bias 0 / mean 0 / var 1, and every exit BN's scale 0."""
+    for m in module.modules():
+        if isinstance(m, L.Conv):
+            fan_in = m.weight[0].numel()
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
+        elif isinstance(m, L.Dense):
+            fan_out, fan_in = m.weight.shape
+            lim = math.sqrt(6.0 / (fan_in + fan_out))
+            m.weight.uniform_(-lim, lim, generator=gen)
+            m.bias.zero_()
+    for blk in module.blocks:
+        blk.bn2.scale.zero_()
 
 
 # reference-style alias, as the JAX package exposes

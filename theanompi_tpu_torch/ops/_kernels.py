@@ -2,10 +2,11 @@
 
 Each source under ``theanompi_tpu_torch/csrc/`` is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library with a plain C interface
-under ``build/kernels/`` at the repository root, at first use, and bound
-with ``ctypes``.  The library name carries a digest of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded.  :func:`build` starts one ``nvcc`` per missing source, all
+under ``build/kernels/`` at the repository root (or the directory the
+launcher's ``--compilation-cache-dir`` names: :func:`set_build_dir`), at
+first use, and bound with ``ctypes``.  The library name carries a digest
+of the source and the flags, so an edited source is rebuilt and a stale
+library is never loaded.  :func:`build` starts one ``nvcc`` per missing source, all
 together, and keeps each compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills).
 
@@ -31,6 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+#: the directory :func:`set_build_dir` chose, or None: the default above
+CACHE_DIR: Path | None = None
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: library name -> its source under csrc/
@@ -48,6 +51,27 @@ def find_nvcc() -> str | None:
     return cand if os.path.exists(cand) else shutil.which("nvcc")
 
 
+def set_build_dir(path) -> Path:
+    """Place the kernel libraries under ``path`` (the launcher's
+    ``--compilation-cache-dir``; JAX's persistent compilation cache),
+    with the same digest-keyed names, from now on in this process."""
+    global BUILD_DIR, CACHE_DIR
+    BUILD_DIR = CACHE_DIR = Path(path).resolve()
+    return BUILD_DIR
+
+
+def add_cache_dir_option(parser) -> None:
+    parser.add_argument(
+        "--compilation-cache-dir", default=None, metavar="DIR",
+        help="directory of the built kernel libraries (default: "
+             "build/kernels/ in the checkout); children get it too")
+
+
+def apply_cache_dir_option(args) -> None:
+    if args.compilation_cache_dir:
+        set_build_dir(args.compilation_cache_dir)
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
@@ -56,6 +80,8 @@ def library_path(name: str) -> Path:
 
 _build_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+#: each library this process built or found: {"path", "seconds", "cached"}
+BUILDS: dict[str, dict] = {}
 
 
 def build(names=None) -> dict[str, dict]:
@@ -100,6 +126,9 @@ def _build_locked(names: list[str]) -> dict[str, dict]:
                      "ptxas": log, "cached": False}
     if failed:
         raise KernelBuildError("kernel build failed:\n" + "\n".join(failed))
+    for name, info in out.items():
+        BUILDS.setdefault(name, {k: info[k]
+                                 for k in ("path", "seconds", "cached")})
     return out
 
 

@@ -74,6 +74,7 @@ import torch
 
 from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch.analysis.lockgraph import make_condition, make_lock
+from theanompi_tpu_torch.ops import _kernels
 from theanompi_tpu_torch.parallel.partition import balanced_ranges
 from theanompi_tpu_torch.parallel.service import (
     FenceBusy,
@@ -641,16 +642,20 @@ class ShardProcessGroup:
     The child processes inherit this environment, monitor dir
     included, so each shard writes its own ``service/*`` telemetry.
     ``device`` is passed to every shard as ``--device`` (default the
-    CPU, as JAX's fleet defaults to its CPU platform)."""
+    CPU, as JAX's fleet defaults to its CPU platform), and
+    ``compilation_cache_dir`` (the launcher's) as
+    ``--compilation-cache-dir``."""
 
     def __init__(self, n_shards: int, host: str = "127.0.0.1",
                  max_restarts: int = 1, device: str = "cpu",
-                 ready_timeout_s: float = 180.0):
+                 ready_timeout_s: float = 180.0,
+                 compilation_cache_dir: str | None = None):
         if n_shards < 1:
             raise ValueError(f"n_shards must be >= 1, got {n_shards}")
         self.host = host
         self.max_restarts = int(max_restarts)
         self.device = str(device)
+        self.compilation_cache_dir = compilation_cache_dir
         _authkey(generate=True)  # ensure + export the shared key
         self._lock = make_lock("ShardProcessGroup._lock")
         self._stopping = threading.Event()
@@ -679,6 +684,8 @@ class ShardProcessGroup:
         cmd = [sys.executable, "-m", "theanompi_tpu_torch.parallel.shards",
                "--host", self.host, "--port", str(port),
                "--shard-index", str(index), "--device", self.device]
+        if self.compilation_cache_dir:
+            cmd += ["--compilation-cache-dir", self.compilation_cache_dir]
         return subprocess.Popen(cmd, env=child_env())
 
     def _wait_ready(self, timeout_s: float) -> None:
@@ -825,7 +832,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="where the shard's arithmetic runs: cuda "
                          "(default; raises without a card) or cpu")
+    _kernels.add_cache_dir_option(ap)
     args = ap.parse_args(argv)
+    _kernels.apply_cache_dir_option(args)
     from theanompi_tpu_torch._device import resolve_device
 
     device = resolve_device(args.device)

@@ -54,6 +54,7 @@ from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch._device import resolve_device
 from theanompi_tpu_torch.analysis.lockgraph import make_lock
 from theanompi_tpu_torch.decode.migrate import IncompatiblePages
+from theanompi_tpu_torch.ops import _kernels
 from theanompi_tpu_torch.parallel import rpc, wire
 from theanompi_tpu_torch.parallel.service import ServiceClient, ServiceError
 from theanompi_tpu_torch.resilience import faults
@@ -803,7 +804,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reload-poll-s", type=float, default=1.0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     add_decode_args(ap)
+    _kernels.add_cache_dir_option(ap)
     args = ap.parse_args(argv)
+    _kernels.apply_cache_dir_option(args)
     buckets = (tuple(int(b) for b in args.buckets.split(","))
                if args.buckets else None)
     return serve_main(args.export_dir, args.host, args.port,
