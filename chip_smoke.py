@@ -10,7 +10,8 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
 2. Build: compile every kernel under ``theanompi_tpu_torch/csrc/`` with
    nvcc for sm_90a (one nvcc per source, in parallel); print each
    ``-Xptxas -v`` report, the build seconds and each max-pool kernel
-   instance's registers and spills (a K2b or K2c spill fails the run).
+   instance's and each K1c/K1d instance's registers and spills (a K2b,
+   K2c, K1c or K1d spill fails the run).
 3. Kernels against their plain PyTorch versions on the card, at the
    shapes one batch-32 ResNet-50 forward gives them: the fused BN
    epilogue K1a/K1b at every (rows, C) the forward launches (bf16) plus
@@ -37,7 +38,10 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    epilogue backward K1c/K1d at every (rows, C) of the step (bf16) plus
    a ragged f32 case, dx and dres bit-exact and ds/db per channel
    within 1e-5 of the sum of |g*x| (|g|) (the kernel and the plain
-   version sum in different orders); the argmax pool K2b and the
+   version sum in different orders), and ds/db bit-identical when the
+   same inputs are launched again and once on each of two streams at
+   the same time (one launch a call, its reduction order fixed by
+   (rows, C, dtype)); the argmax pool K2b and the
    gather backward K2c at (128, 112, 112, 64) bf16 with ties, NaNs and
    an all-(-inf) window, and at ``K2_EDGE_SHAPES`` (the edges of their
    tiles) in bf16 and f32 with pixels whose gradient sum depends on the
@@ -63,7 +67,10 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    gradient copies the K1 backward made.
    (c) One training step on a staged batch, timed (the device-step
    leg) and traced with ``torch.profiler``: device time by family and
-   the idle share against the unprofiled step.
+   the idle share against the unprofiled step; exactly 37 K1c and 16
+   K1d kernel events a step, and no other kernel filed under the K1
+   backward family; the step's memsets (events and ms) beside that
+   family, since each K1c/K1d call zeroes its tickets with one.
 7. The LRN kernels K3a/K3b against their plain versions on the card, at
    AlexNet's batch-128 shapes (128x55x55x96 and 128x27x27x256) in bf16
    and f32, n=3 at C=32, n=4 (the adjoint window), a ragged row count, a
@@ -209,7 +216,8 @@ Phases (each one fails the run, with a non-zero exit, if it fails):
    launches of (b) per step and per validation batch and finite losses.
    (d) K1a/K1c at unit
    scale at every (rows, C) of a batch-64 VGG16 and GoogLeNet training
-   forward, y and dx exact against the plain versions, and
+   forward, y and dx exact against the plain versions (K1c's ds/db as
+   in phase 5, bit-identical over repeated and two-stream launches), and
    K3a/K3b at GoogLeNet's (64, 56, 56, 64/192) bf16 n = 5 and Cifar10's
    (128, 15/7, 15/7, 32) f32 n = 3 shapes, 0 ulp; summed per training
    step beside the byte bound, the plain versions and (K3)
@@ -707,8 +715,8 @@ RESNET101_VAL_LAUNCHES = _launches(scale_bias_act=71, scale_bias_act_res=33,
 TRACE_KERNELS = {
     "K1a": r"scale_bias_act_kernel(<[^,<>]+,\s*false|I\w*?Lb0E)",
     "K1b": r"scale_bias_act_kernel(<[^,<>]+,\s*true|I\w*?Lb1E)",
-    "K1c": r"scale_bias_act_bwd_kernel(<[^,<>]+,\s*false|I\w*?Lb0E)",
-    "K1d": r"scale_bias_act_bwd_kernel(<[^,<>]+,\s*true|I\w*?Lb1E)",
+    "K1c": r"scale_bias_act_bwd_cluster_kernel(<[^,<>]+,\s*false|I\w*?Lb0E)",
+    "K1d": r"scale_bias_act_bwd_cluster_kernel(<[^,<>]+,\s*true|I\w*?Lb1E)",
     "K2b": r"maxpool3x3s2_argmax_tile_kernel",
     "K2c": r"maxpool3x3s2_bwd_tile_kernel"}
 
@@ -946,8 +954,9 @@ def check_k2(torch) -> dict:
 
 def check_k1_bwd(torch, cases, unit_scale: bool = False) -> dict:
     """K1c/K1d at every (rows, C) of a batch-128 step (bf16) and a ragged
-    f32 case: dx/dres 0 ulp, ds/db within 1e-5 of sum|g*x| / sum|g|;
-    ``unit_scale`` as :func:`check_k1`."""
+    f32 case: dx/dres 0 ulp, ds/db within 1e-5 of sum|g*x| / sum|g| and
+    bit-identical over repeated and two-stream launches
+    (:func:`k1_bwd_deterministic`); ``unit_scale`` as :func:`check_k1`."""
     from theanompi_tpu_torch.ops import fused_bn
 
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -997,6 +1006,8 @@ def check_k1_bwd(torch, cases, unit_scale: bool = False) -> dict:
                 f"K1 {name} ({rows}, {c}) {dtype}: dx/dres {ulp} ulp, "
                 f"ds {ds_rel:.3g} and db {db_rel:.3g} of their magnitude "
                 "sums (limits 0, 1e-5, 1e-5)")
+        k1_bwd_deterministic(torch, got, xs[0], s, b, gs[0], rs[0], relu,
+                             f"K1 {name} ({rows}, {c}) {dtype}")
         worst[name] = max(worst[name], float(ds_err.max()),
                           float(db_err.max()))
         k_ms = graph_ms(torch, [
@@ -1029,6 +1040,30 @@ def check_k1_bwd(torch, cases, unit_scale: bool = False) -> dict:
         for name, (k_ms, p_ms, nb, ops) in step.items()}
     return {"cases": rows_out, "max_abs_err": worst,
             "per_step": per_step_out}
+
+
+def k1_bwd_deterministic(torch, got, x, s, b, g, r, relu, label) -> None:
+    """The same inputs launched again, and once on each of two side
+    streams at the same time (each call has its own tickets and scratch),
+    give ds and db bit-identical to ``got``'s."""
+    from theanompi_tpu_torch.ops import fused_bn
+
+    main = torch.cuda.current_stream()
+    outs = [fused_bn.scale_bias_act_bwd(x, s, b, g, r, relu)]
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in side:
+        st.wait_stream(main)
+    for st in side:
+        with torch.cuda.stream(st):
+            outs.append(fused_bn.scale_bias_act_bwd(x, s, b, g, r, relu))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        if not (same_bits(torch, out[2], got[2])
+                and same_bits(torch, out[3], got[3])):
+            raise AssertionError(
+                f"{label}: ds/db of launch {i + 2} "
+                f"({'again' if i == 0 else f'side stream {i}'}) differ in "
+                "their bits from the first launch's")
 
 
 def k2_edge_case(torch, shape, dtype, gen):
@@ -1076,6 +1111,22 @@ def k2_instances(log: str) -> dict[str, dict]:
         if m:
             out[f"{ids[m.group(1)]} "
                 f"{'f32' if m.group(2) == 'f' else 'bf16'}"] = use
+    return out
+
+
+def k1_bwd_instances(log: str) -> dict[str, dict]:
+    """Phase 2's registers and spills of each instance of the K1c/K1d
+    kernel ``scale_bias_act_bwd_cluster_kernel<T, RES, RELU>``, named by
+    kernel id, dtype and activation."""
+    out = {}
+    for name, use in ptxas_usage(log).items():
+        m = re.search(r"scale_bias_act_bwd_cluster_kernelI"
+                      r"(13__nv_bfloat16|f)Lb([01])ELb([01])E", name)
+        if m:
+            dtype, res, relu = m.groups()
+            out[f"{'K1d' if res == '1' else 'K1c'} "
+                f"{'f32' if dtype == 'f' else 'bf16'} "
+                f"{'relu' if relu == '1' else 'none'}"] = use
     return out
 
 
@@ -2423,7 +2474,7 @@ def family(name: str) -> str:
         return "pools (F.max_pool2d)"
     if "distribution" in n or "philox" in n:
         return "dropout masks (random)"
-    if "scale_bias_act_bwd_kernel" in n or "sum_tiles_kernel" in n:
+    if "scale_bias_act_bwd_cluster_kernel" in n:
         return "K1 backward (K1c/K1d)"
     if "scale_bias_act_kernel" in n:
         return "K1 forward (K1a/K1b)"
@@ -2497,8 +2548,10 @@ def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
         torch.cuda.synchronize()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     families: dict[str, float] = {}
+    family_events: dict[str, int] = {}
     by_name: dict[str, float] = {}
-    n_device, launch_us = 0, 0.0
+    by_id = {k: 0 for k in TRACE_KERNELS}
+    n_device, launch_us, memsets, memset_us = 0, 0.0, 0, 0.0
     for e in prof.events():
         if e.name.startswith(("cudaLaunch", "cuLaunch")):
             launch_us += e.time_range.elapsed_us()
@@ -2509,6 +2562,12 @@ def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         fam = family(e.name)
         families[fam] = families.get(fam, 0.0) + us
+        family_events[fam] = family_events.get(fam, 0) + 1
+        if "memset" in e.name.lower():
+            memsets += 1
+            memset_us += us
+        for k, pat in TRACE_KERNELS.items():
+            by_id[k] += bool(re.search(pat, e.name))
     device_ms = sum(families.values()) / 3e3
     out = {"step_ms": step_ms, "images_per_s": batch_size * 1e3 / step_ms,
            "device_ms_per_step": device_ms,
@@ -2519,6 +2578,11 @@ def trace_train_step(torch, model, batch_size: int = TRAIN_BATCH) -> dict:
            "eager_op_us": op_us,
            "families_ms_per_step": {k: v / 3e3 for k, v in sorted(
                families.items(), key=lambda kv: -kv[1])},
+           "family_events_per_step": {k: v / 3 for k, v in
+                                      family_events.items()},
+           "kernel_events_per_step": {k: v / 3 for k, v in by_id.items()},
+           "memsets_per_step": {"events": memsets / 3,
+                                "ms": memset_us / 3e3},
            "top_kernels_ms_per_step": {
                k: v / 3e3 for k, v in sorted(by_name.items(),
                                              key=lambda kv: -kv[1])[:25]}}
@@ -7218,6 +7282,18 @@ def main() -> int:
     elif any(use.get("spill_stores") or use.get("spill_loads")
              for inst, use in k2_regs.items() if inst[:3] in ("K2b", "K2c")):
         raise AssertionError(f"K2b/K2c spill: {k2_regs}")
+    k1_bwd_regs = k1_bwd_instances(built["fused_bn"]["ptxas"])
+    for inst, use in sorted(k1_bwd_regs.items()):
+        log(f"  {inst}: {use.get('registers')} registers, spill "
+            f"{use.get('spill_stores')}/{use.get('spill_loads')} bytes "
+            "(stores/loads)")
+    if not k1_bwd_regs:
+        log("  K1c/K1d registers not read: the library was built before "
+            "this run")
+    elif len(k1_bwd_regs) != 8 or any(
+            use.get("spill_stores") or use.get("spill_loads")
+            for use in k1_bwd_regs.values()):
+        raise AssertionError(f"K1c/K1d instances or spill: {k1_bwd_regs}")
 
     log("phase 3: kernels against their plain versions")
     model = ResNet50(device="cuda")
@@ -7254,6 +7330,7 @@ def main() -> int:
     del x0
     k1_128 = check_k1(torch, cases128)
     k1_bwd = check_k1_bwd(torch, cases128)
+    k1_bwd["instances"] = k1_bwd_regs
     k2_train = check_k2_train(torch)
     k2_train["instances"] = k2_regs
     del model
@@ -7292,6 +7369,26 @@ def main() -> int:
             raise AssertionError("phase 6c filed no device time under "
                                  "max-pool (K2b/K2c): a kernel name the "
                                  "family matcher does not know")
+        if step_trace["device_ms_per_step"]:
+            # one K1c/K1d kernel a call: nothing else in their family
+            ids = step_trace["kernel_events_per_step"]
+            k1_bwd_events = step_trace["family_events_per_step"].get(
+                "K1 backward (K1c/K1d)")
+            # each K1c/K1d call with more than one cluster a chunk (all
+            # 53 at this batch) zeroes its tickets with a memset first,
+            # which the family (kernels by name) does not hold
+            mem = step_trace["memsets_per_step"]
+            k1_bwd_ms = step_trace["families_ms_per_step"].get(
+                "K1 backward (K1c/K1d)", 0.0)
+            log(f"  traced kernel events per step {ids}; K1 backward "
+                f"family {k1_bwd_events} events, {k1_bwd_ms:.3f} ms; "
+                f"memsets (the K1c/K1d tickets' among them) "
+                f"{mem['events']:.0f} events, {mem['ms']:.3f} ms; the two "
+                f"{k1_bwd_ms + mem['ms']:.3f} ms a step")
+            if (ids["K1c"], ids["K1d"], k1_bwd_events) != (37, 16, 53):
+                raise AssertionError(
+                    f"phase 6c: K1c/K1d events per step {ids}, K1 "
+                    f"backward family {k1_bwd_events} (want 37, 16, 53)")
         del trained
         torch.cuda.empty_cache()
         log("phase 9: the launcher: AlexNet BSP, one worker on this card")
@@ -7404,9 +7501,16 @@ def main() -> int:
                     "max_abs_err": k2["max_abs_err"],
                     "name": "maxpool3x3s2", "launches_path": "serving"})
     for name in ("scale_bias_act_bwd", "scale_bias_act_res_bwd"):
+        kid = KERNEL_IDS[name]
         kernels.append({**k1_bwd["per_step"][name], "library_ms": None,
                         "max_abs_err": k1_bwd["max_abs_err"][name],
-                        "name": name, "launches_path": "training"})
+                        "name": name, "launches_path": "training",
+                        "kernel": "scale_bias_act_bwd_cluster_kernel",
+                        "instances": {
+                            inst: use for inst, use in
+                            k1_bwd["instances"].items()
+                            if inst.startswith(kid)},
+                        "repeat_and_two_stream_bits_equal": True})
     for name in ("maxpool3x3s2_argmax", "maxpool3x3s2_bwd"):
         kernels.append({**k2_train[name], "name": name,
                         "launches_path": "training"})

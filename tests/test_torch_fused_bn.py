@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from theanompi_tpu.ops.fused_bn import scale_bias_act as jax_sba
+from _fused_bn_order import emulate_bwd_sums
 from theanompi_tpu_torch.ops import _kernels, fused_bn
 
 # 128 channels: JAX tiles 1024 (f32) / 2048 (bf16) rows, so 4133 rows
@@ -229,3 +230,171 @@ def test_device_tensor_without_library_raises(monkeypatch, tmp_path):
         fused_bn.scale_bias_act_bwd(x.detach(), torch.ones(64),
                                     torch.zeros(64), torch.zeros((16, 64)))
     assert _kernels.launch_counts() == before
+
+
+# -- the grid and reduction order of the K1c/K1d kernel ----------------------
+
+#: (rows, C, residual?) of the backward: every K1c/K1d of a batch-128
+#: ResNet-50 step (bf16, chip_smoke.py phase 5), a few of GoogLeNet's
+#: batch-64 BiasAct shapes (phase 18 (d)), a ragged f32 case, and 3 row
+#: tiles of a wide C (a 1x1 last stage at batch 10-12: one cluster of 4)
+BWD_SHAPES = [
+    *[(r, c, False, torch.bfloat16) for r, c in (
+        (6272, 512), (6272, 2048), (25088, 256), (25088, 512),
+        (25088, 1024), (100352, 128), (100352, 256), (100352, 512),
+        (401408, 64), (401408, 128), (401408, 256), (1605632, 64))],
+    *[(r, c, True, torch.bfloat16) for r, c in (
+        (6272, 2048), (25088, 1024), (100352, 512), (401408, 256))],
+    *[(r, c, False, torch.bfloat16) for r, c in (
+        (50176, 16), (12544, 144), (802816, 64))],
+    (3007, 64, True, torch.float32),
+    (10, 2048, False, torch.bfloat16), (12, 1536, True, torch.bfloat16),
+]
+_SHAPE_IDS = [f"{r}x{c}{'-res' if res else ''}-{str(dt)[6:]}"
+              for r, c, res, dt in BWD_SHAPES]
+
+
+def _vec_width(dtype):
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+@pytest.mark.parametrize("rows,c,residual,dtype", BWD_SHAPES, ids=_SHAPE_IDS)
+def test_bwd_grid_covers_every_vector_once(rows, c, residual, dtype):
+    """The blocks and threads of K1c/K1d walked over the Python mirror of
+    their grid (the card test holds ``csrc/fused_bn.cu``'s geometry to
+    it): every (row, 16-byte channel vector) is taken by exactly one
+    (block, thread); the grid is one wave of whole clusters; every float4
+    of the (ds, db) row is added by exactly one thread of the cluster's
+    blocks and, in the last cluster, by the threads that share it; the
+    block's partials fit its shared memory and every cluster's partial
+    row fits the scratch."""
+    n = _vec_width(dtype)
+    cv = c // n
+    geo = fused_bn.bwd_geometry_plain(rows, c, dtype)
+    lanes, groups, chunks = geo["lanes"], geo["groups"], geo["chunks"]
+    assert lanes * groups <= fused_bn.BWD_THREADS
+    assert geo["tile_rows"] == groups * fused_bn.BWD_UNROLL
+    assert geo["tiles"] * geo["tile_rows"] >= rows > (
+        geo["tiles"] - 1) * geo["tile_rows"]
+    # whole clusters of a portable size, at most one block a tile beyond
+    # rounding up to a cluster, and one wave on the card
+    cluster, clusters = geo["cluster"], geo["clusters"]
+    assert cluster in (1, 2, 4, 8) and geo["row_blocks"] == cluster * clusters
+    assert geo["row_blocks"] < geo["tiles"] + cluster
+    assert clusters == 1 or cluster == fused_bn.BWD_MAX_CLUSTER
+    assert geo["row_blocks"] * chunks <= (fused_bn.BWD_MAX_CLUSTERS
+                                         * fused_bn.BWD_MAX_CLUSTER)
+
+    # rows: block b takes tiles b, b + row_blocks, ...; thread group grp
+    # rows grp + u * groups of each (u < BWD_UNROLL); rows past the end
+    # are masked
+    taken = np.zeros(rows, np.int64)
+    for b in range(geo["row_blocks"]):
+        t = np.arange(b, geo["tiles"], geo["row_blocks"])
+        r = (t[:, None, None] * geo["tile_rows"]
+             + np.arange(fused_bn.BWD_UNROLL)[None, :, None] * groups
+             + np.arange(groups)[None, None, :]).ravel()
+        np.add.at(taken, r[r < rows], 1)
+    assert (taken == 1).all()
+    # channel vectors: chunk k's lane l takes vector k * lanes + l
+    vec = (np.arange(chunks)[:, None] * lanes + np.arange(lanes)).ravel()
+    assert np.array_equal(np.sort(vec[vec < cv]), np.arange(cv))
+
+    width = lanes * n
+    # the partials fit the default 48 KB a block, two blocks an SM
+    assert geo["smem"] == 2 * groups * width * 4 <= 48 * 1024
+    # a block's slice of the cluster's (ds, db) row; in the last
+    # cluster, final_split threads a float4 of it, each loading at most
+    # 16 cluster rows (kBwdFinalLoads) at once
+    assert geo["slice"] * cluster >= width // 2
+    assert geo["final_split"] * geo["slice"] <= fused_bn.BWD_THREADS
+    assert geo["final_split"] * 16 >= clusters
+    _assert_sum_threads_cover_the_row(geo, n)
+    if clusters == 1:        # the cluster writes ds/db itself
+        assert geo["scratch_floats"] == geo["tickets"] == 0
+    else:
+        # the float after the last one a cluster writes: row (chunk,
+        # cluster), quad 2 * width / 4 - 1
+        end = ((chunks - 1) * clusters + clusters - 1) * 2 * width + 2 * width
+        assert end == geo["scratch_floats"]
+        assert geo["tickets"] == chunks * cluster
+
+
+def _assert_sum_threads_cover_the_row(geo, n):
+    """The threads of the kernel's cluster and last-cluster sums, walked
+    as ``csrc/fused_bn.cu`` deals them: block rank p takes float4s e0 +
+    tid, e0 + tid + BWD_THREADS, ... < e1 of its slice [e0, e1) of the
+    (ds, db) row; in the last cluster thread tid takes float4 e0 + tid %
+    slice as part tid // slice (parts below final_split only).  Each
+    float4 of the row is added once by a cluster thread and, with more
+    than one cluster, by all final_split parts."""
+    quads = geo["lanes"] * n // 2
+    slice_, split = geo["slice"], geo["final_split"]
+    cluster_adds = np.zeros(quads, np.int64)
+    final_parts = np.zeros((quads, split), np.int64)
+    tid = np.arange(fused_bn.BWD_THREADS)
+    for p in range(geo["cluster"]):
+        e0, e1 = p * slice_, min((p + 1) * slice_, quads)
+        np.add.at(cluster_adds, np.arange(e0, e1, 1), 1)
+        e, j = e0 + tid % slice_, tid // slice_
+        on = (j < split) & (e < e1)
+        np.add.at(final_parts, (e[on], j[on]), 1)
+    assert (cluster_adds == 1).all()
+    if geo["clusters"] > 1:
+        assert (final_parts == 1).all()
+        assert geo["clusters"] <= split * 16      # kBwdFinalLoads
+
+
+def test_bwd_geometry_holds_its_rules_at_every_small_grid():
+    """The rules of :func:`bwd_geometry_plain` (the kernel refuses a
+    geometry that breaks them) at every row tile count up to 40 and at a
+    few row counts in the full grid, for every C the kernel takes in
+    both dtypes: clusters of 8 wherever a chunk has more than one, and the
+    last cluster's threads over every float4 of the (ds, db) row."""
+    for dtype in (torch.bfloat16, torch.float32):
+        n = _vec_width(dtype)
+        for c in range(n, 6144 + 1, n):
+            tile_rows = fused_bn.bwd_geometry_plain(1, c, dtype)["tile_rows"]
+            for tiles in (*range(1, 41), 239, 240, 241, 10**4):
+                rows = tiles * tile_rows - (tiles > 1)
+                geo = fused_bn.bwd_geometry_plain(rows, c, dtype)
+                assert geo["tiles"] == tiles
+                assert (geo["clusters"] == 1
+                        or geo["cluster"] == fused_bn.BWD_MAX_CLUSTER)
+                assert geo["clusters"] <= fused_bn.BWD_MAX_CLUSTERS
+                if geo["clusters"] > 1:
+                    assert geo["final_split"] * geo["slice"] <= (
+                        fused_bn.BWD_THREADS)
+                    assert geo["clusters"] <= geo["final_split"] * 16
+                assert geo["slice"] * geo["cluster"] >= geo["lanes"] * n // 2
+
+
+@pytest.mark.parametrize("rows,c,residual,dtype", BWD_SHAPES, ids=_SHAPE_IDS)
+def test_bwd_reduction_order_meets_the_plain_sums(rows, c, residual, dtype):
+    """The kernel's order of adds (:func:`emulate_bwd_sums`, all f32) on
+    seeded bf16 (or f32) inputs under the relu mask: ds and db within the
+    card check's 1e-5 of sum|g'x| and sum|g'| of the plain backward's."""
+    rng = np.random.default_rng(rows + c + residual)
+
+    def draw():      # uniform in [-1, 1): cheaper to draw than normals
+        a = rng.random((rows, c), dtype=np.float32)
+        return torch.from_numpy(2 * a - 1).to(dtype)
+
+    x, g = draw(), draw()
+    r = draw() if residual else None
+    scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal(c)).astype(np.float32))
+    _, _, ds, db = fused_bn._bwd_plain(x, scale, bias, r, g, True)
+    xf = x.float()
+    z = xf * scale + bias
+    if residual:
+        z += r.float()
+    gm = torch.where(z > 0, g.float(), 0)
+    del z, g, r
+    got_s, got_b = emulate_bwd_sums(
+        gm.numpy(), xf.numpy(), fused_bn.bwd_geometry_plain(rows, c, dtype))
+    assert np.isfinite(got_s).all() and np.isfinite(got_b).all()
+    tol_s = 1e-5 * (gm * xf).abs().sum(0, dtype=torch.float64)
+    tol_b = 1e-5 * gm.abs().sum(0, dtype=torch.float64)
+    assert (np.abs(got_s - ds.numpy()) <= tol_s.numpy()).all()
+    assert (np.abs(got_b - db.numpy()) <= tol_b.numpy()).all()

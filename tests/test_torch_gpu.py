@@ -105,6 +105,67 @@ def test_scale_bias_act_bwd_kernel_matches_plain(cuda, dtype, residual, relu,
     assert ((db - want[3]).abs() <= 1e-5 * gm.abs().sum(0)).all()
 
 
+#: (rows, C, dtype) of the K1c/K1d grid: one cluster (tiles < 8; 3 tiles
+#: of a wide C in one cluster of 4), a few clusters, a full grid of 30, C
+#: split over chunks, and ragged rows
+BWD_GRID_SHAPES = [(256, 64, torch.bfloat16), (3136, 32, torch.bfloat16),
+                   (10, 2048, torch.bfloat16), (12, 1536, torch.bfloat16),
+                   (12544, 144, torch.bfloat16),
+                   (100352, 128, torch.bfloat16),
+                   (6272, 2048, torch.bfloat16), (3007, 64, torch.float32),
+                   (20011, 2048, torch.float32), (4099, 6144, torch.float32),
+                   (997, 6144, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("rows,c,dtype", BWD_GRID_SHAPES)
+def test_bwd_geometry_matches_its_python_mirror(cuda, rows, c, dtype):
+    assert fused_bn.bwd_geometry(rows, c, dtype) == (
+        fused_bn.bwd_geometry_plain(rows, c, dtype))
+
+
+@pytest.mark.parametrize("rows,c,dtype", BWD_GRID_SHAPES)
+@pytest.mark.parametrize("residual", [False, True])
+def test_bwd_sums_follow_the_emulated_order_bit_for_bit(cuda, rows, c, dtype,
+                                                        residual):
+    """ds/db of K1c/K1d equal, bit for bit, the numpy emulation of the
+    kernel's order of adds (``tests/_fused_bn_order.py``, which the CPU
+    tests hold to the plain sums), and dx/dres the plain version's; the
+    same call again, and once on each of two streams at the same time,
+    gives the same bits."""
+    from _fused_bn_order import emulate_bwd_sums
+
+    gen = torch.Generator(device=cuda).manual_seed(rows + c)
+    x, g = (torch.randn(rows, c, generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    res = (torch.randn(rows, c, generator=gen, device=cuda).to(dtype)
+           if residual else None)
+    scale = torch.rand(c, generator=gen, device=cuda) + 0.5
+    bias = torch.randn(c, generator=gen, device=cuda) * 0.1
+    dx, dres, ds, db = fused_bn.scale_bias_act_bwd(x, scale, bias, g, res)
+    z = x.float() * scale + bias
+    if residual:
+        z = z + res.float()
+    gm = torch.where(z > 0, g.float(), 0)
+    want = emulate_bwd_sums(gm.cpu().numpy(), x.float().cpu().numpy(),
+                            fused_bn.bwd_geometry_plain(rows, c, dtype))
+    assert torch.equal(ds.cpu(), torch.from_numpy(want[0]))
+    assert torch.equal(db.cpu(), torch.from_numpy(want[1]))
+    plain = fused_bn._bwd_plain(x, scale, bias, res, g, True)
+    assert torch.equal(dx, plain[0])
+    if residual:
+        assert torch.equal(dres, plain[1])
+    outs = [fused_bn.scale_bias_act_bwd(x, scale, bias, g, res)]
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in side:
+        st.wait_stream(torch.cuda.current_stream())
+    for st in side:
+        with torch.cuda.stream(st):
+            outs.append(fused_bn.scale_bias_act_bwd(x, scale, bias, g, res))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert torch.equal(out[2], ds) and torch.equal(out[3], db)
+
+
 def test_scale_bias_act_autograd_runs_the_backward_kernel(cuda):
     x = torch.randn(2, 6, 6, 64, device=cuda).bfloat16().requires_grad_()
     scale = (torch.rand(64, device=cuda) + 0.5).requires_grad_()

@@ -39,11 +39,12 @@ K_FWD = _kernels.Kernel("scale_bias_act", "fused_bn", "tm_scale_bias_act",
                         _ARGTYPES)
 K_FWD_RES = _kernels.Kernel("scale_bias_act_res", "fused_bn",
                             "tm_scale_bias_act", _ARGTYPES)
-# x, scale, bias, res, g, dx, dres, part, ds, db; rows, c, tiles, dtype,
-# relu; stream
-_BWD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
+# x, scale, bias, res, g, dx, dres, part, tickets, ds, db; rows, c,
+# part_floats, n_tickets, dtype, relu; stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_longlong, ctypes.c_int,
+                                          ctypes.c_longlong, ctypes.c_int,
                                           ctypes.c_int, ctypes.c_int,
-                                          ctypes.c_int, ctypes.c_void_p]
+                                          ctypes.c_void_p]
 K_BWD = _kernels.Kernel("scale_bias_act_bwd", "fused_bn",
                         "tm_scale_bias_act_bwd", _BWD_ARGTYPES)
 K_BWD_RES = _kernels.Kernel("scale_bias_act_res_bwd", "fused_bn",
@@ -106,15 +107,75 @@ def _bwd_plain(x, scale, bias, residual, g, relu):
     return dx, dres, (gf * xf).sum(0), gf.sum(0)
 
 
-def bwd_tiles(rows: int, c: int, dtype: torch.dtype) -> int:
-    """Row tiles of the backward kernel's grid (and rows of its f32
-    partial-sum scratch): enough blocks to fill the card, each thread
-    streaming at least 8 rows, at most 528 blocks in all."""
-    cv = c // (16 // torch.tensor([], dtype=dtype).element_size())
-    lanes = min(cv, 256)
-    groups, chunks = 256 // lanes, -(-cv // lanes)
-    want = -(-rows // (groups * 8))
-    return max(1, min(want, max(1, 528 // chunks)))
+#: threads of a backward block, rows a thread loads before it computes,
+#: the largest cluster, the clusters of that size an H100 SXM holds at
+#: once, and the most threads that share a float4 of the last cluster's
+#: sum (``csrc/fused_bn.cu`` ``kBwd*``)
+BWD_THREADS, BWD_UNROLL, BWD_MAX_CLUSTER, BWD_MAX_CLUSTERS = 256, 4, 8, 30
+BWD_FINAL_SPLIT = 16
+_BWD_GEOMETRY_KEYS = ("lanes", "groups", "chunks", "tile_rows", "tiles",
+                      "cluster", "clusters", "row_blocks", "scratch_floats",
+                      "tickets", "smem", "slice", "final_split")
+
+
+def bwd_geometry_plain(rows: int, c: int, dtype: torch.dtype) -> dict:
+    """The grid of K1c/K1d at ``(rows, c)`` in ``dtype``, computed as
+    ``csrc/fused_bn.cu`` ``bwd_geometry`` computes it.  A block of
+    ``BWD_THREADS`` threads is ``lanes`` 16-byte channel vectors by
+    ``groups`` rows, ``chunks`` blocks along C; a row tile is
+    ``tile_rows`` = groups x ``BWD_UNROLL`` rows and there are ``tiles``
+    of them, which ``row_blocks`` blocks walk grid-stride (block b takes
+    tiles b, b + row_blocks, ...; thread (grp, lane) rows grp, grp +
+    groups, ... of each).  The row blocks form ``clusters`` clusters of
+    ``cluster`` blocks a chunk: one cluster of the next power of two
+    blocks with up to 8 tiles, else clusters of 8.  The scratch is ``scratch_floats`` f32:
+    (chunks, clusters, 2, lanes x N) partial rows, N values a vector;
+    ``tickets`` int32, one a chunk and cluster rank (both 0 with one
+    cluster a chunk, which writes ds/db itself); ``smem`` bytes of
+    shared memory a block (its [2][groups][lanes x N] partials).  Block
+    rank p of a cluster adds float4s [p x slice, (p + 1) x slice) of the
+    cluster's (ds, db) row, and in the last cluster ``final_split``
+    threads share each of those float4s (thread j adds cluster rows j,
+    j + final_split, ... in order, then the partials are added pairwise,
+    final_split / 2 apart, then / 4, ... 1)."""
+    n = 16 // torch.empty((), dtype=dtype).element_size()
+    cv = c // n
+    lanes = min(cv, BWD_THREADS)
+    groups, chunks = BWD_THREADS // lanes, -(-cv // lanes)
+    tile_rows = groups * BWD_UNROLL
+    tiles = -(-rows // tile_rows)
+    cap = max(BWD_MAX_CLUSTER, BWD_MAX_CLUSTERS * BWD_MAX_CLUSTER // chunks
+              // BWD_MAX_CLUSTER * BWD_MAX_CLUSTER)
+    want = min(tiles, cap)
+    cluster = 1      # the next power of two >= want, up to 8
+    while cluster < min(BWD_MAX_CLUSTER, want):
+        cluster *= 2
+    clusters = -(-want // cluster)
+    width = lanes * n
+    many = clusters > 1      # one cluster a chunk writes ds/db itself
+    slice_ = -(-(width // 2) // cluster)
+    split = 1
+    while (many and split * 2 <= BWD_FINAL_SPLIT
+           and split * 2 * slice_ <= BWD_THREADS):
+        split *= 2
+    return dict(zip(_BWD_GEOMETRY_KEYS, (
+        lanes, groups, chunks, tile_rows, tiles, cluster, clusters,
+        cluster * clusters, many * chunks * clusters * 2 * width,
+        many * chunks * cluster, 2 * groups * width * 4, slice_, split)))
+
+
+def bwd_geometry(rows: int, c: int, dtype: torch.dtype) -> dict:
+    """:func:`bwd_geometry_plain` as the built library computes it
+    (``tm_scale_bias_act_bwd_geometry``; so only where it builds)."""
+    fn = _kernels.load("fused_bn").tm_scale_bias_act_bwd_geometry
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(_BWD_GEOMETRY_KEYS))()
+    if fn(rows, c, _DTYPE_CODES[dtype], out) != 0:
+        raise ValueError(f"no backward grid for {dtype} (rows, C) = "
+                         f"{(rows, c)}")
+    return dict(zip(_BWD_GEOMETRY_KEYS, out))
 
 
 def scale_bias_act_bwd(x: torch.Tensor, scale: torch.Tensor,
@@ -148,13 +209,16 @@ def scale_bias_act_bwd(x: torch.Tensor, scale: torch.Tensor,
     if g.device != x.device or g.data_ptr() % 16:
         raise ValueError("scale_bias_act_bwd kernel needs g 16-byte aligned "
                          "on x's device")
-    tiles = bwd_tiles(rows, c, x.dtype)
-    part = torch.empty(2 * tiles * c, dtype=torch.float32, device=x.device)
+    geo = bwd_geometry_plain(rows, c, x.dtype)
+    part = torch.empty(geo["scratch_floats"], dtype=torch.float32,
+                       device=x.device)
+    tickets = torch.empty(geo["tickets"], dtype=torch.int32, device=x.device)
     kernel = K_BWD if residual is None else K_BWD_RES
     kernel(x.device, x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
            None if residual is None else residual.data_ptr(), g.data_ptr(),
            dx.data_ptr(), None if dres is None else dres.data_ptr(),
-           part.data_ptr(), ds.data_ptr(), db.data_ptr(), rows, c, tiles,
+           part.data_ptr(), tickets.data_ptr(), ds.data_ptr(), db.data_ptr(),
+           rows, c, geo["scratch_floats"], geo["tickets"],
            _DTYPE_CODES[x.dtype], int(relu))
     return dx, dres, ds, db
 
