@@ -22,6 +22,7 @@ own test, which releases its segments before it returns.
 
 from __future__ import annotations
 
+import os
 import socket
 import threading
 import time
@@ -260,14 +261,16 @@ class TestPartition:
         with pytest.raises(ValueError):
             protocol.ingest_addresses("no-port")
 
-    def test_unix_addresses_are_refused_by_name(self, shard_tree):
-        """The port's rpc.py has no unix: listeners (ROADMAP.md §C)."""
-        with pytest.raises(ValueError, match="unix: socket addresses"):
-            protocol.ingest_addresses("unix:/tmp/reader.sock")
-        with pytest.raises(ValueError, match="unix: socket addresses"):
-            client.RemoteBatchSource(["unix:/tmp/reader.sock"],
-                                     data=_dataset("port", shard_tree),
-                                     epoch=0, global_batch=BATCH)
+    def test_unix_addresses_are_refused_by_name(self):
+        """An ``--ingest`` spec takes ``host:port`` entries only: a
+        ``unix:`` entry is refused with JAX's words, naming it."""
+        spec = "unix:/tmp/reader.sock"
+        with pytest.raises(ValueError) as port_err:
+            protocol.ingest_addresses(spec)
+        with pytest.raises(ValueError) as jax_err:
+            jprotocol.ingest_addresses(spec)
+        assert str(port_err.value) == str(jax_err.value)
+        assert repr(spec) in str(port_err.value)
 
 
 class TestEpochOrder:
@@ -331,6 +334,41 @@ class TestRemoteStream:
                 _dataset("port", shard_tree), 1, rank, size))
         if n_readers > 1:
             assert all(r.stats()["served"] > 0 for r in fleet.readers)
+
+    @pytest.mark.parametrize("client_pkg,fleet_pkg", DIRECTIONS)
+    def test_reads_a_reader_on_unix(self, shard_tree, tmp_path, client_pkg,
+                                    fleet_pkg):
+        """``RemoteBatchSource`` reads a reader that serves on
+        ``unix:/path`` (each package's client against each package's
+        reader): the local loader's stream, byte for byte, and the
+        reader removes its socket file when it stops."""
+        rmod, cmod = PKG[fleet_pkg][0], PKG[client_pkg][2]
+        path = str(tmp_path / "reader.sock")
+        addr = f"unix:{path}"
+        r = rmod.IngestReader(shard_tree, seed=SEED, reader_id=0)
+        ready, stop = threading.Event(), threading.Event()
+        t = threading.Thread(target=rmod.serve_reader,
+                             args=(addr, 0, r, ready, stop), daemon=True)
+        t.start()
+        try:
+            assert ready.wait(30) and os.path.exists(path)
+            with cmod.RemoteBatchSource([addr],
+                                        data=_dataset(client_pkg,
+                                                      shard_tree),
+                                        epoch=1, global_batch=BATCH) as src:
+                remote = drain(src)
+            assert_streams_equal(remote, local_stream(
+                _dataset("port", shard_tree), 1, 0, 1))
+        finally:
+            stop.set()
+            try:  # a JAX threaded loop wakes on its next accept
+                with socket.socket(socket.AF_UNIX) as s:
+                    s.settimeout(2)
+                    s.connect(path)
+            except OSError:
+                pass
+            t.join(timeout=10)
+        assert not t.is_alive() and not os.path.exists(path)
 
     @pytest.mark.parametrize("client_pkg,fleet_pkg", DIRECTIONS)
     def test_through_a_coordinator(self, shard_tree, fleets, client_pkg,

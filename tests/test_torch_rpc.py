@@ -24,6 +24,7 @@ by the suite's guard) within the test.
 
 from __future__ import annotations
 
+import os
 import socket
 import threading
 import time
@@ -73,23 +74,32 @@ class Echo:
 
 
 class Server:
-    """A server thread of one package's ``rpc.serve`` over :class:`Echo`."""
+    """A server thread of one package's ``rpc.serve`` over :class:`Echo`,
+    on a TCP port or, given ``path``, on ``unix:<path>``."""
 
-    def __init__(self, rpc_mod):
+    def __init__(self, rpc_mod, path=None):
         self.port = free_port()
+        self.path = path
+        host = "127.0.0.1" if path is None else f"unix:{path}"
         self.ready, self.stop_ev = threading.Event(), threading.Event()
         self.thread = threading.Thread(
-            target=rpc_mod.serve, args=(Echo(), "127.0.0.1", self.port),
+            target=rpc_mod.serve, args=(Echo(), host, self.port),
             kwargs=dict(ready_event=self.ready, stop_event=self.stop_ev,
                         authkey=KEY), daemon=True)
         self.thread.start()
         assert self.ready.wait(10)
-        self.addr = f"127.0.0.1:{self.port}"
+        self.addr = f"127.0.0.1:{self.port}" if path is None else host
 
     def stop(self):
         self.stop_ev.set()
         try:  # unblock a JAX threaded loop's accept()
-            socket.create_connection(("127.0.0.1", self.port), 2).close()
+            if self.path is None:
+                socket.create_connection(("127.0.0.1", self.port),
+                                         2).close()
+            else:
+                with socket.socket(socket.AF_UNIX) as s:
+                    s.settimeout(2)
+                    s.connect(self.path)
         except OSError:
             pass
         self.thread.join(timeout=15)
@@ -100,8 +110,8 @@ class Server:
 def servers():
     made = []
 
-    def make(rpc_mod):
-        made.append(Server(rpc_mod))
+    def make(rpc_mod, path=None):
+        made.append(Server(rpc_mod, path))
         return made[-1]
     yield make
     for s in made:
@@ -287,6 +297,61 @@ def test_port_mux_falls_back_against_jax_threaded_loop(monkeypatch,
         for c in clients:
             c.close()
         t.close()
+
+
+# -- unix:/path addresses ---------------------------------------------------
+
+
+@pytest.mark.parametrize("pair,loop", [
+    ("jax-client/port-server", None),
+    ("port-client/jax-server", "selector"),
+    ("port-client/jax-server", "threaded"),
+    ("port-client/port-server", None)])
+def test_unix_address_across_packages(pair, loop, monkeypatch, servers,
+                                      tmp_path):
+    """``unix:/path`` through each package's ``serve`` and the other's
+    client: the listener binds the socket file, a dedicated client and a
+    multiplexed transport (mux granted by a selector loop, a socket of
+    its own per stream on JAX's threaded one) get every array back
+    bitwise, and the server removes its file when it stops."""
+    if loop is not None:
+        monkeypatch.setenv("THEANOMPI_TPU_RPC_LOOP", loop)
+    # in band: the lane over unix: is test_torch_shm.py's case
+    monkeypatch.setenv("THEANOMPI_TPU_WIRE_SHM", "0")
+    client_mod, server_rpc = PAIRS.get(pair, (service, rpc))
+    path = str(tmp_path / "echo.sock")
+    srv = servers(server_rpc, path)
+    assert os.path.exists(path)
+    assert rpc.unix_path(srv.addr) == jrpc.unix_path(srv.addr) == path
+    t = (jrpc if client_mod is jservice else rpc).MuxConnection(srv.addr)
+    clients = [client_mod.ServiceClient(srv.addr),
+               client_mod.ServiceClient(srv.addr, transport=t)]
+    try:
+        assert t.mux == (loop != "threaded")
+        for i, c in enumerate(clients):
+            assert c.wire_protocol == "v2"
+            assert_same(c.call("echo", payload(i)), payload(i))
+            assert_same(c.call("double", payload(i)),
+                        {k: v * 2 for k, v in payload(i).items()})
+    finally:
+        for c in clients:
+            c.close()
+        t.close()
+    srv.stop()
+    assert not os.path.exists(path), "the server left its socket file"
+
+
+def test_unix_address_forms():
+    """The port reads and writes JAX's address forms."""
+    assert rpc.UNIX_PREFIX == jrpc.UNIX_PREFIX == "unix:"
+    for a in ("unix:/tmp/x.sock", "127.0.0.1:5", "h:7", "unix:"):
+        assert rpc.unix_path(a) == jrpc.unix_path(a)
+    assert rpc.client_address("unix:/tmp/x.sock") == "/tmp/x.sock"
+    assert rpc.client_address("h:7") == ("h", 7)
+    assert rpc.client_address(":7") == ("127.0.0.1", 7)
+    for a in ("unix:/tmp/x.sock", "h:7"):
+        assert rpc.address_string(rpc.client_address(a)) == a
+    assert rpc.have_af_unix() == jrpc.have_af_unix()
 
 
 def test_port_shm_lane_takes_leaves_out_of_band(servers):

@@ -162,6 +162,56 @@ def test_sharded_easgd_is_bit_identical_every_exchange(fleet):
         joiner.close()
 
 
+def test_cpu_shards_share_the_cores(monkeypatch):
+    """K CPU shards each get a K-th of the cores for their arithmetic
+    (K full-width pools made the 2-shard exchange slower than one shard,
+    ``bench_exchange --shards 2 --smoke``); a caller's own
+    ``OMP_NUM_THREADS`` wins, and a card's shards are left alone."""
+    monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    group = ShardProcessGroup.__new__(ShardProcessGroup)
+    group.device, group.n_shards = "cpu", 2
+    cores = len(os.sched_getaffinity(0))
+    assert group.shard_env()["OMP_NUM_THREADS"] == str(max(1, cores // 2))
+    group.n_shards = 4 * cores
+    assert group.shard_env()["OMP_NUM_THREADS"] == "1"
+    group.device = "cuda"
+    assert "OMP_NUM_THREADS" not in group.shard_env()
+    monkeypatch.setenv("OMP_NUM_THREADS", "3")
+    group.device = "cpu"
+    assert group.shard_env()["OMP_NUM_THREADS"] == "3"
+
+
+def test_fleet_on_unix_sockets(monkeypatch):
+    """``THEANOMPI_TPU_UNIX_SOCKETS=1`` (JAX's switch) puts the fleet on
+    AF_UNIX listeners: the addresses are ``unix:/path``, the routers'
+    exchanges and the fenced read are the in-process store's bit for bit,
+    and ``stop`` leaves no socket file behind."""
+    monkeypatch.setenv("THEANOMPI_TPU_UNIX_SOCKETS", "1")
+    p0 = params(0)
+    local = EASGDServer(p0, alpha=0.5)
+    group = ShardProcessGroup(2, max_restarts=0, ready_timeout_s=60)
+    paths = []
+    try:
+        paths = [a[len("unix:"):] for a in group.addresses]
+        assert all(a.startswith("unix:") for a in group.addresses)
+        assert all(os.path.exists(p) for p in paths)
+        srv = ShardedEASGD(group.addresses, p0, alpha=0.5, session_id="u")
+        try:
+            for n in range(2):
+                w = params(30 + n)
+                got, want = srv.exchange(w), local.exchange(w)
+                assert all(torch.equal(a, b) for a, b in zip(got, want))
+            cut, _ = srv.fenced_center()
+            assert all(torch.equal(a, b)
+                       for a, b in zip(cut, local.get_center()))
+        finally:
+            srv.close()
+    finally:
+        group.stop()
+    assert paths and not any(os.path.exists(p) for p in paths)
+    assert not os.path.exists(os.path.dirname(paths[0]))
+
+
 def test_sharded_asgd_is_bit_identical_across_set_lr(fleet):
     p0 = params(1)
     hp = {"learning_rate": 0.1, "optimizer": "sgd", "momentum": 0.9}

@@ -299,3 +299,49 @@ def test_a_full_dev_shm_ships_in_band(monkeypatch):
     assert_same(wire.decode_frame(head, bufs, recv), big)
     send.shm.close()
     recv.shm.close()
+
+
+# -- unix:/path addresses ---------------------------------------------------
+
+
+def test_unix_address_serves_the_service_with_the_lane(tmp_path,
+                                                       monkeypatch):
+    """``unix:/path`` through the port's ``service.serve`` and its
+    clients (the counterpart of ``tests/test_shm.py``'s unix case): the
+    listener binds the socket file, the lane is granted over it, an
+    elastic exchange equals the in-process store's bit for bit, and
+    shutdown removes the file."""
+    import threading
+
+    import torch
+
+    from theanompi_tpu_torch.parallel import rpc, service
+    from theanompi_tpu_torch.parallel.server import EASGDServer
+
+    monkeypatch.setenv("THEANOMPI_TPU_SERVICE_KEY", "shm-unix-test")
+    path = str(tmp_path / "svc.sock")
+    addr = f"{rpc.UNIX_PREFIX}{path}"
+    ready, stop = threading.Event(), threading.Event()
+    t = threading.Thread(target=service.serve, args=(addr, 0, ready, stop),
+                         kwargs=dict(device="cpu"), daemon=True)
+    t.start()
+    assert ready.wait(10)
+    assert os.path.exists(path)
+    rng = np.random.default_rng(3)
+    p0 = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+          for s in ((64, 32), (300,), (7,))]
+    w = [torch.from_numpy(rng.standard_normal(tuple(x.shape)).astype(
+        np.float32)) for x in p0]
+    local = EASGDServer([x.clone() for x in p0], alpha=0.5)
+    srv = service.RemoteEASGD(addr, p0, alpha=0.5, session_id="unix")
+    try:
+        assert srv.wire_protocol == "v2" and srv._own_shm is not None
+        got, want = srv.exchange(w), local.exchange(w)
+        assert all(a.numpy().tobytes() == b.numpy().tobytes()
+                   for a, b in zip(got, want))
+    finally:
+        srv.close()
+        stop.set()
+        t.join(timeout=10)
+    assert not t.is_alive()
+    assert not os.path.exists(path), "shutdown left the socket file"

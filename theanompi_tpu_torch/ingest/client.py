@@ -9,9 +9,9 @@ flag.  One instance covers one (epoch, rank, size) stream and yields
 its batches IN EPOCH ORDER — byte-identical to the in-process loader
 for the same seed (pinned by tests/test_torch_ingest.py, also against
 the JAX package's readers), because reader and trainer derive the same
-permutation from (seed, epoch).  Addresses are TCP ``host:port`` only
-(the port's ``rpc.py`` has no ``unix:`` listeners); each pipe's
-handshake and wire hello wait under ``rpc``'s deadline.
+permutation from (seed, epoch).  Addresses are ``host:port`` or
+``unix:/path``, as in JAX; each pipe's handshake and wire hello wait
+under ``rpc``'s deadline.
 
 Mechanics:
 
@@ -129,9 +129,8 @@ class _ReaderPipe:
                 self.trace = transport.trace
                 return  # negotiation inherited from the transport
         else:
-            host, _, port = addr.rpartition(":")
-            self.conn = rpc.connect_client(
-                (host or "127.0.0.1", int(port)), _authkey())
+            self.conn = rpc.connect_client(rpc.client_address(addr),
+                                           _authkey())
             rpc.set_nodelay(self.conn)
         if os.environ.get("THEANOMPI_TPU_WIRE_PROTOCOL", "v2") == "v2":
             want = wire.WireOptions.from_env()
@@ -191,8 +190,6 @@ class RemoteBatchSource:
                 "dataset must augment on device (augment_on_device="
                 "True) for the remote stream to be byte-identical to "
                 "the local one")
-        for addr in addresses:
-            protocol.check_tcp_address(addr)
         sig = data.ingest_signature()  # raises for synthetic datasets
         self.epoch = int(epoch)
         self.rank = int(rank)

@@ -14,10 +14,10 @@ three sides must agree on:
   pure function of (n_batches, reader list) so every party derives
   the identical assignment from the same inputs;
 * **addresses** — :func:`ingest_addresses` parses the launcher's
-  ``--ingest`` / ``THEANOMPI_TPU_INGEST`` value.  TCP ``host:port``
-  only: the port's ``parallel/rpc.py`` has no ``unix:/path``
-  listeners, so a ``unix:`` address is refused by name
-  (:func:`check_tcp_address`).
+  ``--ingest`` / ``THEANOMPI_TPU_INGEST`` value: ``host:port`` entries
+  only, as in JAX (a ``unix:/path`` entry is refused as "not
+  host:port"; the reader and ``RemoteBatchSource`` themselves take
+  ``unix:/path``).
 
 Correctness note: range assignment is an I/O-locality and read-ahead
 hint, NOT a correctness boundary.  Every reader derives the same epoch
@@ -105,19 +105,8 @@ def ingest_addresses(value: str | None = None) -> list[str] | None:
     if not addrs:
         raise ValueError(f"no addresses in ingest spec {raw!r}")
     for a in addrs:
-        check_tcp_address(a)
         host, _, port = a.rpartition(":")
         if not host or not port.isdigit():
             raise ValueError(f"ingest address {a!r} is not host:port")
     return addrs
 
-
-def check_tcp_address(addr: str) -> None:
-    """Refuse a ``unix:/path`` address: the port's RPC substrate
-    listens and dials on TCP only (JAX's ``rpc.unix_path`` is not
-    ported)."""
-    if str(addr).startswith("unix:"):
-        raise ValueError(
-            f"ingest address {addr!r}: unix: socket addresses are not "
-            "supported by the PyTorch port (its parallel/rpc.py serves "
-            "TCP host:port only); start the readers on a TCP port")

@@ -1,7 +1,8 @@
 """One-in-flight exchange thread: the async rules' comm/compute overlap.
 
 Copy of ``theanompi_tpu/parallel/pipe.py``.  The exchange runs under its
-own span (``<name>_rpc``) on the pipe's thread, inside the trace context
+own span (``<name>_rpc``, or ``span=``: the shard router's
+``shard_exchange``) on the pipe's thread, inside the trace context
 the submitting thread captured (``monitor.trace``), so an overlapped
 exchange stays a child of the worker's span; the worker's wait is the
 caller's ``<name>_collect`` span.  ``close()`` joins the thread.
@@ -35,10 +36,10 @@ class _ExchangePipe:
     started, stops the thread and joins it (it waits for a running
     ``fn``); a result nobody collected stays in the pipe."""
 
-    def __init__(self, fn, name: str, worker: int):
+    def __init__(self, fn, name: str, worker: int, span: str | None = None):
         self._fn = fn
         self._name = name
-        self._span = f"{name}_rpc"
+        self._span = span if span is not None else f"{name}_rpc"
         self._worker = str(worker)
         self._req: queue.Queue = queue.Queue(maxsize=1)
         self._res: queue.Queue = queue.Queue()

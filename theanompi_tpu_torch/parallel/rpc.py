@@ -67,9 +67,10 @@ deadline too (:func:`connect_client`), so a client that connects to a
 server which stops answering raises :class:`HandshakeTimeout` instead of
 waiting forever for the challenge; only the selector loop is ported
 (JAX's thread-per-connection loop and its ``THEANOMPI_TPU_RPC_LOOP``
-switch are not), and addresses are TCP ``host:port`` only (JAX's
-``unix:/path`` form is not ported).  A port client still talks to a JAX
-server on either of its loops.
+switch are not).  Addresses are TCP ``host:port`` or JAX's
+``unix:/path`` form (an AF_UNIX listener, :func:`unix_path`).  A port
+client still talks to a JAX server on either of its loops, over either
+address form.
 """
 
 from __future__ import annotations
@@ -93,7 +94,49 @@ from theanompi_tpu_torch.parallel import shm, wire
 __all__ = [
     "serve", "RpcHooks", "MuxConnection", "HandshakeTimeout",
     "wait_readable", "set_nodelay", "connect_client", "recv_deadline",
+    "unix_path", "have_af_unix", "client_address", "address_string",
 ]
+
+# -- address forms ----------------------------------------------------------
+
+#: same-host fleets may listen on an AF_UNIX socket instead of TCP
+#: loopback: ``serve(host="unix:/path")`` and the same string as a
+#: client address.  Platforms without AF_UNIX silently fall back to
+#: TCP (``127.0.0.1`` + the given port), as JAX's do.
+UNIX_PREFIX = "unix:"
+
+
+def unix_path(host) -> str | None:
+    """The socket path of a ``unix:/path`` address form, or None for
+    every TCP form."""
+    if isinstance(host, str) and host.startswith(UNIX_PREFIX):
+        return host[len(UNIX_PREFIX):]
+    return None
+
+
+def have_af_unix() -> bool:
+    return hasattr(socket, "AF_UNIX")
+
+
+def client_address(address):
+    """What ``multiprocessing.connection.Client`` dials for an address
+    string: the socket path (a ``str``, its AF_UNIX form) for
+    ``unix:/path``, ``(host, port)`` for ``host:port`` (host defaulting to
+    the loopback).  A tuple passes through."""
+    if not isinstance(address, str):
+        return address
+    path = unix_path(address)
+    if path is not None:
+        return path
+    host, _, port = address.rpartition(":")
+    return (host or "127.0.0.1", int(port))
+
+
+def address_string(address) -> str:
+    """The inverse of :func:`client_address`."""
+    if isinstance(address, str):
+        return f"{UNIX_PREFIX}{address}"
+    return f"{address[0]}:{address[1]}"
 
 # -- knobs ------------------------------------------------------------------
 
@@ -240,8 +283,9 @@ class _DeadlineConn:
 
 def connect_client(address, authkey: bytes,
                    timeout_s: float | None = None):
-    """Open a ``multiprocessing.connection`` client to ``address`` and
-    run the stdlib's mutual HMAC handshake under a deadline
+    """Open a ``multiprocessing.connection`` client to ``address``
+    (:func:`client_address`'s form: ``(host, port)`` or a socket path)
+    and run the stdlib's mutual HMAC handshake under a deadline
     (``THEANOMPI_TPU_RPC_HANDSHAKE_TIMEOUT_S`` by default, the server's
     bound): a server that accepted the connect but never answers (one
     stopping, or a wedged one) raises :class:`HandshakeTimeout` instead
@@ -703,9 +747,24 @@ class _SelectorServer:
                                     max(2, min(4, max_workers)))
         self.hs_pool = _DaemonPool(f"rpc-hs-{plane}", 8)
         self.sel = selectors.DefaultSelector()
-        self.listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self.listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self.listener.bind((host, port))
+        path = unix_path(host)
+        if path is not None and not have_af_unix():  # pragma: no cover
+            path, host = None, "127.0.0.1"  # silent TCP fallback
+        self._unix_path = path
+        if path is not None:
+            try:  # a stale socket file from a killed predecessor
+                os.unlink(path)
+            except OSError:
+                pass
+            self.listener = socket.socket(socket.AF_UNIX,
+                                          socket.SOCK_STREAM)
+            self.listener.bind(path)
+        else:
+            self.listener = socket.socket(socket.AF_INET,
+                                          socket.SOCK_STREAM)
+            self.listener.setsockopt(socket.SOL_SOCKET,
+                                     socket.SO_REUSEADDR, 1)
+            self.listener.bind((host, port))
         self.listener.listen(backlog)
         self.listener.setblocking(False)
         self.sel.register(self.listener, selectors.EVENT_READ, "accept")
@@ -1149,6 +1208,11 @@ class _SelectorServer:
         except (KeyError, ValueError):
             pass
         self.listener.close()
+        if self._unix_path is not None:
+            try:
+                os.unlink(self._unix_path)
+            except OSError:
+                pass
         for conn in list(self.conns.values()):
             self._close_conn(conn)
         for pool in (self.pool, self.ctl_pool, self.hs_pool):
@@ -1178,6 +1242,12 @@ def serve(service, host: str = "0.0.0.0", port: int = 0, *,
           backlog: int = 64) -> None:
     """Run ``service`` (anything with ``handle(op, *args)``) behind the
     RPC substrate until ``stop_event`` (or a ``shutdown`` op).
+
+    ``host`` may be the ``unix:/path`` address form: the listener binds
+    an AF_UNIX socket at ``/path`` (``port`` ignored), removes a stale
+    file there first and its own at shutdown, and the same string works
+    as a client address everywhere a ``host:port`` does.
+
     ``max_workers`` caps the default executor pool —
     pass the plane's own admission bound (serving queue, ingest
     max_inflight) so in-flight work, never connection count, bounds
@@ -1320,10 +1390,7 @@ class MuxConnection:
 
     def __init__(self, address, authkey: bytes | None = None,
                  wire_opts: wire.WireOptions | None = None):
-        if isinstance(address, str):
-            host, _, port = address.rpartition(":")
-            address = (host or "127.0.0.1", int(port))
-        self.address = address
+        self.address = client_address(address)
         if authkey is None:
             from theanompi_tpu_torch.parallel.service import _authkey
 
@@ -1392,7 +1459,9 @@ class MuxConnection:
         self._reader = threading.Thread(
             target=self._read_loop, args=(conn, self._gen),
             daemon=True,
-            name=f"rpc-mux-reader-{self.address[1]}-g{self._gen}")
+            name=(f"rpc-mux-reader-"
+                  f"{'unix' if isinstance(self.address, str) else self.address[1]}"
+                  f"-g{self._gen}"))
         self._reader.start()
 
     @property

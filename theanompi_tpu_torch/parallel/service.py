@@ -161,6 +161,15 @@ def host_arrays(values: Tensors) -> list:
     return [h if h.dtype == torch.bfloat16 else h.numpy() for h in hosts]
 
 
+def host_tensor(a: np.ndarray, pin: bool) -> torch.Tensor:
+    """A new CPU tensor holding a copy of one numpy wire leaf, in
+    page-locked memory when ``pin`` (the first half of
+    :func:`to_tensors`' way to a card)."""
+    h = torch.empty(a.shape, dtype=_torch_dtype(a.dtype), pin_memory=pin)
+    h.numpy()[...] = a
+    return h
+
+
 def to_tensors(leaves: Sequence[Any], device) -> list[torch.Tensor]:
     """New tensors on ``device`` from the wire's leaves (numpy arrays or
     CPU bf16 tensors): never views of a wire buffer.  To a card the
@@ -172,10 +181,7 @@ def to_tensors(leaves: Sequence[Any], device) -> list[torch.Tensor]:
         if torch.is_tensor(a):
             out.append(a.to(device, copy=True))
             continue
-        a = np.asarray(a)
-        h = torch.empty(a.shape, dtype=_torch_dtype(a.dtype),
-                        pin_memory=pin)
-        h.numpy()[...] = a
+        h = host_tensor(np.asarray(a), pin)
         out.append(h.to(device, non_blocking=True) if pin else h)
     return out
 
@@ -464,7 +470,8 @@ def serve(host: str = "0.0.0.0", port: int = DEFAULT_PORT,
           device: str | torch.device = "cuda") -> None:
     """Run the service until a ``shutdown`` op (or ``stop_event``) —
     the param-service plane of the shared RPC substrate
-    (``parallel/rpc.py``, its selector event loop).
+    (``parallel/rpc.py``, its selector event loop).  ``host`` may be
+    ``unix:/path`` (an AF_UNIX listener, ``port`` ignored).
 
     ``authkey=None`` reads ``THEANOMPI_TPU_SERVICE_KEY`` — generating,
     printing, and exporting a random key into this process's environment
@@ -581,8 +588,8 @@ class ServiceClient:
                  protocol: str | None = None,
                  wire_opts: wire.WireOptions | None = None,
                  transport: "rpc.MuxConnection | None" = None):
-        host, _, port = address.rpartition(":")
-        self.address: Any = (host or "127.0.0.1", int(port))
+        #: ``(host, port)``, or the socket path of a ``unix:/path``
+        self.address: Any = rpc.client_address(address)
         self._authkey = authkey if authkey is not None else _authkey()
         self._retry = retry if retry is not None else _default_wire_retry()
         protocol = protocol or os.environ.get(
@@ -954,7 +961,8 @@ class ShardedServiceClient:
                 # lazily: a client used only for fenced reads (the
                 # EASGD orchestrator) never spins exchange threads
                 self._pipes = [
-                    _ExchangePipe(lambda thunk: thunk(), "shard", i)
+                    _ExchangePipe(lambda thunk: thunk(), "shard", i,
+                                  span="shard_exchange")
                     for i in range(len(self._shard_clients))]
             return self._pipes
 
@@ -1000,10 +1008,10 @@ class ShardedServiceClient:
         with self._router_lock:
             c = self._fence_clients[i]
         if c is None:
-            host, port = self._shard_clients[i].address
-            c = ServiceClient(f"{host}:{port}",
-                              transport=(self._transports[i]
-                                         if self._transports else None))
+            c = ServiceClient(
+                rpc.address_string(self._shard_clients[i].address),
+                transport=(self._transports[i]
+                           if self._transports else None))
             with self._router_lock:
                 if self._fence_clients[i] is None:
                     self._fence_clients[i] = c

@@ -64,8 +64,10 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from typing import Sequence
@@ -75,6 +77,7 @@ import torch
 from theanompi_tpu_torch import monitor
 from theanompi_tpu_torch.analysis.lockgraph import make_condition, make_lock
 from theanompi_tpu_torch.ops import _kernels
+from theanompi_tpu_torch.parallel import rpc
 from theanompi_tpu_torch.parallel.partition import balanced_ranges
 from theanompi_tpu_torch.parallel.service import (
     FenceBusy,
@@ -644,7 +647,14 @@ class ShardProcessGroup:
     ``device`` is passed to every shard as ``--device`` (default the
     CPU, as JAX's fleet defaults to its CPU platform), and
     ``compilation_cache_dir`` (the launcher's) as
-    ``--compilation-cache-dir``."""
+    ``--compilation-cache-dir``.
+
+    ``THEANOMPI_TPU_UNIX_SOCKETS=1`` puts the whole fleet on AF_UNIX
+    listeners (JAX's switch): one socket file per shard, in a directory
+    of its own under the temporary directory that :meth:`stop` removes.
+    A port is still allocated per shard, so a platform without AF_UNIX
+    (or a temporary directory too deep for a socket path) falls back to
+    TCP silently, as JAX's does."""
 
     def __init__(self, n_shards: int, host: str = "127.0.0.1",
                  max_restarts: int = 1, device: str = "cpu",
@@ -655,16 +665,25 @@ class ShardProcessGroup:
         self.host = host
         self.max_restarts = int(max_restarts)
         self.device = str(device)
+        self.n_shards = int(n_shards)
         self.compilation_cache_dir = compilation_cache_dir
         _authkey(generate=True)  # ensure + export the shared key
         self._lock = make_lock("ShardProcessGroup._lock")
         self._stopping = threading.Event()
         self._ports: list[int] = []
+        self._sock_dir = (tempfile.mkdtemp(prefix="tmshard_")
+                          if os.environ.get("THEANOMPI_TPU_UNIX_SOCKETS")
+                          == "1" and rpc.have_af_unix() else None)
+        self._socks: list[str | None] = []
         self._procs: list[subprocess.Popen] = []  # guarded_by: self._lock
         self._restarts: dict[int, int] = {}       # guarded_by: self._lock
         for i in range(n_shards):
             port = _free_port()
             self._ports.append(port)
+            sock = (None if self._sock_dir is None else
+                    os.path.join(self._sock_dir, f"shard{i}.sock"))
+            # AF_UNIX paths hold at most 107 bytes
+            self._socks.append(sock if sock and len(sock) < 100 else None)
             self._procs.append(self._spawn(i, port))
         self._wait_ready(ready_timeout_s)
         self._watcher = threading.Thread(
@@ -673,7 +692,8 @@ class ShardProcessGroup:
 
     @property
     def addresses(self) -> list[str]:
-        return [f"{self.host}:{p}" for p in self._ports]
+        return [f"{rpc.UNIX_PREFIX}{sock}" if sock else f"{self.host}:{p}"
+                for sock, p in zip(self._socks, self._ports)]
 
     @property
     def server_addr(self) -> str:
@@ -681,12 +701,28 @@ class ShardProcessGroup:
         return ",".join(self.addresses)
 
     def _spawn(self, index: int, port: int) -> subprocess.Popen:
+        sock = self._socks[index]
+        host = f"{rpc.UNIX_PREFIX}{sock}" if sock else self.host
         cmd = [sys.executable, "-m", "theanompi_tpu_torch.parallel.shards",
-               "--host", self.host, "--port", str(port),
+               "--host", host, "--port", str(port),
                "--shard-index", str(index), "--device", self.device]
         if self.compilation_cache_dir:
             cmd += ["--compilation-cache-dir", self.compilation_cache_dir]
-        return subprocess.Popen(cmd, env=child_env())
+        return subprocess.Popen(cmd, env=self.shard_env())
+
+    def shard_env(self) -> dict:
+        """A shard's environment.  CPU shards share the host's cores: each
+        gets a K-th of them for its arithmetic (``OMP_NUM_THREADS``,
+        unless the caller set it), because K full-width thread pools
+        running their merges at once oversubscribe the host and make K
+        shards slower than one."""
+        env = child_env()
+        if self.device == "cpu" and "OMP_NUM_THREADS" not in os.environ:
+            cores = (len(os.sched_getaffinity(0))
+                     if hasattr(os, "sched_getaffinity")
+                     else os.cpu_count() or 1)
+            env["OMP_NUM_THREADS"] = str(max(1, cores // self.n_shards))
+        return env
 
     def _wait_ready(self, timeout_s: float) -> None:
         deadline = time.monotonic() + timeout_s
@@ -743,7 +779,7 @@ class ShardProcessGroup:
                     self._restarts[i] = n + 1
                     self._procs[i] = self._spawn(i, self._ports[i])
                 print(f"[shards] shard {i} died (rc={proc.returncode}); "
-                      f"relaunched on port {self._ports[i]} "
+                      f"relaunched at {self.addresses[i]} "
                       f"({n + 1}/{self.max_restarts})",
                       file=sys.stderr, flush=True)
                 monitor.inc("service/shard_restarts_total", shard=i)
@@ -794,6 +830,9 @@ class ShardProcessGroup:
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait(timeout=5)
+        if self._sock_dir is not None:
+            # a terminated or killed shard leaves its socket file
+            shutil.rmtree(self._sock_dir, ignore_errors=True)
 
     def __enter__(self) -> "ShardProcessGroup":
         return self

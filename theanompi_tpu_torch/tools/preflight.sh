@@ -2,15 +2,16 @@
 # Preflight gate of the PyTorch/CUDA port, all on the CPU (the counterpart
 # of tools/preflight.sh's steps for the JAX package): the port's static
 # checker suite, its tests with the slow ones, the entry points on
-# four gloo ranks, and the monitor, collector, resilience, serving, decode
-# and front-door smokes through the port's launcher and CLIs.  JAX's
-# later steps (exchange-bench, bucketed, shard, hierarchy, rpc soak,
-# ingest and rpc smokes) run tools/bench_*.py; the port's wait for its
-# benchmark.
+# four gloo ranks, the monitor, collector, resilience, serving, decode
+# and front-door smokes through the port's launcher and CLIs, and the
+# host planes' bench smokes in JAX's order and with its arguments plus
+# --device cpu: the exchange, bucketed, shard and hierarchy smokes
+# (theanompi_tpu_torch/tools/bench_exchange.py), the rpc soak, the ingest
+# smoke and the rpc smoke (bench_rpc.py, bench_ingest.py beside it).
 #
 # Usage:  bash theanompi_tpu_torch/tools/preflight.sh [LOG]
 # Exit 0 = green.  Writes the whole output to LOG (default
-# build/preflight_torch.log).  Run from anywhere; about 20-30 minutes.
+# build/preflight_torch.log).  Run from anywhere; about 30-40 minutes.
 set -u
 cd "$(dirname "$0")/../.."
 LOG="${1:-build/preflight_torch.log}"
@@ -422,7 +423,85 @@ PYEOF
   fi
   rm -rf "$FRONTDIR"
   echo "frontdoor smoke rc=$FRONTDOOR_RC"
-  if [ "$TMLINT_RC" -ne 0 ] || [ "$GATE_RC" -ne 0 ] || [ "$PYTEST_RC" -ne 0 ] || [ "$ENTRY_RC" -ne 0 ] || [ "$MONITOR_RC" -ne 0 ] || [ "$COLLECTOR_RC" -ne 0 ] || [ "$RESILIENCE_RC" -ne 0 ] || [ "$SERVING_RC" -ne 0 ] || [ "$DECODE_RC" -ne 0 ] || [ "$FRONTDOOR_RC" -ne 0 ]; then
+  BENCH="python -m theanompi_tpu_torch.tools"
+  echo "## exchange-bench smoke (wire v1 vs v2 over real sockets, every mode)"
+  # the ~25M-parameter tree through the port's service in every protocol
+  # x compression x dtype mode: v2 (lossless zlib/f32) beats v1 on bytes,
+  # the bf16 cut is >= 45%, the compression-ratio gauge is in the monitor
+  # JSONL; then the stage split of one in-band exchange
+  EXCHDIR="$(mktemp -d)"
+  THEANOMPI_TPU_MONITOR="$EXCHDIR" $BENCH.bench_exchange --device cpu \
+    --smoke --out "$EXCHDIR/BENCH_wire_smoke.json"
+  EXCHANGE_RC=$?
+  rm -rf "$EXCHDIR"
+  echo "exchange smoke rc=$EXCHANGE_RC"
+  echo "## bucketed-exchange smoke (B=4 against B=1 on 4 gloo ranks)"
+  # B collectives launched an exchange, a B=4 train step bit-identical to
+  # B=1 over 3 iterations where the exchanger promises it (bf16 on every
+  # rank, f32 on a two-rank group), and the bsp/exchange_buckets gauge
+  BUCKETDIR="$(mktemp -d)"
+  THEANOMPI_TPU_MONITOR="$BUCKETDIR" $BENCH.bench_exchange --device cpu \
+    --buckets 4 --smoke --out "$BUCKETDIR/BENCH_bucketed_smoke.json"
+  BUCKET_RC=$?
+  rm -rf "$BUCKETDIR"
+  echo "bucketed-exchange smoke rc=$BUCKET_RC"
+  echo "## shard smoke (2-shard EASGD over real sockets + kill-recovery)"
+  # two real shard processes and the kill leg: the K=2 aggregate wall
+  # beats K=1, both shards' shard_exchange spans and the recovery events
+  # are in the monitor JSONL, and the lane carried the exchange
+  SHARDDIR="$(mktemp -d)"
+  THEANOMPI_TPU_MONITOR="$SHARDDIR" $BENCH.bench_exchange --device cpu \
+    --smoke --shards 2 --out "$SHARDDIR/BENCH_shard_smoke.json"
+  SHARD_RC=$?
+  if [ "$SHARD_RC" -eq 0 ]; then
+    shm_lane_evidence "$SHARDDIR" "shard exchange" || SHARD_RC=1
+  fi
+  rm -rf "$SHARDDIR"
+  echo "shard smoke rc=$SHARD_RC"
+  echo "## hierarchy smoke (4 local workers -> 1 aggregator -> 2 shard processes)"
+  # wire bytes a period >= 3.9x below the direct baseline, the ASGD
+  # delta-sum byte identity and the EASGD closed form on the exact
+  # lattice, the fan-in gauge at 4 and local_aggregate spans
+  HIERDIR="$(mktemp -d)"
+  THEANOMPI_TPU_MONITOR="$HIERDIR" $BENCH.bench_exchange --device cpu \
+    --local-workers 4 --shards 2 --smoke \
+    --out "$HIERDIR/BENCH_hierarchy_smoke.json"
+  HIER_RC=$?
+  rm -rf "$HIERDIR"
+  echo "hierarchy smoke rc=$HIER_RC"
+  echo "## rpc soak (mux byte-identity under sustained load)"
+  # muxed streams hammer identity-checked center reads while large gossip
+  # frames interleave on the same sockets, on the selector loop
+  SOAKDIR="$(mktemp -d)"
+  $BENCH.bench_rpc --device cpu --soak --dur 4 --payload-kb 64 \
+    --out "$SOAKDIR/BENCH_rpc_soak.json"
+  SOAK_RC=$?
+  rm -rf "$SOAKDIR"
+  echo "rpc soak rc=$SOAK_RC"
+  echo "## ingest smoke (2-reader fleet over real sockets + kill-recovery)"
+  # N=2 aggregate img/s >= 1.7x N=1 at identical bytes, both readers
+  # served, reader 0 SIGKILLed mid-epoch and the stream completed, the
+  # recovery counters in the monitor JSONL, batches over the lane
+  INGESTDIR="$(mktemp -d)"
+  THEANOMPI_TPU_MONITOR="$INGESTDIR" $BENCH.bench_ingest --device cpu \
+    --smoke --out "$INGESTDIR/BENCH_ingest_smoke.json"
+  INGEST_RC=$?
+  if [ "$INGEST_RC" -eq 0 ]; then
+    shm_lane_evidence "$INGESTDIR" "ingest batches" || INGEST_RC=1
+  fi
+  rm -rf "$INGESTDIR"
+  echo "ingest smoke rc=$INGEST_RC"
+  echo "## rpc smoke (concurrent-connection scaling on the selector loop)"
+  # a real service process pinned to one core: flat per-connection p99
+  # from 8 to 200 connections, the convoy bar, and rpc/connections_total
+  # and service/requests_total from the server's JSONL
+  RPCDIR="$(mktemp -d)"
+  $BENCH.bench_rpc --device cpu --smoke --conns 8,200 --dur 3 \
+    --out "$RPCDIR/BENCH_rpc_smoke.json"
+  RPC_RC=$?
+  rm -rf "$RPCDIR"
+  echo "rpc smoke rc=$RPC_RC"
+  if [ "$TMLINT_RC" -ne 0 ] || [ "$GATE_RC" -ne 0 ] || [ "$PYTEST_RC" -ne 0 ] || [ "$ENTRY_RC" -ne 0 ] || [ "$MONITOR_RC" -ne 0 ] || [ "$COLLECTOR_RC" -ne 0 ] || [ "$RESILIENCE_RC" -ne 0 ] || [ "$SERVING_RC" -ne 0 ] || [ "$DECODE_RC" -ne 0 ] || [ "$FRONTDOOR_RC" -ne 0 ] || [ "$EXCHANGE_RC" -ne 0 ] || [ "$BUCKET_RC" -ne 0 ] || [ "$SHARD_RC" -ne 0 ] || [ "$HIER_RC" -ne 0 ] || [ "$SOAK_RC" -ne 0 ] || [ "$INGEST_RC" -ne 0 ] || [ "$RPC_RC" -ne 0 ]; then
     echo "PREFLIGHT (port): FAIL"
     [ "$TMLINT_RC" -ne 0 ] && echo "PREFLIGHT (port): tmlint --gate found NEW findings — fix them or baseline them with a reason"
     exit 1
